@@ -1,0 +1,50 @@
+"""Partitioned graph query processing on PyTorch (Das et al., 2019).
+
+Public API of this slice:
+
+  Graph / GraphBuilder / PartitionedGraph / build_partitions
+  partition_graph / SCHEMES            — multilevel partitioner
+  build_catalog / generate_plan        — cost-based planning
+  Query / DisjunctiveQuery / make_*    — query construction
+  EngineConfig / make_partition_evaluator — the evaluator (core/engine.py)
+  OPATEngine                           — One Partition At a Time serving
+  PartitionStore / LoadStats           — device residency: LRU cache,
+                                         pins, side-stream prefetch
+  GraphSession / QueryResult           — in-RAM serving session (OPAT)
+  oracle.match_query                   — whole-graph ground truth
+"""
+from .catalog import Catalog, build_catalog
+from .engine import EngineConfig, EvalResult, make_partition_evaluator, resolve_device
+from .graph import (Graph, GraphBuilder, LabelVocab, PartitionArrays,
+                    PartitionedGraph, WILDCARD, build_partitions)
+from .heuristics import (ALL_HEURISTICS, MAX_SN, MAX_YIELD, MIN_SN, RANDOM_SN,
+                         rank_partitions)
+from .metrics import RunStats, l_ideal_for_plan
+from .opat import OPATEngine, OPATResult, absorb_eval_outputs
+from .oracle import match_disjunctive, match_query
+from .partition import SCHEMES, PartitionScheme, partition_graph, partition_quality
+from .plan import Plan, PlanArrays, PlanStep, generate_plan
+from .query import (DisjunctiveQuery, Query, QueryEdge, QueryNode,
+                    make_path_query, make_star_query)
+from .runner import QueryRunner, RunReport, RunRequest, truncate_answers
+from .session import GraphSession, QueryResult
+from .state import BindingBatch, QueryState
+from .store import LoadStats, PartitionStore, StoreEntry
+
+__all__ = [
+    "Catalog", "build_catalog", "EngineConfig", "EvalResult",
+    "make_partition_evaluator", "resolve_device",
+    "Graph", "GraphBuilder", "LabelVocab", "PartitionArrays",
+    "PartitionedGraph", "WILDCARD", "build_partitions",
+    "ALL_HEURISTICS", "MAX_SN", "MAX_YIELD", "MIN_SN", "RANDOM_SN",
+    "rank_partitions", "RunStats", "l_ideal_for_plan",
+    "OPATEngine", "OPATResult", "absorb_eval_outputs",
+    "match_disjunctive", "match_query",
+    "SCHEMES", "PartitionScheme", "partition_graph", "partition_quality",
+    "Plan", "PlanArrays", "PlanStep", "generate_plan",
+    "DisjunctiveQuery", "Query", "QueryEdge", "QueryNode",
+    "make_path_query", "make_star_query",
+    "QueryRunner", "RunReport", "RunRequest", "truncate_answers",
+    "GraphSession", "QueryResult", "BindingBatch", "QueryState",
+    "LoadStats", "PartitionStore", "StoreEntry",
+]

@@ -1,0 +1,288 @@
+"""The within-partition evaluator on PyTorch tensors.
+
+One evaluator call processes one partition: it seeds fresh start-node
+bindings (when the partition is processed for the first time), expands
+all local partial answers breadth-first following the plan, and
+classifies every produced row as
+
+  completed  -> appended to the FAA buffer,
+  local      -> next frontier vertex owned here; kept in the work buffer,
+  outgoing   -> next frontier vertex owned elsewhere; emitted with its
+                destination partition id (the paper's PCA/IMA continuation).
+
+All buffers are fixed capacity; saturation sets an ``overflow`` flag the
+host checks (never silent).  The per-step expansion evaluates an [EB, W]
+tile (EB active bindings x ELLPACK width W) of candidate edges densely in
+one fused kernel (kernels/fused_frontier.py): the CUDA kernel on CUDA
+tensors, its plain PyTorch version on CPU tensors.
+
+The expansion loop is a Python loop with one host sync per iteration (the
+"any row still active" test).  Row selection breaks ties the way the
+JAX evaluator's ``lax.top_k`` does — lowest index first — through a
+stable sort, so iteration counts and row placement match it exactly.
+Masked appends write their dropped rows into one spare trash row at the
+end of each buffer, so no scatter index is ever out of range and no
+boolean-mask indexing forces a sync.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+from ..kernels import ref as kref
+from .graph import WILDCARD, PartitionArrays
+from .plan import PlanArrays
+
+_PLAN_TENSOR_FIELDS = ("start_slot", "start_label", "start_value_op",
+                       "start_value", "src_slot", "dst_slot", "edge_label",
+                       "direction", "dst_label", "dst_value_op", "dst_value",
+                       "closes_cycle")
+
+
+def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
+    """``None`` means ``"cuda"``.  A CUDA device with no card raises: the
+    port never carries on quietly on the CPU; pass ``device="cpu"`` to run
+    the kernels' plain versions on the host."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' "
+                               "to run the plain versions on the host")
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static geometry of the evaluator."""
+
+    q_pad: int = 8            # binding row width (max query nodes)
+    s_pad: int = 12           # padded plan length
+    cap: int = 4096           # in/out/completed buffer capacity
+    expand_block: int = 512   # active rows expanded per loop iteration (EB)
+    max_inner_iters: int = 10_000
+
+
+class EvalResult(NamedTuple):
+    comp_rows: torch.Tensor      # [cap, Q] int32
+    comp_n: torch.Tensor         # [] int32
+    out_rows: torch.Tensor       # [cap, Q] int32
+    out_step: torch.Tensor       # [cap] int32
+    out_dest: torch.Tensor       # [cap] int32
+    out_n: torch.Tensor          # [] int32
+    overflow: torch.Tensor       # [] bool
+    n_iters: torch.Tensor        # [] int32 expansion-loop iterations
+    n_expanded: torch.Tensor     # [] int32 total candidate rows expanded
+
+
+def _next_rows(rows_b, step_b, dg, plan):
+    """New binding rows [EB, W, Q] and steps [EB, W]."""
+    EB, Q = rows_b.shape
+    W = dg.shape[1]
+    s = step_b.clamp(0, plan.src_slot.shape[0] - 1).long()
+    p_dst = plan.dst_slot[s]
+    p_closes = plan.closes_cycle[s]
+    col = torch.arange(Q, dtype=torch.int32, device=rows_b.device)
+    setcol = (col[None, None, :] == p_dst[:, None, None]) & (p_closes[:, None, None] == 0)
+    nr = torch.where(setcol, dg[:, :, None], rows_b[:, None, :])
+    ns = (step_b[:, None] + 1).expand(EB, W)
+    return nr, ns
+
+
+def _expand_classify(rows_b, step_b, lidx_b, m, part, g2l_row, owner, aux,
+                     plan, n_steps):
+    """Fused inner step: match an [EB, W] candidate tile AND classify every
+    produced row as done / keep / outgoing (with destination pid).
+
+    ``aux`` is the (ell_dlidx, ell_downer) pair from kops.denorm_locality,
+    computed once per evaluator call.  Returns ([EB, W]-shaped) ok, dg,
+    ns, nr, done, keep, outm, dest.
+    """
+    ell_dlidx, ell_downer = aux
+    ok, dg, done, keep, outm, dest = kops.fused_frontier(
+        rows_b, step_b, lidx_b, m,
+        part["ell_dst"], part["ell_label"], part["ell_dir"],
+        part["ell_dlab"], part["ell_dval"], part["ell_dgid"],
+        ell_dlidx, ell_downer, g2l_row, owner, part["n_core"],
+        plan, n_steps)
+    nr, ns = _next_rows(rows_b, step_b, dg, plan)
+    return ok, dg, ns, nr, done, keep, outm, dest
+
+
+def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
+    """Build the evaluator.
+
+    Geometry-agnostic: the padded node count ``Np`` and ELLPACK width ``W``
+    are read off the input tensors (``node_pad`` / ``ell_width`` are
+    advisory, kept in the signature for callers that size buffers up
+    front).  Runs on the device its inputs live on.
+    """
+
+    Q, S = cfg.q_pad, cfg.s_pad
+    CAP = cfg.cap
+
+    def _frontier_local(rows, step, valid, plan, n_steps, g2l_row, n_core):
+        """active mask + local index of each row's next frontier vertex."""
+        s = step.clamp(0, S - 1).long()
+        src_slot = plan.src_slot[s]
+        fg = rows.gather(1, src_slot.long()[:, None])[:, 0]
+        fg_safe = fg.clamp(0, g2l_row.shape[0] - 1).long()
+        lidx = torch.where(fg >= 0, g2l_row[fg_safe], -1)
+        local = (lidx >= 0) & (lidx < n_core)
+        act = valid & (step < n_steps) & local
+        return act, lidx, fg
+
+    def _append(buf_rows, buf_aux, buf_n, rows_flat, aux_flat, mask_flat, overflow):
+        """Masked append into a fixed buffer whose last row is a trash row:
+        rows past capacity land there and are dropped."""
+        cap = buf_rows.shape[0] - 1
+        cnt = torch.cumsum(mask_flat, 0) - 1
+        tgt = buf_n + cnt
+        tgt = torch.where(mask_flat & (tgt < cap), tgt, cap)
+        buf_rows[tgt] = rows_flat
+        for b, a in zip(buf_aux, aux_flat):
+            b[tgt] = a
+        total = buf_n + mask_flat.sum()
+        overflow = overflow | (total > cap)
+        return total.clamp(max=cap), overflow
+
+    def evaluate(part: Dict[str, torch.Tensor], g2l_row: torch.Tensor,
+                 owner: torch.Tensor, plan: PlanArrays, n_steps: int,
+                 in_rows: torch.Tensor, in_step: torch.Tensor,
+                 in_valid: torch.Tensor, seed_fresh: bool) -> EvalResult:
+        dev = in_rows.device
+        n_core = int(part["n_core"])
+        n_steps = int(n_steps)
+        Np = part["node_label"].shape[0]
+        W = part["ell_dst"].shape[1]
+        WT = CAP + Np  # work buffer: incoming rows + fresh seeds
+        EB = min(cfg.expand_block, WT)  # can't select more rows than exist
+        EBW = EB * W
+        kfree = min(EBW, WT)
+
+        # locality tables for the fused kernel: once per call
+        aux = kops.denorm_locality(part["ell_dgid"], g2l_row, owner)
+
+        # ---- seed fresh start-node bindings (SNI entries with NULL vid) ----
+        node_idx = torch.arange(Np, dtype=torch.int32, device=dev)
+        start_ok = ((node_idx < n_core)
+                    & ((plan.start_label == WILDCARD)
+                       | (part["node_label"] == plan.start_label))
+                    & kref.value_pred(plan.start_value_op, part["node_value"],
+                                 plan.start_value)
+                    & bool(seed_fresh))
+        col = torch.arange(Q, dtype=torch.int32, device=dev)
+        fresh_rows = torch.where((col[None, :] == plan.start_slot) & start_ok[:, None],
+                                 part["node_gid"][:, None], -1)
+        # one extra trash row at index WT (see _append)
+        wr_full = torch.cat([in_rows, fresh_rows,
+                             torch.full((1, Q), -1, dtype=torch.int32, device=dev)])
+        ws_full = torch.cat([in_step, torch.zeros(Np + 1, dtype=torch.int32, device=dev)])
+        wv_full = torch.cat([in_valid, start_ok,
+                             torch.zeros(1, dtype=torch.bool, device=dev)])
+        wr, ws, wv = wr_full[:WT], ws_full[:WT], wv_full[:WT]
+
+        comp_rows = torch.full((CAP + 1, Q), -1, dtype=torch.int32, device=dev)
+        out_rows = torch.full((CAP + 1, Q), -1, dtype=torch.int32, device=dev)
+        out_step = torch.zeros(CAP + 1, dtype=torch.int32, device=dev)
+        out_dest = torch.full((CAP + 1,), -1, dtype=torch.int32, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        comp_n, out_n = zero, zero
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        n_expanded = zero
+
+        # ---- pre-classify: rows already complete, or frontier not local ----
+        done0 = wv & (ws >= n_steps)
+        act0, _, fg0 = _frontier_local(wr, ws, wv, plan, n_steps, g2l_row, n_core)
+        outm0 = wv & ~done0 & ~act0
+        dest0 = owner[fg0.clamp(0, owner.shape[0] - 1).long()]
+        comp_n, overflow = _append(comp_rows, (), comp_n, wr, (), done0, overflow)
+        out_n, overflow = _append(out_rows, (out_step, out_dest), out_n, wr,
+                                  (ws, dest0), outm0, overflow)
+        wv &= act0
+
+        it = 0
+        while it < cfg.max_inner_iters:
+            act, lidx, _ = _frontier_local(wr, ws, wv, plan, n_steps, g2l_row, n_core)
+            if not bool(act.any()):
+                break
+            # up to EB active rows, lowest index first (lax.top_k's ties)
+            sel = torch.sort(act.to(torch.uint8), descending=True, stable=True)[1][:EB]
+            m = act[sel]
+            rows_b = wr[sel]
+            step_b = ws[sel]
+            lidx_b = lidx[sel]
+            # consume them
+            wv[sel] = wv[sel] & ~m
+
+            (ok, dg, ns, nr, done_t, keep_t, outm_t, dest_t) = _expand_classify(
+                rows_b, step_b, lidx_b, m, part, g2l_row, owner, aux,
+                plan, n_steps)
+
+            nr_f = nr.reshape(EBW, Q)
+            ns_f = ns.reshape(EBW)
+            done = done_t.reshape(EBW)
+            keep = keep_t.reshape(EBW)
+            outm = outm_t.reshape(EBW)
+            dest = dest_t.reshape(EBW)
+
+            comp_n, overflow = _append(comp_rows, (), comp_n, nr_f, (), done, overflow)
+            out_n, overflow = _append(out_rows, (out_step, out_dest), out_n, nr_f,
+                                      (ns_f, dest), outm, overflow)
+            # keep-rows go into the lowest free work slots
+            free = torch.sort((~wv).to(torch.uint8), descending=True,
+                              stable=True)[1][:kfree]
+            overflow = overflow | (keep.sum() > (~wv).sum())
+            pos = torch.cumsum(keep, 0) - 1
+            tgt = torch.where(keep & (pos < kfree), free[pos.clamp(0, kfree - 1)], WT)
+            wr_full[tgt] = nr_f
+            ws_full[tgt] = ns_f
+            wv_full[tgt] = True
+
+            it += 1
+            n_expanded = n_expanded + m.sum()
+
+        i32 = torch.int32
+        return EvalResult(comp_rows[:CAP], comp_n.to(i32), out_rows[:CAP],
+                          out_step[:CAP], out_dest[:CAP], out_n.to(i32),
+                          overflow, torch.tensor(it, dtype=i32, device=dev),
+                          n_expanded.to(i32))
+
+    return evaluate
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers shared with the store and the OPAT orchestrator
+# ---------------------------------------------------------------------------
+
+def part_to_device_dict(p: PartitionArrays) -> Dict[str, np.ndarray]:
+    """The evaluator's input dict for one partition, as host numpy arrays
+    (the store pins and stages them)."""
+    assert p.ell_dst is not None, "call PartitionArrays.to_ell() first"
+    return dict(
+        pid=np.int32(p.pid),
+        n_core=np.int32(p.n_core),
+        node_gid=p.node_gid,
+        node_label=p.node_label,
+        node_value=p.node_value,
+        ell_dst=p.ell_dst,
+        ell_label=p.ell_label,
+        ell_dir=p.ell_dir,
+        ell_dlab=p.ell_dlab,
+        ell_dval=p.ell_dval,
+        ell_dgid=p.ell_dgid,
+    )
+
+
+def plan_to_device(pa: PlanArrays, device: Optional[torch.device] = None) -> PlanArrays:
+    """The same PlanArrays with every array field a tensor on ``device``
+    (``n_slots`` / ``n_steps`` stay Python ints)."""
+    dev = resolve_device(device)
+    return dataclasses.replace(pa, **{
+        f: torch.as_tensor(np.asarray(getattr(pa, f))).to(dev)
+        for f in _PLAN_TENSOR_FIELDS})

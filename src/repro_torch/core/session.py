@@ -1,0 +1,206 @@
+"""GraphSession — the stateful serving API over one partitioned graph.
+
+The paper's workload is *query serving*: many queries, one partitioned
+graph, response time dominated by the partition-load sequence.  A
+``GraphSession`` is constructed once from (graph, scheme, k, engine,
+EngineConfig) and then serves repeated ``submit`` calls against the same
+residency state:
+
+  * it owns the ``PartitionStore`` (core/store.py), so the second query
+    finds the first query's partitions device-resident — warm loads — and
+    OPAT's runner-up prefetch overlaps copies with evaluation;
+  * it owns the catalog and the engine;
+  * it accumulates per-partition loads, completed vs spawned rows, and the
+    per-answer partition-span matrix.
+
+``submit(query, max_answers=K)`` accepts a conjunctive ``Query`` or a
+``DisjunctiveQuery`` (per-disjunct plans, unioned answers; a budget K
+applies per disjunct) and returns a ``QueryResult``.
+
+This session is in RAM and serves the OPAT engine only; the other
+engines, ``open``/``save``, mutation, repartitioning, the multi-query
+scheduler and the SLO front end come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..obs.trace import NULL_TRACER
+from .catalog import Catalog, build_catalog
+from .engine import EngineConfig, resolve_device
+from .graph import Graph, PartitionedGraph, build_partitions
+from .heuristics import MAX_SN
+from .metrics import RunStats
+from .opat import OPATEngine
+from .partition import partition_graph
+from .plan import generate_plan
+from .query import DisjunctiveQuery, Query
+from .repartition import answer_span_matrix
+from .runner import RunReport, RunRequest
+from .store import LoadStats, PartitionStore
+
+ENGINES = ("opat", "traditional", "mapreduce")
+
+
+@dataclasses.dataclass
+class QueryResult:
+    """What ``GraphSession.submit`` returns for one (possibly disjunctive)
+    query: merged unique answers plus everything observability needs."""
+
+    name: str
+    answers: np.ndarray            # [n, q_pad] unique rows (union of disjuncts)
+    reports: List[RunReport]       # one per disjunct, in disjunct order
+    latency_s: float
+    load_stats: LoadStats          # this call's store delta (cold/warm/prefetch)
+
+    @property
+    def n_answers(self) -> int:
+        return int(self.answers.shape[0])
+
+    @property
+    def stats(self) -> List[RunStats]:
+        return [r.stats for r in self.reports]
+
+    @property
+    def n_loads(self) -> int:
+        return sum(s.n_loads for s in self.stats)
+
+
+class GraphSession:
+    """One partitioned graph, one engine, many queries.
+
+    ``engine`` must be ``"opat"`` (the others raise
+    ``NotImplementedError``); ``cache_parts`` / ``cache_bytes`` size the
+    store's LRU device cache (None = unbounded); ``prefetch`` enables
+    OPAT's runner-up staging.  Pass ``pg`` to reuse an existing
+    ``PartitionedGraph``.  ``device=None`` means ``"cuda"``.
+    """
+
+    def __init__(self, graph: Optional[Graph] = None, *,
+                 k: int = 4,
+                 scheme: str = "kway_shem",
+                 engine: str = "opat",
+                 heuristic: str = MAX_SN,
+                 config: Optional[EngineConfig] = None,
+                 cache_parts: Optional[int] = None,
+                 cache_bytes: Optional[int] = None,
+                 prefetch: bool = True,
+                 seed: int = 0,
+                 pg: Optional[PartitionedGraph] = None,
+                 catalog: Optional[Catalog] = None,
+                 tracer: Optional[Any] = None,
+                 device: Union[None, str, torch.device] = None):
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+        if engine != "opat":
+            raise NotImplementedError(
+                f"engine {engine!r} is not ported yet; use engine='opat'")
+        self.device = resolve_device(device)
+        if pg is None:
+            if graph is None:
+                raise ValueError("need a graph (or a pre-built pg)")
+            assign = partition_graph(graph, k, scheme, seed=seed)
+            pg = build_partitions(graph, assign, k, scheme=scheme)
+        self.graph = pg.graph
+        self.engine_name = engine
+        self.heuristic = heuristic
+        self.seed = seed
+        self.config = config or EngineConfig()
+        self.catalog = catalog if catalog is not None else build_catalog(self.graph)
+        self._cache_parts = cache_parts
+        self._cache_bytes = cache_bytes
+        self._prefetch = prefetch
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._bind(pg)
+
+    def _bind(self, pg: PartitionedGraph) -> None:
+        """Build everything that depends on the vertex assignment: the
+        store, the engine, and the per-partition profile counters."""
+        self.pg = pg
+        self.scheme = pg.scheme
+        self.k = pg.k
+        self.store = PartitionStore(pg, capacity_parts=self._cache_parts,
+                                    capacity_bytes=self._cache_bytes,
+                                    tracer=self.tracer, device=self.device)
+        self.engine = OPATEngine(pg, self.config, store=self.store,
+                                 prefetch=self._prefetch, tracer=self.tracer)
+        self._loads = np.zeros(self.k, dtype=np.int64)
+        self._completed = np.zeros(self.k, dtype=np.int64)
+        self._spawned = np.zeros(self.k, dtype=np.int64)
+        # answer-span observations: how many answer rows bound vertices in
+        # both p and q, and how often each vertex was bound in a
+        # partition-spanning answer
+        self._cospan = np.zeros((self.k, self.k), dtype=np.int64)
+        self._vertex_span = np.zeros(self.graph.n_nodes, dtype=np.int64)
+        self._span_sum = 0
+        self._span_rows = 0
+        self._queries_served = 0
+        self._answers_served = 0
+
+    # -- serving -----------------------------------------------------------
+
+    def submit(self, query: Union[Query, DisjunctiveQuery],
+               max_answers: Optional[int] = None,
+               heuristic: Optional[str] = None,
+               seed: Optional[int] = None) -> QueryResult:
+        """Serve one query against the session's resident partitions.
+
+        ``max_answers`` is the paper's "specified number of answers" K
+        (per disjunct); ``heuristic``/``seed`` default to the session's.
+        """
+        disjuncts = (query.disjuncts if isinstance(query, DisjunctiveQuery)
+                     else [query])
+        h = heuristic if heuristic is not None else self.heuristic
+        s = seed if seed is not None else self.seed
+        stats0 = self.store.stats.copy()
+        t0 = time.time()
+        reports: List[RunReport] = []
+        answers: Optional[np.ndarray] = None
+        with self.tracer.span("query", query=query.name, heuristic=h,
+                              engine=self.engine_name) as qsp:
+            for q in disjuncts:
+                plan = generate_plan(q, self.graph, self.catalog)
+                rep = self.engine.run_request(RunRequest(
+                    plan=plan, heuristic=h, max_answers=max_answers, seed=s))
+                reports.append(rep)
+                a = rep.answers
+                answers = a if answers is None else np.unique(
+                    np.concatenate([answers, a]), axis=0)
+            qsp.set(n_answers=int(answers.shape[0]),
+                    n_loads=sum(len(r.stats.loads) for r in reports))
+        latency = time.time() - t0
+        self._absorb(reports, answers)
+        return QueryResult(name=query.name, answers=answers, reports=reports,
+                           latency_s=latency,
+                           load_stats=self.store.stats - stats0)
+
+    def _absorb(self, reports: List[RunReport], answers: np.ndarray) -> None:
+        for rep in reports:
+            for pid in rep.stats.loads:
+                self._loads[pid] += 1
+            st = rep.extra.get("state")
+            if st is not None:
+                self._completed += st.completed_from
+                self._spawned += st.spawned_from
+        pairs, span = answer_span_matrix(self.pg.owner, answers, self.k)
+        self._cospan += pairs
+        spanning = answers[span >= 2]
+        if spanning.size:
+            ids = spanning[spanning >= 0]
+            np.add.at(self._vertex_span, ids, 1)
+        self._span_sum += int(span.sum())
+        self._span_rows += int(span.shape[0])
+        self._queries_served += 1
+        self._answers_served += int(answers.shape[0])
+
+    # -- observability -----------------------------------------------------
+
+    @property
+    def load_stats(self) -> LoadStats:
+        """Lifetime store counters (cold/warm/evictions/prefetch)."""
+        return self.store.stats

@@ -1,0 +1,312 @@
+"""PartitionStore — explicit partition residency on one device.
+
+The paper's central cost model is the partition *load* sequence: OPAT pays
+one load per heuristic pick.  The store makes residency a first-class
+object, with the same counters as the JAX package's store:
+
+  cold load  — the requested entry was not device-resident; the store
+               copies it to the device on the caller's critical path (a
+               cache *miss*).
+  warm load  — the entry was already device-resident (from an earlier get
+               or a prefetch); the caller reuses its tensors (a *hit*).
+  prefetch   — ``prefetch(pid)`` stages an entry *off* the critical path.
+               A later ``get`` of it is a warm load and also counts as a
+               ``prefetch_hit``.
+
+Eviction is LRU with an optional capacity in partitions
+(``capacity_parts``) or bytes (``capacity_bytes``); pinned entries are
+never evicted (``pin`` / ``unpin`` / ``pinned``).
+
+On CUDA the host bundles sit in page-locked memory, built once per
+partition at its first staging.  A cold ``get`` copies on the current
+stream.  ``prefetch`` copies with ``non_blocking=True`` on a side stream
+and records an event; the first ``get`` of that entry makes the current
+stream wait on the event and calls ``record_stream`` on every tensor, so
+the evaluator never reads a partition before its copy lands and the
+caching allocator never reuses its memory while the current stream may
+still read it.  On CPU the "device" tensors share the host arrays' memory.
+
+Only single-partition entries are held (OPAT's unit); generation views,
+the disk tier and stacked entries come with later slices.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from ..obs.trace import NULL_TRACER
+from ..storage.host_cache import HostArrayTier
+from .engine import resolve_device
+from .graph import PartitionedGraph
+
+
+@dataclasses.dataclass
+class LoadStats:
+    """Residency counters; deltas of two snapshots describe one run.  The
+    fields match the JAX package's ``LoadStats``: the out-of-core ones
+    stay zero for this in-RAM store."""
+
+    hits: int = 0                # warm loads (entry already device-resident)
+    misses: int = 0              # cold loads (copy on the critical path)
+    evictions: int = 0           # LRU entries dropped to fit capacity
+    prefetch_issued: int = 0     # prefetch() calls that actually staged
+    prefetch_hits: int = 0       # gets served by a previously prefetched entry
+    bytes_cold: int = 0          # bytes transferred by cold (demand) loads
+    bytes_prefetched: int = 0    # bytes transferred off the critical path
+    released: int = 0
+    disk_reads: int = 0
+    read_ahead_issued: int = 0
+    read_ahead_hits: int = 0
+    bytes_disk: int = 0
+    bytes_host: int = 0
+    host_evictions: int = 0
+    delta_overlays: int = 0
+
+    @property
+    def warm_loads(self) -> int:
+        return self.hits
+
+    @property
+    def cold_loads(self) -> int:
+        return self.misses
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+    def copy(self) -> "LoadStats":
+        return dataclasses.replace(self)
+
+    def __sub__(self, other: "LoadStats") -> "LoadStats":
+        return LoadStats(**{f.name: getattr(self, f.name) - getattr(other, f.name)
+                            for f in dataclasses.fields(self)})
+
+    def __add__(self, other: "LoadStats") -> "LoadStats":
+        return LoadStats(**{f.name: getattr(self, f.name) + getattr(other, f.name)
+                            for f in dataclasses.fields(self)})
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["warm_loads"] = self.warm_loads
+        d["cold_loads"] = self.cold_loads
+        d["hit_rate"] = self.hit_rate
+        return d
+
+
+@dataclasses.dataclass
+class StoreEntry:
+    """One device-resident partition: evaluator inputs + its g2l row."""
+
+    key: int
+    part: Dict[str, Union[int, torch.Tensor]]  # scalars (pid, n_core) as ints
+    g2l: torch.Tensor            # [V] row
+    nbytes: int                  # bytes of the host numpy bundle
+    prefetched: bool = False     # staged by prefetch(), not yet touched by get()
+    ready: Optional[Any] = None  # CUDA event the side-stream copy recorded
+
+
+class PartitionStore:
+    """Owns which partitions are device-resident for one PartitionedGraph.
+
+    ``device=None`` means ``"cuda"`` (and raises with no card); the tests
+    pass ``device="cpu"``.
+    """
+
+    def __init__(self, pg: PartitionedGraph,
+                 capacity_parts: Optional[int] = None,
+                 capacity_bytes: Optional[int] = None,
+                 tracer: Optional[Any] = None,
+                 device: Union[None, str, torch.device] = None):
+        if capacity_parts is not None and capacity_parts < 1:
+            raise ValueError(f"capacity_parts must be >= 1, got {capacity_parts}")
+        if capacity_bytes is not None and capacity_bytes < 1:
+            raise ValueError(f"capacity_bytes must be >= 1, got {capacity_bytes}")
+        self.device = resolve_device(device)
+        self.pg = pg
+        self.capacity_parts = capacity_parts
+        self.capacity_bytes = capacity_bytes
+        self.stats = LoadStats()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._host_tier = HostArrayTier(pg)
+        # page-locked host tensors per pid (CUDA only), built at first staging
+        self._pinned_host: Dict[int, tuple] = {}
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._cache: "OrderedDict[int, StoreEntry]" = OrderedDict()
+        self._owner_dev: Optional[torch.Tensor] = None
+        # pinned keys (refcounted): protected from LRU eviction while a
+        # caller evaluates against them — the double-buffer guarantee
+        self._pins: Dict[int, int] = {}
+
+    # -- global (non-partition) arrays ------------------------------------
+
+    @property
+    def owner(self) -> torch.Tensor:
+        """[V] owner table, copied to the device once and shared."""
+        if self._owner_dev is None:
+            self._owner_dev = torch.from_numpy(np.asarray(self.pg.owner)).to(self.device)
+        return self._owner_dev
+
+    def resident_keys(self) -> list:
+        return [e.key for e in self._cache.values()]
+
+    # -- loads -------------------------------------------------------------
+
+    def get(self, pid: int) -> StoreEntry:
+        """One partition's evaluator inputs, device-resident (OPAT's load),
+        safe to read on the current stream."""
+        pid = int(pid)
+        with self.tracer.span("store.load", pid=pid) as sp:
+            got = self._cache.get(pid)
+            if got is not None:
+                self._cache.move_to_end(pid)
+                self.stats.hits += 1
+                if got.prefetched:
+                    got.prefetched = False
+                    self.stats.prefetch_hits += 1
+                    sp.set(tier="prefetch")
+                else:
+                    sp.set(tier="warm")
+                self._await(got)
+                return got
+            sp.set(tier="cold")
+            entry = self._stage(pid, side_stream=False)
+            self.stats.misses += 1
+            self.stats.bytes_cold += entry.nbytes
+            sp.set(nbytes=entry.nbytes)
+            self._insert(entry)
+            return entry
+
+    def prefetch(self, pid: int) -> bool:
+        """Stage ``pid`` off the critical path (a side-stream copy on
+        CUDA).  Returns True when work was issued (False: already
+        resident)."""
+        pid = int(pid)
+        if pid in self._cache:
+            return False
+        with self.tracer.span("store.prefetch", pid=pid) as sp:
+            entry = self._stage(pid, side_stream=True)
+            entry.prefetched = True
+            self.stats.prefetch_issued += 1
+            self.stats.bytes_prefetched += entry.nbytes
+            sp.set(nbytes=entry.nbytes)
+            self._insert(entry)
+        return True
+
+    # -- pinning (double-buffered streaming) --------------------------------
+
+    def pin(self, key: int) -> None:
+        """Protect ``key`` from LRU eviction until the matching unpin().
+        While partition i is evaluated, prefetching the runner-up may push
+        the cache over capacity; pinning i guarantees the staging evicts
+        something else.  The cache may transiently exceed its budget by
+        the pinned entries.  Pins refcount."""
+        k = int(key)
+        self._pins[k] = self._pins.get(k, 0) + 1
+
+    def unpin(self, key: int) -> None:
+        k = int(key)
+        n = self._pins.get(k, 0) - 1
+        if n <= 0:
+            self._pins.pop(k, None)
+            # restore the capacity invariant now that the entry is
+            # evictable again
+            self._evict_to_capacity(keep=None)
+        else:
+            self._pins[k] = n
+
+    @contextlib.contextmanager
+    def pinned(self, *keys: int):
+        """``with store.pinned(pid): ...`` — pin for the block's duration."""
+        for k in keys:
+            self.pin(k)
+        try:
+            yield self
+        finally:
+            for k in keys:
+                self.unpin(k)
+
+    # -- internals ---------------------------------------------------------
+
+    def _host_tensors(self, pid: int) -> tuple:
+        """(part dict, g2l, nbytes): the host bundle as CPU tensors —
+        page-locked copies on CUDA, views of the numpy arrays on CPU.
+        Scalars (pid, n_core) become Python ints."""
+        got = self._pinned_host.get(pid)
+        if got is not None:
+            return got
+        bundle = self._host_tier.get(pid)
+        cuda = self.device.type == "cuda"
+
+        def host(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.pin_memory() if cuda else t
+
+        part = {k: (int(v) if np.ndim(v) == 0 else host(v))
+                for k, v in bundle.part.items()}
+        out = (part, host(bundle.g2l), bundle.nbytes)
+        if cuda:
+            self._pinned_host[pid] = out
+        return out
+
+    def _stage(self, pid: int, side_stream: bool) -> StoreEntry:
+        part_h, g2l_h, nbytes = self._host_tensors(pid)
+        if self.device.type != "cuda":
+            return StoreEntry(key=pid, part=dict(part_h), g2l=g2l_h, nbytes=nbytes)
+
+        def copy():
+            part = {k: (v if isinstance(v, int) else v.to(self.device, non_blocking=True))
+                    for k, v in part_h.items()}
+            return part, g2l_h.to(self.device, non_blocking=True)
+
+        if not side_stream:
+            part, g2l = copy()
+            return StoreEntry(key=pid, part=part, g2l=g2l, nbytes=nbytes)
+        with torch.cuda.stream(self._copy_stream):
+            part, g2l = copy()
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return StoreEntry(key=pid, part=part, g2l=g2l, nbytes=nbytes, ready=ready)
+
+    def _await(self, entry: StoreEntry) -> None:
+        """Order the current stream after a side-stream copy, once."""
+        if entry.ready is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(entry.ready)
+        for t in (*entry.part.values(), entry.g2l):
+            if isinstance(t, torch.Tensor):
+                t.record_stream(cur)
+        entry.ready = None
+
+    def _insert(self, entry: StoreEntry) -> None:
+        self._cache[entry.key] = entry
+        self._cache.move_to_end(entry.key)
+        self._evict_to_capacity(keep=entry.key)
+
+    def _evict_to_capacity(self, keep: Optional[int]) -> None:
+        """Drop least-recently-used entries until within capacity.  The
+        just-inserted entry and pinned entries are never evicted, so the
+        cache can transiently exceed capacity by the pinned set."""
+        def over() -> bool:
+            if self.capacity_parts is not None \
+                    and len(self._cache) > self.capacity_parts:
+                return True
+            if self.capacity_bytes is not None \
+                    and sum(e.nbytes for e in self._cache.values()) > self.capacity_bytes:
+                return True
+            return False
+
+        while over():
+            victim = next((k for k in self._cache
+                           if k != keep and k not in self._pins), None)
+            if victim is None:
+                break
+            del self._cache[victim]
+            self.stats.evictions += 1

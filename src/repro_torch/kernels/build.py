@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) and loaded with ``ctypes``.  Libraries are built at first
+use into ``build/repro_torch_kernels/`` at the repository root, named by
+a hash of their source and flags, so an edited source rebuilds.
+
+``build_all()`` starts one ``nvcc`` per source at once and waits for all
+of them; ``load(name)`` builds one library if needed and returns it.
+``LAUNCHES`` counts kernel launches by kernel name: each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# per-kernel build record: seconds, ptxas registers / spill bytes, log
+BUILD_INFO: Dict[str, dict] = {}
+
+
+def kernel_names() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _ptxas_summary(log: str) -> dict:
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spill_st = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    spill_ld = [int(x) for x in re.findall(r"(\d+) bytes spill loads", log)]
+    return {"registers": max(regs) if regs else None,
+            "spill_store_bytes": sum(spill_st), "spill_load_bytes": sum(spill_ld)}
+
+
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
+    """Compile every named kernel (default: all of ``csrc/``) that is not
+    built yet, one ``nvcc`` process per source, all started together.
+    Raises with the compiler's output if any build fails."""
+    names = list(names) if names is not None else kernel_names()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            BUILD_INFO.setdefault(name, {"seconds": 0.0, "cached": True})
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+                            **_ptxas_summary(log), "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {n: BUILD_INFO[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        _LIBS[name] = lib
+    return lib

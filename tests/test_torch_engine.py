@@ -1,0 +1,318 @@
+"""The PyTorch port's evaluator, partition store, OPAT engine and session
+against the JAX package, on the CPU.
+
+Both packages get identical inputs: the graph is made by the JAX
+package's generator from a seed and carried into the port with
+``repro_torch.convert``, partitions are rebuilt from the reference's
+vertex assignment, and evaluator plans are carried field by field.  All
+outputs are integers or masks, so every comparison is exact.
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import (EngineConfig as RefConfig, GraphSession as RefSession,
+                        OPATEngine as RefOPAT, PartitionStore as RefStore,
+                        build_catalog as ref_catalog,
+                        generate_plan as ref_generate_plan,
+                        make_partition_evaluator as ref_evaluator,
+                        match_disjunctive, match_query)
+from repro.core.engine import part_to_device_dict as ref_part_dict
+from repro.core.plan import PlanArrays as RefPlanArrays
+from repro.data.generators import subgen_queries as ref_subgen_queries
+
+import repro_torch.core as tc
+from repro_torch.convert import (graph_from_arrays, partitioned_graph_from_arrays,
+                                 plan_arrays_from_numpy)
+from repro_torch.core.engine import plan_to_device
+from repro_torch.data.generators import subgen_queries
+
+REPO = Path(__file__).resolve().parents[1]
+HEURISTICS = ["max-sn", "min-sn", "random-sn", "max-yield"]
+CAP = 1024
+
+
+def _vocab(v):
+    return [v.str_of(i) for i in range(len(v))]
+
+
+@pytest.fixture(scope="module")
+def both(small_graph, small_pg):
+    """(reference graph, reference pg, port graph, port pg)."""
+    g = small_graph
+    tg = graph_from_arrays(node_label=g.node_label, node_value=g.node_value,
+                           edge_src=g.edge_src, edge_dst=g.edge_dst,
+                           edge_label=g.edge_label,
+                           edge_directed=g.edge_directed,
+                           node_vocab=_vocab(g.node_vocab),
+                           edge_vocab=_vocab(g.edge_vocab))
+    tpg = partitioned_graph_from_arrays(tg, small_pg.assignment, small_pg.k,
+                                        small_pg.scheme)
+    return g, small_pg, tg, tpg
+
+
+def _queries(g, tg):
+    """Reference and port subgen queries (first disjunct of each)."""
+    return list(zip([dq.disjuncts[0] for dq in ref_subgen_queries(g)],
+                    [dq.disjuncts[0] for dq in subgen_queries(tg)]))
+
+
+def _plan_fields(pa):
+    return {f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)}
+
+
+def test_partitions_equal(both):
+    _, pg, _, tpg = both
+    assert (tpg.node_pad, tpg.ell_width, tpg.k) == (pg.node_pad, pg.ell_width, pg.k)
+    np.testing.assert_array_equal(tpg.g2l, pg.g2l)
+    np.testing.assert_array_equal(tpg.owner, pg.owner)
+    for p, tp in zip(pg.parts, tpg.parts):
+        a, b = ref_part_dict(p), tc.engine.part_to_device_dict(tp)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
+def test_plans_equal(both):
+    """The port's planner gives the reference's plan on the same graph."""
+    g, _, tg, _ = both
+    cat, tcat = ref_catalog(g), tc.build_catalog(tg)
+    for q, tq in _queries(g, tg):
+        a = RefPlanArrays.from_plan(ref_generate_plan(q, g, cat), pad_steps=12)
+        b = tc.PlanArrays.from_plan(tc.generate_plan(tq, tg, tcat), pad_steps=12)
+        for k, v in _plan_fields(a).items():
+            np.testing.assert_array_equal(getattr(b, k), v, err_msg=k)
+
+
+def _eval_both(ref_eval, port_eval, pg, tpg, pid, plan, in_rows, in_step,
+               in_valid, seed_fresh):
+    part = ref_part_dict(pg.parts[pid])
+    want = ref_eval(part, pg.g2l[pid], pg.owner, plan, np.int32(plan.n_steps),
+                    in_rows, in_step, in_valid, np.bool_(seed_fresh))
+    store = tc.PartitionStore(tpg, device="cpu")
+    entry = store.get(pid)
+    tplan = plan_to_device(plan_arrays_from_numpy(**_plan_fields(plan)), "cpu")
+    got = port_eval(entry.part, entry.g2l, store.owner, tplan, plan.n_steps,
+                    torch.from_numpy(in_rows), torch.from_numpy(in_step),
+                    torch.from_numpy(in_valid), seed_fresh)
+    for name in tc.EvalResult._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=f"pid {pid} {name}")
+    return want
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_eval_result_matches_reference(both, use_pallas):
+    """Every EvalResult field, for every partition of small_pg: a seeding
+    call on each partition, then a call fed with the continuations it
+    routed to each other partition."""
+    g, pg, tg, tpg = both
+    cat = ref_catalog(g)
+    cfg = dict(cap=CAP, expand_block=16)
+    ref_eval = ref_evaluator(pg.node_pad, pg.ell_width,
+                             RefConfig(**cfg, use_pallas=use_pallas))
+    port_eval = tc.make_partition_evaluator(tpg.node_pad, tpg.ell_width,
+                                            tc.EngineConfig(**cfg))
+    queries = [q for q, _ in _queries(g, tg)]
+    plans = [RefPlanArrays.from_plan(ref_generate_plan(q, g, cat), pad_steps=12)
+             for q in (queries[:1] if use_pallas else queries)]
+    empty = (np.full((CAP, 8), -1, np.int32), np.zeros(CAP, np.int32),
+             np.zeros(CAP, bool))
+    for plan in plans:
+        for pid in range(pg.k):
+            res = _eval_both(ref_eval, port_eval, pg, tpg, pid, plan, *empty, True)
+            n = int(res.out_n)
+            dest = np.asarray(res.out_dest)[:n]
+            for q in sorted(set(dest.tolist())):
+                sel = dest == q
+                rows, step, valid = (a.copy() for a in empty)
+                rows[:sel.sum()] = np.asarray(res.out_rows)[:n][sel]
+                step[:sel.sum()] = np.asarray(res.out_step)[:n][sel]
+                valid[:sel.sum()] = True
+                _eval_both(ref_eval, port_eval, pg, tpg, q, plan, rows, step,
+                           valid, False)
+
+
+def _opat_both(both, heuristic, max_answers=None, cap=16384):
+    g, pg, tg, tpg = both
+    cat, tcat = ref_catalog(g), tc.build_catalog(tg)
+    ref_eng = RefOPAT(pg, RefConfig(cap=cap))
+    port_eng = tc.OPATEngine(tpg, tc.EngineConfig(cap=cap), device="cpu")
+    for q, tq in _queries(g, tg):
+        want = ref_eng.run(ref_generate_plan(q, g, cat), heuristic, seed=1,
+                           max_answers=max_answers)
+        got = port_eng.run(tc.generate_plan(tq, tg, tcat), heuristic, seed=1,
+                           max_answers=max_answers)
+        yield q, want, got
+
+
+@pytest.mark.parametrize("heuristic", HEURISTICS)
+def test_opat_matches_reference(both, heuristic):
+    g = both[0]
+    for q, want, got in _opat_both(both, heuristic):
+        np.testing.assert_array_equal(got.answers, want.answers, err_msg=q.name)
+        assert got.stats.loads == want.stats.loads, q.name
+        assert got.stats.iterations == want.stats.iterations, q.name
+        assert np.array_equal(np.unique(got.answers, axis=0),
+                              match_query(g, q, q_pad=8)), q.name
+        for f in ("cold_loads", "warm_loads", "prefetch_hits", "bytes_cold",
+                  "bytes_prefetched"):
+            assert getattr(got.stats, f) == getattr(want.stats, f), (q.name, f)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_opat_answer_budget_matches_reference(both, K):
+    g = both[0]
+    for q, want, got in _opat_both(both, "max-sn", max_answers=K):
+        np.testing.assert_array_equal(got.answers, want.answers, err_msg=q.name)
+        assert got.stats.loads == want.stats.loads, q.name
+        assert got.stats.iterations == want.stats.iterations, q.name
+        ref_set = {tuple(r) for r in match_query(g, q, q_pad=8)}
+        assert got.answers.shape[0] == min(K, len(ref_set))
+        assert all(tuple(r) in ref_set for r in got.answers)
+
+
+def test_opat_overflow_raises(both):
+    """A buffer too small for the partition's rows raises in both packages
+    (never a silent truncation)."""
+    with pytest.raises(RuntimeError, match="overflow"):
+        list(_opat_both(both, "max-sn", cap=2))
+    g, _, tg, tpg = both
+    tq = subgen_queries(tg)[0].disjuncts[0]
+    eng = tc.OPATEngine(tpg, tc.EngineConfig(cap=2), device="cpu")
+    with pytest.raises(RuntimeError, match="overflow"):
+        eng.run(tc.generate_plan(tq, tg, tc.build_catalog(tg)), "max-sn")
+
+
+def test_opat_counts_inner_iterations(both):
+    """inner_iters sums EvalResult.n_iters: one fused-step call each."""
+    _, _, tg, tpg = both
+    calls = []
+    eng = tc.OPATEngine(tpg, tc.EngineConfig(cap=16384), device="cpu")
+    inner = eng._eval
+
+    def counting(*a):
+        res = inner(*a)
+        calls.append(int(res.n_iters))
+        return res
+    eng._eval = counting
+    tq = subgen_queries(tg)[0].disjuncts[0]
+    eng.run(tc.generate_plan(tq, tg, tc.build_catalog(tg)), "max-sn")
+    assert eng.inner_iters == sum(calls) > 0
+
+
+def test_session_submit_matches_oracle(both):
+    g, pg, tg, tpg = both
+    sess = tc.GraphSession(pg=tpg, seed=1, config=tc.EngineConfig(cap=16384),
+                           device="cpu")
+    ref_sess = RefSession(pg=pg, seed=1, config=RefConfig(cap=16384))
+    for dq, tdq in zip(ref_subgen_queries(g), subgen_queries(tg)):
+        want = match_disjunctive(g, dq, q_pad=8)
+        res = sess.submit(tdq)
+        np.testing.assert_array_equal(res.answers, want, err_msg=dq.name)
+        rres = ref_sess.submit(dq)
+        assert res.n_loads == rres.n_loads
+        assert res.load_stats.to_dict() == rres.load_stats.to_dict()
+        budget = sess.submit(tdq, max_answers=2)
+        assert budget.n_answers == min(2, want.shape[0])
+        assert {tuple(r) for r in budget.answers} <= {tuple(r) for r in want}
+    assert sess.load_stats.warm_loads > 0   # repeated queries hit resident partitions
+
+
+def test_session_profile_counters_match_reference(both):
+    g, pg, tg, tpg = both
+    sess = tc.GraphSession(pg=tpg, seed=1, config=tc.EngineConfig(cap=16384),
+                           device="cpu")
+    ref_sess = RefSession(pg=pg, seed=1, config=RefConfig(cap=16384))
+    for dq, tdq in zip(ref_subgen_queries(g), subgen_queries(tg)):
+        sess.submit(tdq)
+        ref_sess.submit(dq)
+    for name in ("_loads", "_completed", "_spawned", "_cospan", "_vertex_span"):
+        np.testing.assert_array_equal(getattr(sess, name),
+                                      getattr(ref_sess, name), err_msg=name)
+    assert (sess._span_sum, sess._span_rows, sess._answers_served) == \
+        (ref_sess._span_sum, ref_sess._span_rows, ref_sess._answers_served)
+
+
+def test_session_rejects_unported_engines_and_devices(both):
+    tpg = both[3]
+    for engine in ("traditional", "mapreduce"):
+        with pytest.raises(NotImplementedError):
+            tc.GraphSession(pg=tpg, engine=engine, device="cpu")
+    with pytest.raises(ValueError):
+        tc.GraphSession(pg=tpg, engine="nope", device="cpu")
+    with pytest.raises(ValueError):
+        tc.PartitionStore(tpg, device="meta")
+
+
+def test_default_device_is_cuda(both):
+    """device=None means cuda; with no card the entry points raise instead
+    of running on the CPU."""
+    tpg = both[3]
+    if torch.cuda.is_available():
+        assert tc.PartitionStore(tpg).device.type == "cuda"
+        return
+    for make in (lambda: tc.PartitionStore(tpg),
+                 lambda: tc.OPATEngine(tpg),
+                 lambda: tc.GraphSession(pg=tpg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_store_counters_match_reference(both):
+    """The same sequence of gets, prefetches and pins gives the same
+    counters and residency in both stores."""
+    _, pg, _, tpg = both
+    ref_store = RefStore(pg, capacity_parts=2)
+    store = tc.PartitionStore(tpg, capacity_parts=2, device="cpu")
+
+    def ops(s):
+        s.get(0)
+        s.prefetch(1)
+        s.get(1)
+        with s.pinned(1):
+            s.prefetch(2)
+            s.prefetch(3)
+            assert 1 in s.resident_keys()
+        s.get(3)
+        s.get(0)
+        return s.stats.to_dict(), sorted(s.resident_keys())
+    assert ops(store) == ops(ref_store)
+
+
+def test_store_capacity_bytes_matches_reference(both):
+    _, pg, _, tpg = both
+    cap = 2 * RefStore(pg).host_nbytes(0) + 1
+    ref_store = RefStore(pg, capacity_bytes=cap)
+    store = tc.PartitionStore(tpg, capacity_bytes=cap, device="cpu")
+    for s in (ref_store, store):
+        for pid in (0, 1, 2, 0, 3):
+            s.get(pid)
+    assert store.stats.to_dict() == ref_store.stats.to_dict()
+    assert sorted(store.resident_keys()) == sorted(ref_store.resident_keys())
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
