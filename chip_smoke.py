@@ -5,28 +5,50 @@
 
 Phases, each printing one JSON line:
 
-  device   the card's name and power limit (nvidia-smi); no card -> exit 2
-  build    nvcc builds every kernel under src/repro_torch/kernels/csrc
-           (one process per source, all at once), with ptxas registers
-           and spills
-  kernels  each kernel against its plain PyTorch version on the card, on
-           the test sweep and at the main path's shape, and timed with
-           CUDA events beside its byte bound
-  small    a small graph served on the card and on the CPU (plain
-           versions): identical answers, loads and iterations
-  path     the main path: the synthetic graph at the paper's size
-           (``--scale 200``: 440,000 nodes, 1,240,000 edges), one in-RAM
-           GraphSession with the OPAT engine, the three subgen queries and
-           Q4 again under an answer budget, each checked against the
-           whole-graph oracle; the kernel launch counts must be > 0 and
-           equal the evaluator's summed expansion iterations
-  profile  one warm Q5 under torch.profiler: device busy/idle share,
-           device time by kernel name, host time by op
+  device       the card's name and power limit (nvidia-smi); no card -> exit 2
+  build        nvcc builds every kernel under src/repro_torch/kernels/csrc
+               (one process per source, all at once), with ptxas registers
+               and spills
+  graph        the main path's graph and its partitions, built once: the
+               synthetic graph at the paper's size (``--scale 200``:
+               440,000 nodes, 1,240,000 edges), k=4, kway_shem
+  kernels      each kernel against its plain PyTorch version on the card
+               (bit-equal), on the test sweep, an empty frontier, NaN values
+               and the main path's shapes; each timed three ways (CUDA-graph
+               replay, per call through the wrapper, the plain version)
+               beside its byte bound
+  small        a small graph served on the card and on the CPU (plain
+               versions): identical answers, loads and iterations for OPAT
+               and TraditionalMP submits and for submit_many on both
+  path         the main path: one in-RAM GraphSession with the OPAT engine,
+               the three subgen queries and Q4 again under an answer budget,
+               each checked against the whole-graph oracle; fused_frontier
+               launches must equal the evaluator's summed iterations
+  sni          the SNI seed and the match on the path's own data:
+               label_histogram on every partition for every query's start
+               predicate equals PartitionedGraph.start_label_counts, and
+               frontier_expand on real partition tables and a real binding
+               batch equals the fused kernel's ok/dg
+  traditional  GraphSession(engine="traditional", processors=2) on the same
+               queries, checked against the oracle answers of the path
+               phase; launches equal the lane evaluator's loop count
+  shared       submit_many of the same queries on the OPAT and the
+               TraditionalMP session: answers equal the per-query results;
+               loads per query against the isolated total; launches equal
+               the batched loop count
+  profile      Q5 on the OPAT session and on the TraditionalMP session: 12
+               rounds of warm runs on the host clock, alternating which
+               engine goes first (each latency's spread, the rounds
+               TraditionalMP was faster, evaluator loops per query), then
+               one run each under torch.profiler: device busy/idle share,
+               device time by kernel name, host time by op
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
-so the script exits non-zero and prints no result.  The full record is
-also written to chiprun_out/chip_smoke.json.
+Each serving phase sets the launch counts to 0 just before it and reads
+them just after; it fails if a kernel of its path never launched.  Then a
+``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line, and
+last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+script exits non-zero and prints no result.  The full record is also
+written to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -107,16 +129,15 @@ def graph_time_ms(fn, reps: int = 200, replays: int = 10) -> float:
 # kernels: fused_frontier against its plain version
 # ---------------------------------------------------------------------------
 
-def fused_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
-    """Random kernel-level inputs, as the engine would pack them: plan
-    parameters through ops._fused_params, locality tables through
-    ops.denorm_locality.  ~20% NaN destination values, steps drawn past
-    n_steps, and (``empty``) an all-inactive frontier."""
+def engine_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
+    """Random engine-level inputs for one expansion step: a random plan,
+    six ELL tables (~20% NaN destination values), a g2l row and owner map
+    over V global ids, binding rows, steps drawn past n_steps, and
+    (``empty``) an all-inactive frontier."""
     from repro_torch.core.engine import plan_to_device
     from repro_torch.core.plan import PlanArrays
-    from repro_torch.kernels import ops
 
-    S, n_steps = 6, 5
+    S = 6
     plan = PlanArrays(
         n_slots=Q, n_steps=S, start_slot=np.int32(0), start_label=np.int32(0),
         start_value_op=np.int32(0), start_value=np.float32(0),
@@ -141,16 +162,37 @@ def fused_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
     g2l = np.full(V, -1, np.int32)
     present = rng.choice(V, size=min(Np, V), replace=False)
     g2l[present] = rng.permutation(len(present)).astype(np.int32)
-    g2l, owner = t(g2l), t(rng.integers(0, 4, V).astype(np.int32))
-    n_core = int(rng.integers(1, Np + 1))
-    rows = t(rng.integers(-1, V, size=(EB, Q)).astype(np.int32))
-    step = t(rng.integers(0, S + 2, size=EB).astype(np.int32))
-    lidx = t(rng.integers(0, Np, size=EB).astype(np.int32))
-    m = t(np.zeros(EB, bool) if empty else rng.random(EB) < 0.8)
-    pint, pflt, _ = ops._fused_params(rows, step, m, g2l, owner, n_core,
-                                      plan_to_device(plan, dev), n_steps)
-    dlidx, downer = ops.denorm_locality(tables[5], g2l, owner)
-    return (lidx, pint, pflt, rows, *tables, dlidx, downer)
+    return dict(
+        plan=plan_to_device(plan, dev), n_steps=5, tables=tables,
+        g2l=t(g2l), owner=t(rng.integers(0, 4, V).astype(np.int32)),
+        n_core=int(rng.integers(1, Np + 1)),
+        rows=t(rng.integers(-1, V, size=(EB, Q)).astype(np.int32)),
+        step=t(rng.integers(0, S + 2, size=EB).astype(np.int32)),
+        lidx=t(rng.integers(0, Np, size=EB).astype(np.int32)),
+        m=t(np.zeros(EB, bool) if empty else rng.random(EB) < 0.8))
+
+
+def fused_args(c) -> tuple:
+    """fused_frontier's kernel-level inputs, packed as the engine packs
+    them (ops._fused_params, ops.denorm_locality)."""
+    from repro_torch.kernels import ops
+    pint, pflt, _ = ops._fused_params(c["rows"], c["step"], c["m"], c["g2l"],
+                                      c["owner"], c["n_core"], c["plan"],
+                                      c["n_steps"])
+    dlidx, downer = ops.denorm_locality(c["tables"][5], c["g2l"], c["owner"])
+    return (c["lidx"], pint, pflt, c["rows"], *c["tables"], dlidx, downer)
+
+
+def expand_args(c) -> tuple:
+    """frontier_expand's kernel-level inputs, packed as ops.frontier_expand
+    packs them."""
+    from repro_torch.kernels import ops
+    pint, pflt = ops._expand_params(c["step"], c["m"], c["plan"], c["n_steps"])
+    return (c["lidx"], pint, pflt, c["rows"], *c["tables"])
+
+
+def fused_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
+    return fused_args(engine_case(rng, EB, W, Q, Np, V, empty=empty, dev=dev))
 
 
 def compare_fused(got, want, args) -> dict:
@@ -170,111 +212,230 @@ def compare_fused(got, want, args) -> dict:
             "n_ok": int(ok.sum())}
 
 
-def fused_bytes_ops(args) -> tuple:
-    """Bytes the call must move (each input read once — only the table
-    rows this run's lidx selects — each output written once) and its
+def compare_expand(got, want, args) -> dict:
+    """ok bit-equal, dg where an edge exists."""
+    ok, dg = got
+    wok, wdg = want
+    edge = args[4][args[0].long()] >= 0
+    err = int((dg - wdg).abs()[edge].max()) if bool(edge.any()) else 0
+    return {"mask_mismatches": int((ok != wok).sum()), "max_abs_err": err,
+            "n_ok": int(ok.sum())}
+
+
+def frontier_bytes_ops(args, n_tables: int, out_bytes_per_slot: int,
+                       ops_per_slot: int) -> tuple:
+    """Bytes a frontier call must move (each input read once — only the
+    table rows this run's lidx selects — each output written once) and its
     elementwise integer operations."""
     lidx, pint, pflt, rows = args[:4]
     EB, Q = rows.shape
     W = args[4].shape[1]
     rows_read = int(torch.unique(lidx).numel())
-    table_bytes = sum(rows_read * W * t.element_size() for t in args[4:])
+    table_bytes = sum(rows_read * W * t.element_size() for t in args[4:4 + n_tables])
     scalar_bytes = sum(x.numel() * x.element_size() for x in (lidx, pint, pflt, rows))
-    out_bytes = EB * W * (4 * 1 + 2 * 4)
-    ops_count = EB * W * (40 + 2 * Q)
-    return table_bytes + scalar_bytes + out_bytes, ops_count
+    return (table_bytes + scalar_bytes + EB * W * out_bytes_per_slot,
+            EB * W * (ops_per_slot + 2 * Q))
 
 
-def phase_kernels(seed: int) -> dict:
+def timing_record(fn, plain, nbytes: int, nops: int, worst: int,
+                  call_reps: int) -> dict:
+    """The kernel's own device time (CUDA-graph replay), the time per call
+    through the Python wrapper (back to back, as a caller pays it), the
+    plain version's time, and the bound."""
+    ms = graph_time_ms(fn)
+    call_ms = cuda_time_ms(fn, reps=call_reps, warmup=100)
+    plain_ms = cuda_time_ms(plain, reps=300)
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = nops / FP32_OPS_PER_S * 1e3
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "ops": nops, "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+            "library_ms": None, "max_abs_err": worst}
+
+
+def frontier_cases(Np: int) -> list:
+    return [("sweep", (4, 4, 4, 8), {}), ("sweep", (16, 7, 6, 32), {}),
+            ("sweep", (32, 128, 8, 64), {}), ("sweep", (8, 130, 5, 16), {}),
+            ("sweep", (1, 1, 1, 1), {}),
+            ("empty", (8, 16, 4, 8), {"empty": True}),
+            ("paper_empty", (512, 20, 8, Np), {"empty": True}),
+            ("paper", (512, 20, 8, Np), {})]
+
+
+def check_frontier(name, rec, kw) -> None:
+    if kw.get("empty"):
+        check(rec["n_ok"] == 0, f"{name}: empty frontier matched something: {rec}")
+    if rec["case"] == "paper":
+        check(rec["n_ok"] > 0, f"{name}: paper-shape case matched nothing")
+
+
+def kernel_fused_frontier(rng, Np: int) -> tuple:
     from repro_torch.kernels import fused_frontier as ff
-
-    rng = np.random.default_rng(seed)
-    cases = [("sweep", (4, 4, 4, 8), {}), ("sweep", (16, 7, 6, 32), {}),
-             ("sweep", (32, 128, 8, 64), {}), ("sweep", (8, 130, 5, 16), {}),
-             ("sweep", (1, 1, 1, 1), {}),
-             ("empty", (8, 16, 4, 8), {"empty": True}),
-             ("paper_empty", (512, 20, 8, 294_648), {"empty": True}),
-             ("paper", (512, 20, 8, 294_648), {})]
     results, worst = [], 0
-    for name, (EB, W, Q, Np), kw in cases:
-        args = fused_case(rng, EB, W, Q, Np, V=max(1000, 2 * Np), **kw)
+    for name, (EB, W, Q, n), kw in frontier_cases(Np):
+        args = fused_case(rng, EB, W, Q, n, V=max(1000, 2 * n), **kw)
         got = ff.fused_frontier_cuda(*args)
         torch.cuda.synchronize()
-        want = ff.fused_frontier_plain(*args)
-        rec = compare_fused(got, want, args)
-        rec.update(case=name, EB=EB, W=W, Q=Q, Np=Np)
+        rec = compare_fused(got, ff.fused_frontier_plain(*args), args)
+        rec.update(case=name, EB=EB, W=W, Q=Q, Np=n)
         results.append(rec)
         check(rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0
               and rec["disjoint"] and rec["covers_ok"],
               f"fused_frontier disagrees with its plain version: {rec}")
+        check_frontier("fused_frontier", rec, kw)
         worst = max(worst, rec["max_abs_err"])
-        if kw.get("empty"):
-            check(rec["n_ok"] == 0, f"empty frontier matched something: {rec}")
-        if name == "paper":
-            check(rec["n_ok"] > 0, "paper-shape case matched nothing")
-            paper = args
-    # the kernel's own device time (CUDA graph replay), and the time per
-    # call through the Python wrapper, back to back, as the path pays it
-    ms = graph_time_ms(lambda: ff.fused_frontier_cuda(*paper))
-    call_ms = cuda_time_ms(lambda: ff.fused_frontier_cuda(*paper), reps=5000, warmup=100)
-    plain_ms = cuda_time_ms(lambda: ff.fused_frontier_plain(*paper), reps=300)
-    nbytes, nops = fused_bytes_ops(paper)
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = nops / FP32_OPS_PER_S * 1e3
-    timing = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": nops,
-              "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-              "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-              "library_ms": None, "max_abs_err": worst}
-    emit("kernels", cases=results, fused_frontier=timing)
-    return timing
+        paper = args
+    nbytes, nops = frontier_bytes_ops(paper, 8, 4 * 1 + 2 * 4, 40)
+    timing = timing_record(lambda: ff.fused_frontier_cuda(*paper),
+                           lambda: ff.fused_frontier_plain(*paper),
+                           nbytes, nops, worst, call_reps=5000)
+    return results, timing
+
+
+def kernel_frontier_expand(rng, Np: int) -> tuple:
+    from repro_torch.kernels import frontier_expand as fe
+    results, worst = [], 0
+    for name, (EB, W, Q, n), kw in frontier_cases(Np):
+        args = expand_args(engine_case(rng, EB, W, Q, n, V=max(1000, 2 * n), **kw))
+        got = fe.frontier_expand_cuda(*args)
+        torch.cuda.synchronize()
+        rec = compare_expand(got, fe.frontier_expand_plain(*args), args)
+        rec.update(case=name, EB=EB, W=W, Q=Q, Np=n)
+        results.append(rec)
+        check(rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0,
+              f"frontier_expand disagrees with its plain version: {rec}")
+        check_frontier("frontier_expand", rec, kw)
+        worst = max(worst, rec["max_abs_err"])
+        paper = args
+    nbytes, nops = frontier_bytes_ops(paper, 6, 1 + 4, 30)
+    timing = timing_record(lambda: fe.frontier_expand_cuda(*paper),
+                           lambda: fe.frontier_expand_plain(*paper),
+                           nbytes, nops, worst, call_reps=5000)
+    return results, timing
+
+
+def histogram_case(rng, n: int, dev="cuda") -> tuple:
+    lab = rng.integers(0, 4, n).astype(np.int32)
+    val = rng.normal(size=n).astype(np.float32)
+    val[rng.random(n) < 0.2] = np.nan
+    core = (rng.random(n) < 0.7).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (lab, val, core))
+
+
+def kernel_label_histogram(rng, pg) -> tuple:
+    """The sweep (the 1024-node block edge, every label kind and op, NaN
+    values), one partition of the path, and the whole graph."""
+    from repro_torch.kernels import label_histogram as lh
+    results = []
+
+    def one(case, args, label, op, value):
+        got = lh.label_histogram_cuda(*args, label, op, value)
+        torch.cuda.synchronize()
+        want = lh.label_histogram_plain(*args, label, op, value)
+        rec = {"case": case, "n": int(args[0].shape[0]), "label": label, "op": op,
+               "count": int(got), "max_abs_err": abs(int(got) - int(want))}
+        check(rec["max_abs_err"] == 0,
+              f"label_histogram disagrees with its plain version: {rec}")
+        return rec
+
+    for n in (1, 1023, 1024, 1025, 3000):
+        args = histogram_case(rng, n)
+        for label in (-1, 2, 9):
+            results += [one("sweep", args, label, op, 0.1) for op in range(7)]
+    part = pg.parts[0]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    core = (np.arange(pg.node_pad) < part.n_core).astype(np.int32)
+    paper = (t(part.node_label), t(part.node_value), t(core))
+    g = pg.graph
+    whole = (t(g.node_label), t(g.node_value),
+             t(np.ones(g.n_nodes, np.int32)))
+    for case, args in (("partition", paper), ("graph", whole)):
+        results += [one(case, args, -1, 0, 0.0), one(case, args, 1, 5, 0.5),
+                    one(case, args, 0, 2, float("nan"))]
+    n = paper[0].shape[0]
+    timing = timing_record(lambda: lh.label_histogram_cuda(*paper, 1, 5, 0.5),
+                           lambda: lh.label_histogram_plain(*paper, 1, 5, 0.5),
+                           3 * 4 * n + 4, 12 * n, 0, call_reps=2000)
+    whole_timing = {"ms": graph_time_ms(lambda: lh.label_histogram_cuda(*whole, 1, 5, 0.5)),
+                    "bytes": 3 * 4 * whole[0].shape[0] + 4}
+    return results, timing, whole_timing
+
+
+def phase_kernels(seed: int, pg) -> dict:
+    rng = np.random.default_rng(seed)
+    Np = pg.node_pad
+    ff_cases, ff_t = kernel_fused_frontier(rng, Np)
+    fe_cases, fe_t = kernel_frontier_expand(rng, Np)
+    lh_cases, lh_t, lh_whole = kernel_label_histogram(rng, pg)
+    emit("kernels", node_pad=Np, fused_frontier_cases=ff_cases,
+         frontier_expand_cases=fe_cases,
+         label_histogram_cases=[c for c in lh_cases if c["case"] != "sweep"],
+         label_histogram_sweep_checked=sum(c["case"] == "sweep" for c in lh_cases),
+         fused_frontier=ff_t, frontier_expand=fe_t, label_histogram=lh_t,
+         label_histogram_whole_graph=lh_whole)
+    return {"fused_frontier": ff_t, "frontier_expand": fe_t, "label_histogram": lh_t}
 
 
 # ---------------------------------------------------------------------------
-# serving: small CPU-vs-card parity, then the main path at full size
+# serving: small CPU-vs-card parity, then the paths at full size
 # ---------------------------------------------------------------------------
+
+def same_results(a, b) -> bool:
+    """Two QueryResults agree: answers, and per disjunct loads and
+    iterations."""
+    return (np.array_equal(a.answers, b.answers)
+            and [r.stats.loads for r in a.reports] == [r.stats.loads for r in b.reports]
+            and [r.stats.iterations for r in a.reports]
+            == [r.stats.iterations for r in b.reports])
+
 
 def phase_small(seed: int) -> None:
     from repro_torch.core import EngineConfig, GraphSession
     from repro_torch.data.generators import subgen_like_graph, subgen_queries
     g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=seed)
     qs = subgen_queries(g)
+    budgets = [None, 3, None]
     runs = {}
     for dev in ("cuda", "cpu"):
-        sess = GraphSession(g, config=EngineConfig(cap=16384), device=dev)
-        runs[dev] = [sess.submit(dq) for dq in qs]
+        for engine in ("opat", "traditional"):
+            sess = GraphSession(g, engine=engine, processors=2,
+                                config=EngineConfig(cap=16384), device=dev)
+            single = [sess.submit(dq) for dq in qs]
+            report = sess.submit_many(qs, max_answers=budgets)
+            runs[dev, engine] = (single, report)
     out = []
-    for a, b in zip(runs["cuda"], runs["cpu"]):
-        same = (np.array_equal(a.answers, b.answers)
-                and [r.stats.loads for r in a.reports] == [r.stats.loads for r in b.reports]
-                and [r.stats.iterations for r in a.reports]
-                == [r.stats.iterations for r in b.reports])
-        check(same, f"{a.name}: card and CPU runs differ")
-        out.append({"query": a.name, "n_answers": a.n_answers, "n_loads": a.n_loads})
+    for engine in ("opat", "traditional"):
+        (a1, ar), (b1, br) = runs["cuda", engine], runs["cpu", engine]
+        for a, b in zip(a1, b1):
+            check(same_results(a, b), f"{engine} {a.name}: card and CPU runs differ")
+            out.append({"engine": engine, "query": a.name, "n_answers": a.n_answers,
+                        "n_loads": a.n_loads})
+        check(ar.loads == br.loads and ar.batch_sizes == br.batch_sizes
+              and all(same_results(a, b) for a, b in zip(ar.results, br.results)),
+              f"{engine} submit_many: card and CPU runs differ")
+        out.append({"engine": engine, "submit_many_loads": ar.loads,
+                    "batch_sizes": ar.batch_sizes})
     emit("small", nodes=g.n_nodes, edges=g.n_edges, queries=out)
 
 
-def phase_path(scale: float, seed: int) -> int:
-    from repro_torch.core.oracle import match_disjunctive
-    from repro_torch.data.generators import subgen_like_graph, subgen_queries
-    from repro_torch.kernels import build
-    from repro_torch.kernels.fused_frontier import NAME
-
+def phase_graph(scale: float, seed: int):
+    """The main path's graph and partitions, built once for every phase."""
+    from repro_torch.core import build_partitions, partition_graph
+    from repro_torch.data.generators import subgen_like_graph
     t0 = time.perf_counter()
     g = subgen_like_graph(n_nodes=int(2000 * scale), n_edges=int(6000 * scale),
                           n_embed=max(5, int(50 * scale)), seed=seed)
     t_graph = time.perf_counter() - t0
-    from repro_torch.core import EngineConfig, GraphSession
-    sess = GraphSession(g, k=4, scheme="kway_shem", engine="opat",
-                        heuristic="max-sn", config=EngineConfig(cap=16384),
-                        device="cuda")
-    t_setup = time.perf_counter() - t0
-    dqs = subgen_queries(g)
-    runs = [(dq, None) for dq in dqs] + [(dqs[0], 5)]
+    pg = build_partitions(g, partition_graph(g, 4, "kway_shem", seed=seed), 4,
+                          scheme="kway_shem")
+    emit("graph", scale=scale, nodes=g.n_nodes, edges=g.n_edges, k=pg.k,
+         node_pad=pg.node_pad, ell_width=pg.ell_width, host_graph_s=t_graph,
+         host_partition_s=time.perf_counter() - t0 - t_graph)
+    return pg
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.LAUNCHES.clear()
-    sess.engine.inner_iters = 0
+
+def serve(sess, runs) -> list:
+    """Submit each (query, budget) with a synchronised host clock around it."""
     served = []
     for dq, budget in runs:
         torch.cuda.synchronize()
@@ -282,51 +443,255 @@ def phase_path(scale: float, seed: int) -> int:
         res = sess.submit(dq, max_answers=budget)
         torch.cuda.synchronize()
         served.append((dq, budget, res, time.perf_counter() - t1))
+    return served
+
+
+def verify(res, want, budget) -> bool:
+    """Exhaustive answers equal the oracle's; budgeted ones are a subset of
+    the right size."""
+    if budget is None:
+        return np.array_equal(res.answers, want)
+    wset = {tuple(r) for r in want}
+    return (res.n_answers == min(budget, len(wset))
+            and all(tuple(r) in wset for r in res.answers))
+
+
+def query_record(dq, budget, res, lat, want) -> dict:
+    st = res.reports[0].stats
+    rec = {"query": dq.name, "max_answers": budget, "n_answers": res.n_answers,
+           "oracle_answers": int(want.shape[0]), "verified": True,
+           "latency_s": lat, "loads": st.loads, "iterations": st.iterations,
+           "cold_loads": res.load_stats.cold_loads,
+           "warm_loads": res.load_stats.warm_loads,
+           "prefetch_hits": res.load_stats.prefetch_hits,
+           "bytes_cold": res.load_stats.bytes_cold,
+           "bytes_prefetched": res.load_stats.bytes_prefetched}
+    ppi = res.reports[0].extra.get("partitions_per_iteration")
+    if ppi is not None:
+        rec["partitions_per_iteration"] = ppi
+    return rec
+
+
+def path_runs(pg):
+    from repro_torch.data.generators import subgen_queries
+    dqs = subgen_queries(pg.graph)
+    return dqs, [(dq, None) for dq in dqs] + [(dqs[0], 5)]
+
+
+def phase_path(pg) -> tuple:
+    from repro_torch.core import EngineConfig, GraphSession
+    from repro_torch.core.oracle import match_disjunctive
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    t0 = time.perf_counter()
+    sess = GraphSession(pg=pg, engine="opat", heuristic="max-sn",
+                        config=EngineConfig(cap=16384), device="cuda")
+    t_setup = time.perf_counter() - t0
+    dqs, runs = path_runs(pg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    sess.engine.inner_iters = 0
+    served = serve(sess, runs)
     launches = build.LAUNCHES[NAME]
     inner = sess.engine.inner_iters
     peak = torch.cuda.max_memory_allocated()
 
-    queries = []
     t2 = time.perf_counter()
-    for dq, budget, res, lat in served:
-        want = match_disjunctive(g, dq, q_pad=8)
-        if budget is None:
-            right = np.array_equal(res.answers, want)
-        else:
-            wset = {tuple(r) for r in want}
-            right = (res.n_answers == min(budget, len(wset))
-                     and all(tuple(r) in wset for r in res.answers))
-        check(right, f"{dq.name} (budget {budget}) disagrees with the oracle")
-        st = res.reports[0].stats
-        queries.append({"query": dq.name, "max_answers": budget,
-                        "n_answers": res.n_answers, "oracle_answers": int(want.shape[0]),
-                        "verified": True, "latency_s": lat, "loads": st.loads,
-                        "iterations": st.iterations,
-                        "cold_loads": res.load_stats.cold_loads,
-                        "warm_loads": res.load_stats.warm_loads,
-                        "prefetch_hits": res.load_stats.prefetch_hits,
-                        "bytes_cold": res.load_stats.bytes_cold,
-                        "bytes_prefetched": res.load_stats.bytes_prefetched})
+    oracle = {dq.name: match_disjunctive(pg.graph, dq, q_pad=8) for dq in dqs}
     t_oracle = time.perf_counter() - t2
+    queries = []
+    for dq, budget, res, lat in served:
+        check(verify(res, oracle[dq.name], budget),
+              f"{dq.name} (budget {budget}) disagrees with the oracle")
+        queries.append(query_record(dq, budget, res, lat, oracle[dq.name]))
     check(launches > 0, "the main path launched no fused_frontier kernel")
     check(launches == inner,
           f"fused_frontier launches {launches} != summed EvalResult.n_iters {inner}")
-    emit("path", scale=scale, nodes=g.n_nodes, edges=g.n_edges,
-         node_pad=sess.pg.node_pad, ell_width=sess.pg.ell_width,
-         host_graph_s=t_graph, host_setup_s=t_setup, oracle_s=t_oracle,
-         max_memory_allocated=peak,
+    emit("path", nodes=pg.graph.n_nodes, edges=pg.graph.n_edges,
+         node_pad=pg.node_pad, ell_width=pg.ell_width, host_setup_s=t_setup,
+         oracle_s=t_oracle, max_memory_allocated=peak,
          host_peak_rss_kib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
-         fused_frontier_launches=launches,
-         eval_inner_iters=inner, queries=queries)
-    return launches, sess, dqs
+         fused_frontier_launches=launches, eval_inner_iters=inner,
+         queries=queries)
+    return launches, sess, oracle, served
 
 
-def phase_profile(sess, dq) -> None:
+def phase_sni(pg, sess) -> dict:
+    """label_histogram and frontier_expand on the path's own data: every
+    partition's SNI seed for every query's start predicate, and one real
+    binding batch per (query, partition) — the partition's fresh start
+    bindings — matched by frontier_expand and by the fused kernel."""
+    from repro_torch.core import build_catalog, generate_plan
+    from repro_torch.core.engine import plan_to_device
+    from repro_torch.core.plan import PlanArrays
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import value_pred
+
+    dqs, _ = path_runs(pg)
+    cat = build_catalog(pg.graph)
+    plans = [generate_plan(dq.disjuncts[0], pg.graph, cat) for dq in dqs]
+    store, owner = sess.store, sess.store.owner
+    entries = [store.get(p) for p in range(pg.k)]
+    cores = [(torch.arange(pg.node_pad, device="cuda") < e.part["n_core"]).int()
+             for e in entries]
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    counts, matches = [], []
+    for dq, plan in zip(dqs, plans):
+        pa = plan_to_device(PlanArrays.from_plan(plan, pad_steps=12), "cuda")
+        got = torch.stack([
+            ops.label_histogram(e.part["node_label"], e.part["node_value"], core,
+                                plan.start_label, plan.start_value_op,
+                                plan.start_value)
+            for e, core in zip(entries, cores)]).tolist()
+        want = pg.start_label_counts(plan.start_label, plan.start_value_op,
+                                     plan.start_value).tolist()
+        check(got == want, f"{dq.name}: SNI seeds {got} != start_label_counts {want}")
+        counts.append({"query": dq.name, "sni": got})
+        for e, core in zip(entries, cores):
+            # the partition's fresh start bindings, as the evaluator seeds them
+            part = e.part
+            start = (core.bool()
+                     & ((pa.start_label == -1) | (part["node_label"] == pa.start_label))
+                     & value_pred(pa.start_value_op, part["node_value"], pa.start_value))
+            idx = torch.nonzero(start)[:, 0][:512]
+            if idx.numel() == 0:
+                continue
+            EB = idx.numel()
+            rows = torch.full((EB, 8), -1, dtype=torch.int32, device="cuda")
+            rows[:, plan.start_slot] = part["node_gid"][idx]
+            step = torch.zeros(EB, dtype=torch.int32, device="cuda")
+            m = torch.ones(EB, dtype=torch.bool, device="cuda")
+            fg = rows[:, int(pa.src_slot[0])]      # step 0's frontier vertex
+            lidx = torch.where(fg >= 0, e.g2l[fg.clamp(min=0).long()], -1)
+            tables = [part[k] for k in ("ell_dst", "ell_label", "ell_dir",
+                                        "ell_dlab", "ell_dval", "ell_dgid")]
+            ok, dg = ops.frontier_expand(rows, step, lidx, m, *tables, pa,
+                                         plan.n_steps)
+            dl, do = ops.denorm_locality(part["ell_dgid"], e.g2l, owner)
+            fok, fdg, *_ = ops.fused_frontier(rows, step, lidx, m, *tables, dl, do,
+                                              e.g2l, owner, part["n_core"], pa,
+                                              plan.n_steps)
+            check(torch.equal(ok, fok) and torch.equal(dg, fdg),
+                  f"{dq.name} pid {part['pid']}: frontier_expand != fused ok/dg")
+            matches.append({"query": dq.name, "pid": part["pid"], "EB": EB,
+                            "n_ok": int(ok.sum())})
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("label_histogram", "frontier_expand",
+                                               "fused_frontier")}
+    check(launches["label_histogram"] > 0 and launches["frontier_expand"] > 0,
+          f"the sni phase launched no new kernel: {launches}")
+    check(any(r["n_ok"] for r in matches), "no real binding matched an edge")
+    emit("sni", seeds=counts, matches=matches, launches=launches)
+    return launches
+
+
+def phase_traditional(pg, oracle) -> tuple:
+    from repro_torch.core import EngineConfig, GraphSession
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    sess = GraphSession(pg=pg, engine="traditional", processors=2,
+                        heuristic="max-sn", config=EngineConfig(cap=16384),
+                        device="cuda")
+    _, runs = path_runs(pg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    served = serve(sess, runs)
+    launches = build.LAUNCHES[NAME]
+    loops = sess.engine.batched_iters
+    queries = []
+    for dq, budget, res, lat in served:
+        check(verify(res, oracle[dq.name], budget),
+              f"traditional {dq.name} (budget {budget}) disagrees with the oracle")
+        queries.append(query_record(dq, budget, res, lat, oracle[dq.name]))
+    check(launches > 0, "the traditional path launched no fused_frontier kernel")
+    check(launches == loops,
+          f"traditional: fused_frontier launches {launches} != batched loops {loops}")
+    emit("traditional", processors=2, fused_frontier_launches=launches,
+         batched_iters=loops, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         queries=queries)
+    return sess, served
+
+
+def phase_shared(sessions, oracle, isolated) -> None:
+    """submit_many of the path's queries on each session; answers must equal
+    the per-query results and the oracle."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    out = {}
+    for name, sess in sessions.items():
+        dqs = [dq for dq, _, _, _ in isolated[name]]
+        budgets = [b for _, b, _, _ in isolated[name]]
+        loops0 = sess.engine.batched_iters
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        report = sess.submit_many(dqs, max_answers=budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = build.LAUNCHES[NAME]
+        loops = sess.engine.batched_iters - loops0
+        for res, (dq, budget, single, _) in zip(report.results, isolated[name]):
+            check(verify(res, oracle[dq.name], budget),
+                  f"shared {name} {dq.name} disagrees with the oracle")
+            if budget is None:
+                check(np.array_equal(res.answers, single.answers),
+                      f"shared {name} {dq.name} differs from its submit")
+        check(launches > 0 and launches == loops,
+              f"shared {name}: fused_frontier launches {launches} != batched loops {loops}")
+        n_isolated = sum(single.n_loads for _, _, single, _ in isolated[name])
+        out[name] = {"wall_s": wall, "loads": report.loads,
+                     "batch_sizes": report.batch_sizes,
+                     "loads_per_query": report.loads_per_query,
+                     "isolated_loads": n_isolated,
+                     "isolated_loads_per_query": n_isolated / len(dqs),
+                     "isolated_latency_sum_s": sum(lat for *_, lat in isolated[name]),
+                     "cold_loads": report.load_stats.cold_loads,
+                     "warm_loads": report.load_stats.warm_loads,
+                     "fused_frontier_launches": launches, "batched_iters": loops,
+                     "queries": [{"query": r.name, "n_answers": r.n_answers,
+                                  "latency_s": r.latency_s, "n_loads": r.n_loads}
+                                 for r in report.results]}
+    emit("shared", **out)
+
+
+def engine_loops(engine) -> int:
+    """Evaluator loops the engine has run: single-partition and batched."""
+    return getattr(engine, "inner_iters", 0) + engine.batched_iters
+
+
+def warm_pairs(sessions, dq, rounds: int = 12) -> dict:
+    """Warm latency of one query on each session, on the host clock, in
+    ``rounds`` rounds that alternate which session goes first (the spread
+    of each, and how many rounds the second session was the faster)."""
+    names = list(sessions)
+    lat = {n: [] for n in names}
+    loops0 = {n: engine_loops(s.engine) for n, s in sessions.items()}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            lat[n] += [t for *_, t in serve(sessions[n], [(dq, None)])]
+    out = {n: {"warm_latency_s": v, "median_s": float(np.median(v)),
+               "quartiles_s": [float(q) for q in np.percentile(v, [25, 75])],
+               "loops_per_query": (engine_loops(sessions[n].engine) - loops0[n]) // rounds}
+           for n, v in lat.items()}
+    first, second = names
+    out[f"rounds_{second}_faster"] = sum(b < a for a, b in zip(lat[first], lat[second]))
+    out["rounds"] = rounds
+    return out
+
+
+def profile_query(sess, dq, engine: str) -> dict:
     """One warm query under torch.profiler: the device's busy and idle
     share of the query's wall time and device time by kernel name (read
     from the exported Chrome trace), and host time by op."""
     from torch.profiler import ProfilerActivity, profile
-    out = ROOT / "chiprun_out" / f"profile_{dq.name}.json"
+    out = ROOT / "chiprun_out" / f"profile_{engine}_{dq.name}.json"
     out.parent.mkdir(exist_ok=True)
     sess.submit(dq)
     torch.cuda.synchronize()
@@ -357,7 +722,7 @@ def phase_profile(sess, dq) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = [v for n, v in by_name.items() if "fused_frontier" in n]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
-    emit("profile", query=dq.name, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+    return dict(query=dq.name, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
          device_idle_share=1.0 - busy_us / 1e3 / wall_ms, device_events=len(dev),
          fused_frontier_ms=sum(v[0] for v in ours),
          fused_frontier_count=sum(v[1] for v in ours),
@@ -365,6 +730,11 @@ def phase_profile(sess, dq) -> None:
                                  for n, v in top],
          host_ops_by_self_cpu_time=[{"name": e.key, "ms": e.self_cpu_time_total / 1e3,
                                      "count": e.count} for e in host])
+
+
+def phase_profile(sessions, dq) -> None:
+    emit("profile", warm=warm_pairs(sessions, dq),
+         **{name: profile_query(sess, dq, name) for name, sess in sessions.items()})
 
 
 def main() -> int:
@@ -394,18 +764,31 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          kernels={n: {k: v for k, v in d.items() if k != "log"} for n, d in info.items()})
 
-    timing = phase_kernels(args.seed)
+    pg = phase_graph(args.scale, args.seed)
+    timing = phase_kernels(args.seed, pg)
     phase_small(args.seed)
-    launches, sess, dqs = phase_path(args.scale, args.seed)
-    phase_profile(sess, dqs[1])
+    launches, sess, oracle, served = phase_path(pg)
+    sni = phase_sni(pg, sess)
+    tsess, tserved = phase_traditional(pg, oracle)
+    sessions = {"opat": sess, "traditional": tsess}
+    phase_shared(sessions, oracle, {"opat": served, "traditional": tserved})
+    phase_profile(sessions, served[1][0])
 
-    kernels = [{"name": "fused_frontier", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/fused_frontier.cu",
-                "replaces": "src/repro/kernels/fused_frontier.py:61",
-                "launches": launches, "max_abs_err": timing["max_abs_err"],
-                "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-                "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-                "library_ms": timing["library_ms"]}]
+    sources = {
+        "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", launches),
+        "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",
+                            sni["frontier_expand"]),
+        "label_histogram": ("src/repro/kernels/label_histogram.py:23",
+                            sni["label_histogram"])}
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": replaces, "launches": n,
+                "max_abs_err": timing[name]["max_abs_err"],
+                "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+                "bound_ms": timing[name]["bound_ms"],
+                "bound_by": timing[name]["bound_by"],
+                "library_ms": timing[name]["library_ms"]}
+               for name, (replaces, n) in sources.items()]
     RECORD["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

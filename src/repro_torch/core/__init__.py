@@ -8,17 +8,22 @@ Public API of this slice:
   Query / DisjunctiveQuery / make_*    — query construction
   EngineConfig / make_partition_evaluator — the evaluator (core/engine.py)
   OPATEngine                           — One Partition At a Time serving
+  TraditionalMPEngine                  — p partitions per iteration (Sec. 8)
+  QueryScheduler / ScheduleReport      — shared-load multi-query serving
   PartitionStore / LoadStats           — device residency: LRU cache,
                                          pins, side-stream prefetch
-  GraphSession / QueryResult           — in-RAM serving session (OPAT)
+  GraphSession / QueryResult           — in-RAM serving session (OPAT,
+                                         TraditionalMP; submit_many)
   oracle.match_query                   — whole-graph ground truth
 """
 from .catalog import Catalog, build_catalog
-from .engine import EngineConfig, EvalResult, make_partition_evaluator, resolve_device
+from .engine import (EngineConfig, EvalResult, make_batched_evaluator,
+                     make_partition_evaluator, resolve_device)
 from .graph import (Graph, GraphBuilder, LabelVocab, PartitionArrays,
                     PartitionedGraph, WILDCARD, build_partitions)
-from .heuristics import (ALL_HEURISTICS, MAX_SN, MAX_YIELD, MIN_SN, RANDOM_SN,
-                         rank_partitions)
+from .heuristics import (ALL_HEURISTICS, MAX_SN, MAX_YIELD, MAX_YIELD_SHARED,
+                         MIN_SN, RANDOM_SN, SHARED_HEURISTICS, rank_partitions,
+                         rank_partitions_shared)
 from .metrics import RunStats, l_ideal_for_plan
 from .opat import OPATEngine, OPATResult, absorb_eval_outputs
 from .oracle import match_disjunctive, match_query
@@ -27,17 +32,20 @@ from .plan import Plan, PlanArrays, PlanStep, generate_plan
 from .query import (DisjunctiveQuery, Query, QueryEdge, QueryNode,
                     make_path_query, make_star_query)
 from .runner import QueryRunner, RunReport, RunRequest, truncate_answers
+from .scheduler import QueryScheduler, ScheduleReport, batch_bucket
 from .session import GraphSession, QueryResult
 from .state import BindingBatch, QueryState
 from .store import LoadStats, PartitionStore, StoreEntry
+from .traditional_mp import TraditionalMPEngine, TraditionalMPResult
 
 __all__ = [
     "Catalog", "build_catalog", "EngineConfig", "EvalResult",
-    "make_partition_evaluator", "resolve_device",
+    "make_batched_evaluator", "make_partition_evaluator", "resolve_device",
     "Graph", "GraphBuilder", "LabelVocab", "PartitionArrays",
     "PartitionedGraph", "WILDCARD", "build_partitions",
-    "ALL_HEURISTICS", "MAX_SN", "MAX_YIELD", "MIN_SN", "RANDOM_SN",
-    "rank_partitions", "RunStats", "l_ideal_for_plan",
+    "ALL_HEURISTICS", "MAX_SN", "MAX_YIELD", "MAX_YIELD_SHARED", "MIN_SN",
+    "RANDOM_SN", "SHARED_HEURISTICS", "rank_partitions",
+    "rank_partitions_shared", "RunStats", "l_ideal_for_plan",
     "OPATEngine", "OPATResult", "absorb_eval_outputs",
     "match_disjunctive", "match_query",
     "SCHEMES", "PartitionScheme", "partition_graph", "partition_quality",
@@ -45,6 +53,8 @@ __all__ = [
     "DisjunctiveQuery", "Query", "QueryEdge", "QueryNode",
     "make_path_query", "make_star_query",
     "QueryRunner", "RunReport", "RunRequest", "truncate_answers",
+    "QueryScheduler", "ScheduleReport", "batch_bucket",
+    "TraditionalMPEngine", "TraditionalMPResult",
     "GraphSession", "QueryResult", "BindingBatch", "QueryState",
     "LoadStats", "PartitionStore", "StoreEntry",
 ]

@@ -23,11 +23,22 @@ stable sort, so iteration counts and row placement match it exactly.
 Masked appends write their dropped rows into one spare trash row at the
 end of each buffer, so no scatter index is ever out of range and no
 boolean-mask indexing forces a sync.
+
+Two forms share those rules:
+
+  make_partition_evaluator — one partition, one plan (OPAT's ``submit``).
+  make_batched_evaluator   — L independent *lanes*, each with its own
+      partition (from a stacked [P, Np, ...] bundle) and its own plan
+      (from stacked ``PlanArrays``): the JAX package's three ``vmap``
+      forms (TraditionalMP's partition lanes, OPAT's query lanes and the
+      scheduler's query x partition lanes) as one native lane axis.  Each
+      loop iteration makes ONE fused-kernel launch over all lanes'
+      selected rows, and one host sync.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -81,12 +92,13 @@ class EvalResult(NamedTuple):
 
 
 def _next_rows(rows_b, step_b, dg, plan):
-    """New binding rows [EB, W, Q] and steps [EB, W]."""
+    """New binding rows [EB, W, Q] and steps [EB, W]; ``plan`` fields are
+    [S] or per binding [EB, S]."""
     EB, Q = rows_b.shape
     W = dg.shape[1]
-    s = step_b.clamp(0, plan.src_slot.shape[0] - 1).long()
-    p_dst = plan.dst_slot[s]
-    p_closes = plan.closes_cycle[s]
+    s = step_b.clamp(0, plan.src_slot.shape[-1] - 1).long()
+    p_dst = kops.plan_at(plan.dst_slot, s)
+    p_closes = kops.plan_at(plan.closes_cycle, s)
     col = torch.arange(Q, dtype=torch.int32, device=rows_b.device)
     setcol = (col[None, None, :] == p_dst[:, None, None]) & (p_closes[:, None, None] == 0)
     nr = torch.where(setcol, dg[:, :, None], rows_b[:, None, :])
@@ -254,6 +266,212 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
                           n_expanded.to(i32))
 
     return evaluate
+
+
+_ELL_TABLES = ("ell_dst", "ell_label", "ell_dir", "ell_dlab", "ell_dval", "ell_dgid")
+_STEP_FIELDS = ("src_slot", "dst_slot", "edge_label", "direction", "dst_label",
+                "dst_value_op", "dst_value", "closes_cycle")
+
+
+def make_batched_evaluator(cfg: EngineConfig):
+    """Build the lane evaluator: L independent evaluations in one call.
+
+    ``evaluate(parts, g2l, owner, plans, n_steps, lane_part, lane_plan,
+    in_rows, in_step, in_valid, seed_fresh)`` takes
+
+      parts      stacked partition dict, tables [P, Np, ...], ``n_core`` [P]
+      g2l        [P, V] int32, each partition's g2l row
+      owner      [V] int32
+      plans      stacked ``PlanArrays`` (fields [B] / [B, S]) on the device
+      n_steps    [B] int32
+      lane_part  [L] partition (index into P) of each lane
+      lane_plan  [L] plan (index into B) of each lane
+      in_rows    [L, CAP, Q], in_step [L, CAP], in_valid [L, CAP]
+      seed_fresh [L] bool
+
+    and returns (``EvalResult`` with a leading L axis, the number of loop
+    iterations it ran).  Each lane's result equals the single-partition
+    evaluator's on that lane's inputs, as ``jax.vmap`` of the JAX
+    evaluator gives them: the loop runs while any lane has active rows; a
+    lane with none, or at ``max_inner_iters``, is frozen (its rows masked
+    out of the launch, its ``n_iters`` and ``n_expanded`` no longer
+    counting).  Selection, trash rows, appends and overflow are per lane.
+    """
+    Q, S, CAP = cfg.q_pad, cfg.s_pad, cfg.cap
+
+    def evaluate(parts: Dict[str, torch.Tensor], g2l: torch.Tensor,
+                 owner: torch.Tensor, plans: PlanArrays, n_steps,
+                 lane_part, lane_plan, in_rows: torch.Tensor,
+                 in_step: torch.Tensor, in_valid: torch.Tensor,
+                 seed_fresh) -> Tuple[EvalResult, int]:
+        dev = in_rows.device
+        P, Np = parts["node_label"].shape
+        W = parts["ell_dst"].shape[2]
+        V = owner.shape[0]
+        L = in_rows.shape[0]
+        WT = CAP + Np  # work buffer: incoming rows + fresh seeds
+        EB = min(cfg.expand_block, WT)  # can't select more rows than exist
+        EBW = EB * W
+        kfree = min(EBW, WT)
+        i32, i64 = torch.int32, torch.int64
+
+        def lane_tensor(x, dtype):
+            return torch.as_tensor(x, dtype=dtype, device=dev).reshape(-1)
+
+        lane_part = lane_tensor(lane_part, i64)
+        lane_plan = lane_tensor(lane_plan, i64)
+        lanes = torch.arange(L, device=dev)
+        n_core = lane_tensor(parts["n_core"], i32)[lane_part]          # [L]
+        nst = lane_tensor(n_steps, i32)[lane_plan]                      # [L]
+        plan = dataclasses.replace(plans, **{
+            f: getattr(plans, f)[lane_plan] for f in _PLAN_TENSOR_FIELDS})
+        g2l_flat = g2l.reshape(-1)
+        g2l_off = lane_part * V
+
+        # the fused kernel reads the stacked tables as one [P*Np, W] view;
+        # a binding's row is offset by its lane's partition
+        tables = [parts[k].reshape(P * Np, W) for k in _ELL_TABLES]
+        dlidx, downer = kops.denorm_locality(parts["ell_dgid"], g2l, owner)
+        aux = (dlidx.reshape(P * Np, W), downer.reshape(P * Np, W))
+        # per-binding copies of the lane scalars, once per call
+        plan_b = dataclasses.replace(plan, **{
+            f: getattr(plan, f).repeat_interleave(EB, 0) for f in _STEP_FIELDS})
+        nst_b = nst.repeat_interleave(EB)
+        n_core_b = n_core.repeat_interleave(EB)
+        g2l_off_b = g2l_off.repeat_interleave(EB)
+        row_off = (lane_part * Np)[:, None]
+
+        def frontier_local(rows, step, valid):
+            """[L, N] active mask + local index of each row's next frontier
+            vertex in its lane's partition."""
+            s = step.clamp(0, S - 1).long()
+            src = plan.src_slot.gather(1, s).long()
+            fg = rows.gather(2, src[:, :, None])[:, :, 0]
+            fg_safe = fg.clamp(0, V - 1).long()
+            lidx = torch.where(fg >= 0, g2l_flat[fg_safe + g2l_off[:, None]], -1)
+            local = (lidx >= 0) & (lidx < n_core[:, None])
+            act = valid & (step < nst[:, None]) & local
+            return act, lidx, fg
+
+        def append(buf_rows, buf_aux, buf_n, rows, aux_rows, mask, overflow):
+            """Per-lane masked append into [L, cap + 1, ...] buffers whose
+            last row is each lane's trash row."""
+            cap = buf_rows.shape[1] - 1
+            cnt = torch.cumsum(mask, 1) - 1
+            tgt = buf_n[:, None] + cnt
+            tgt = torch.where(mask & (tgt < cap), tgt, cap)
+            flat = (tgt + lanes[:, None] * (cap + 1)).reshape(-1)
+            buf_rows.view(-1, Q)[flat] = rows.reshape(-1, Q)
+            for b, a in zip(buf_aux, aux_rows):
+                b.view(-1)[flat] = a.reshape(-1)
+            total = buf_n + mask.sum(1)
+            return total.clamp(max=cap), overflow | (total > cap)
+
+        # ---- seed fresh start-node bindings from each lane's partition ----
+        node_idx = torch.arange(Np, dtype=i32, device=dev)
+        sf = lane_tensor(seed_fresh, torch.bool)
+        start_label = plan.start_label[:, None]
+        start_ok = ((node_idx[None, :] < n_core[:, None])
+                    & ((start_label == WILDCARD)
+                       | (parts["node_label"][lane_part] == start_label))
+                    & kref.value_pred(plan.start_value_op[:, None],
+                                      parts["node_value"][lane_part],
+                                      plan.start_value[:, None])
+                    & sf[:, None])
+        col = torch.arange(Q, dtype=i32, device=dev)
+        fresh_rows = torch.where(
+            (col[None, None, :] == plan.start_slot[:, None, None]) & start_ok[:, :, None],
+            parts["node_gid"][lane_part][:, :, None], -1)
+        # one extra trash row per lane at index WT
+        wr_full = torch.cat([in_rows, fresh_rows,
+                             torch.full((L, 1, Q), -1, dtype=i32, device=dev)], 1)
+        ws_full = torch.cat([in_step, torch.zeros((L, Np + 1), dtype=i32, device=dev)], 1)
+        wv_full = torch.cat([in_valid, start_ok,
+                             torch.zeros((L, 1), dtype=torch.bool, device=dev)], 1)
+        wr, ws, wv = wr_full[:, :WT], ws_full[:, :WT], wv_full[:, :WT]
+        work_off = (lanes * (WT + 1))[:, None]
+
+        comp_rows = torch.full((L, CAP + 1, Q), -1, dtype=i32, device=dev)
+        out_rows = torch.full((L, CAP + 1, Q), -1, dtype=i32, device=dev)
+        out_step = torch.zeros((L, CAP + 1), dtype=i32, device=dev)
+        out_dest = torch.full((L, CAP + 1), -1, dtype=i32, device=dev)
+        zero = torch.zeros(L, dtype=i64, device=dev)
+        comp_n, out_n, n_expanded = zero, zero, zero
+        overflow = torch.zeros(L, dtype=torch.bool, device=dev)
+        n_iters = torch.zeros(L, dtype=i32, device=dev)
+
+        # ---- pre-classify: rows already complete, or frontier not local ----
+        done0 = wv & (ws >= nst[:, None])
+        act0, _, fg0 = frontier_local(wr, ws, wv)
+        outm0 = wv & ~done0 & ~act0
+        dest0 = owner[fg0.clamp(0, V - 1).long()]
+        comp_n, overflow = append(comp_rows, (), comp_n, wr, (), done0, overflow)
+        out_n, overflow = append(out_rows, (out_step, out_dest), out_n, wr,
+                                 (ws, dest0), outm0, overflow)
+        wv &= act0
+
+        loops = 0
+        while True:
+            act, lidx, _ = frontier_local(wr, ws, wv)
+            go = act.any(1) & (n_iters < cfg.max_inner_iters)
+            if not bool(go.any()):
+                break
+            act &= go[:, None]          # frozen lanes select nothing
+            # up to EB active rows per lane, lowest index first
+            sel = torch.sort(act.to(torch.uint8), dim=1, descending=True,
+                             stable=True)[1][:, :EB]
+            m = act.gather(1, sel)
+            rows_b = wr.gather(1, sel[:, :, None].expand(L, EB, Q))
+            step_b = ws.gather(1, sel)
+            lidx_b = lidx.gather(1, sel).clamp(0, Np - 1) + row_off
+            # consume them
+            wv.scatter_(1, sel, wv.gather(1, sel) & ~m)
+
+            rows_f, step_f = rows_b.reshape(L * EB, Q), step_b.reshape(-1)
+            ok, dg, done_t, keep_t, outm_t, dest_t = kops.fused_frontier(
+                rows_f, step_f, lidx_b.reshape(-1), m.reshape(-1), *tables, *aux,
+                g2l_flat, owner, n_core_b, plan_b, nst_b, g2l_off=g2l_off_b)
+            nr, ns = _next_rows(rows_f, step_f, dg, plan_b)
+            nr_f = nr.reshape(L, EBW, Q)
+            ns_f = ns.reshape(L, EBW)
+            keep = keep_t.reshape(L, EBW)
+
+            comp_n, overflow = append(comp_rows, (), comp_n, nr_f, (),
+                                      done_t.reshape(L, EBW), overflow)
+            out_n, overflow = append(out_rows, (out_step, out_dest), out_n, nr_f,
+                                     (ns_f, dest_t.reshape(L, EBW)),
+                                     outm_t.reshape(L, EBW), overflow)
+            # keep-rows go into each lane's lowest free work slots
+            free = torch.sort((~wv).to(torch.uint8), dim=1, descending=True,
+                              stable=True)[1][:, :kfree]
+            overflow = overflow | (keep.sum(1) > (~wv).sum(1))
+            pos = torch.cumsum(keep, 1) - 1
+            tgt = torch.where(keep & (pos < kfree),
+                              free.gather(1, pos.clamp(0, kfree - 1)), WT)
+            flat = (tgt + work_off).reshape(-1)
+            wr_full.view(-1, Q)[flat] = nr_f.reshape(-1, Q)
+            ws_full.view(-1)[flat] = ns_f.reshape(-1)
+            wv_full.view(-1)[flat] = True
+
+            n_iters += go.to(i32)
+            n_expanded = n_expanded + m.sum(1)
+            loops += 1
+
+        return EvalResult(comp_rows[:, :CAP], comp_n.to(i32), out_rows[:, :CAP],
+                          out_step[:, :CAP], out_dest[:, :CAP], out_n.to(i32),
+                          overflow, n_iters, n_expanded.to(i32)), loops
+
+    return evaluate
+
+
+def stack_entry_part(part: Dict[str, Union[int, torch.Tensor]]
+                     ) -> Dict[str, torch.Tensor]:
+    """A single-partition evaluator dict as a stacked P=1 bundle (views;
+    the scalars become [1] tensors on the tables' device)."""
+    dev = part["node_label"].device
+    return {k: (torch.tensor([int(v)], dtype=torch.int32, device=dev)
+                if isinstance(v, int) else v.unsqueeze(0))
+            for k, v in part.items()}
 
 
 # ---------------------------------------------------------------------------

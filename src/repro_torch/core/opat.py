@@ -17,7 +17,9 @@ overlaps the current evaluation.
 
 ``inner_iters`` counts the evaluator's expansion-loop iterations over the
 engine's lifetime (the sum of ``EvalResult.n_iters``): each iteration is
-one launch of the fused frontier kernel.
+one launch of the fused frontier kernel.  ``batched_iters`` does the same
+for ``batched_evaluator()``: the sum of each batched call's loop count,
+which is one launch however many queries the call advances.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import numpy as np
 import torch
 
 from ..obs.trace import NULL_TRACER
-from .engine import EngineConfig, make_partition_evaluator, plan_to_device
+from .engine import (EngineConfig, EvalResult, make_batched_evaluator,
+                     make_partition_evaluator, plan_to_device, stack_entry_part)
 from .graph import PartitionedGraph
 from .heuristics import MAX_YIELD, rank_partitions
 from .metrics import RunStats, l_ideal_for_plan
@@ -67,6 +70,21 @@ def absorb_eval_outputs(st: QueryState, pid: int, k: int,
                     BindingBatch(rows=rows[sel], step=step[sel])).dedup()
 
 
+def lane_outputs(res: EvalResult) -> List[tuple]:
+    """A lane evaluator's outputs on the host: one sync for the per-lane
+    counts, then only the filled rows copied.  One tuple per lane:
+    (overflow, comp_rows, comp_n, out_rows, out_step, out_dest, out_n)."""
+    counts = torch.stack([res.overflow.int(), res.comp_n, res.out_n], 1).tolist()
+    cmax = max((c[1] for c in counts), default=0)
+    omax = max((c[2] for c in counts), default=0)
+    comp = res.comp_rows[:, :cmax].cpu().numpy()
+    orow = res.out_rows[:, :omax].cpu().numpy()
+    ostp = res.out_step[:, :omax].cpu().numpy()
+    odst = res.out_dest[:, :omax].cpu().numpy()
+    return [(bool(o), comp[i, :c], c, orow[i, :n], ostp[i, :n], odst[i, :n], n)
+            for i, (o, c, n) in enumerate(counts)]
+
+
 class OPATEngine:
     """Reusable engine bound to one partitioned graph.
 
@@ -93,6 +111,35 @@ class OPATEngine:
         self.device = self.store.device
         self.prefetch = prefetch
         self.inner_iters = 0
+        self.batched_iters = 0
+        self._beval = None
+
+    def batched_evaluator(self):
+        """The plan-batched partition evaluator: one loaded partition
+        advances B pending queries' plans in one call — the JAX package's
+        ``vmap`` over the query axis with the partition broadcast, here the
+        lane evaluator with one lane per query.
+
+        ``beval(part, g2l, owner, plans, n_steps, in_rows, in_step,
+        in_valid, seed_fresh)`` takes the partition as ``store.get`` gives
+        it, stacked ``PlanArrays`` [B, ...] and n_steps [B] on the device,
+        and inputs with a leading B axis; it returns an ``EvalResult`` with
+        a leading B axis and adds its loop count to ``batched_iters``.
+        Built lazily: per-query serving never needs it."""
+        if self._beval is None:
+            lanes = make_batched_evaluator(self.cfg)
+
+            def beval(part, g2l, owner, plans, n_steps, in_rows, in_step,
+                      in_valid, seed_fresh) -> EvalResult:
+                B = in_rows.shape[0]
+                res, loops = lanes(stack_entry_part(part), g2l[None], owner,
+                                   plans, n_steps, torch.zeros(B, dtype=torch.long),
+                                   torch.arange(B), in_rows, in_step, in_valid,
+                                   seed_fresh)
+                self.batched_iters += loops
+                return res
+            self._beval = beval
+        return self._beval
 
     def _run_partition(self, entry: StoreEntry, plan_arrays: PlanArrays,
                        n_steps: int, batch: BindingBatch, seed_fresh: bool,

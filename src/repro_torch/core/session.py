@@ -15,17 +15,20 @@ residency state:
 
 ``submit(query, max_answers=K)`` accepts a conjunctive ``Query`` or a
 ``DisjunctiveQuery`` (per-disjunct plans, unioned answers; a budget K
-applies per disjunct) and returns a ``QueryResult``.
+applies per disjunct) and returns a ``QueryResult``.  ``submit_many``
+serves a batch through the shared-load ``QueryScheduler``
+(core/scheduler.py), whose ``ScheduleReport`` holds one ``QueryResult``
+per query.
 
-This session is in RAM and serves the OPAT engine only; the other
-engines, ``open``/``save``, mutation, repartitioning, the multi-query
-scheduler and the SLO front end come with later slices.
+This session is in RAM and serves the OPAT and TraditionalMP engines;
+MapReduceMP, ``open``/``save``, mutation, repartitioning and the SLO
+front end come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -43,6 +46,7 @@ from .query import DisjunctiveQuery, Query
 from .repartition import answer_span_matrix
 from .runner import RunReport, RunRequest
 from .store import LoadStats, PartitionStore
+from .traditional_mp import TraditionalMPEngine
 
 ENGINES = ("opat", "traditional", "mapreduce")
 
@@ -57,6 +61,9 @@ class QueryResult:
     reports: List[RunReport]       # one per disjunct, in disjunct order
     latency_s: float
     load_stats: LoadStats          # this call's store delta (cold/warm/prefetch)
+    qid: Optional[int] = None      # scheduler admission id (None on submit)
+    generation: Optional[int] = None   # graph generation the result was
+                                       # pinned to; None in RAM
 
     @property
     def n_answers(self) -> int:
@@ -74,8 +81,9 @@ class QueryResult:
 class GraphSession:
     """One partitioned graph, one engine, many queries.
 
-    ``engine`` must be ``"opat"`` (the others raise
-    ``NotImplementedError``); ``cache_parts`` / ``cache_bytes`` size the
+    ``engine`` is ``"opat"`` or ``"traditional"`` (with ``processors``
+    partitions per iteration); ``"mapreduce"`` raises
+    ``NotImplementedError``.  ``cache_parts`` / ``cache_bytes`` size the
     store's LRU device cache (None = unbounded); ``prefetch`` enables
     OPAT's runner-up staging.  Pass ``pg`` to reuse an existing
     ``PartitionedGraph``.  ``device=None`` means ``"cuda"``.
@@ -89,6 +97,7 @@ class GraphSession:
                  config: Optional[EngineConfig] = None,
                  cache_parts: Optional[int] = None,
                  cache_bytes: Optional[int] = None,
+                 processors: int = 2,
                  prefetch: bool = True,
                  seed: int = 0,
                  pg: Optional[PartitionedGraph] = None,
@@ -97,9 +106,9 @@ class GraphSession:
                  device: Union[None, str, torch.device] = None):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        if engine != "opat":
+        if engine == "mapreduce":
             raise NotImplementedError(
-                f"engine {engine!r} is not ported yet; use engine='opat'")
+                "engine 'mapreduce' is not ported yet; use 'opat' or 'traditional'")
         self.device = resolve_device(device)
         if pg is None:
             if graph is None:
@@ -114,6 +123,7 @@ class GraphSession:
         self.catalog = catalog if catalog is not None else build_catalog(self.graph)
         self._cache_parts = cache_parts
         self._cache_bytes = cache_bytes
+        self._processors = processors
         self._prefetch = prefetch
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._bind(pg)
@@ -127,8 +137,12 @@ class GraphSession:
         self.store = PartitionStore(pg, capacity_parts=self._cache_parts,
                                     capacity_bytes=self._cache_bytes,
                                     tracer=self.tracer, device=self.device)
-        self.engine = OPATEngine(pg, self.config, store=self.store,
-                                 prefetch=self._prefetch, tracer=self.tracer)
+        if self.engine_name == "opat":
+            self.engine = OPATEngine(pg, self.config, store=self.store,
+                                     prefetch=self._prefetch, tracer=self.tracer)
+        else:
+            self.engine = TraditionalMPEngine(pg, self._processors, self.config,
+                                              store=self.store, tracer=self.tracer)
         self._loads = np.zeros(self.k, dtype=np.int64)
         self._completed = np.zeros(self.k, dtype=np.int64)
         self._spawned = np.zeros(self.k, dtype=np.int64)
@@ -178,6 +192,60 @@ class GraphSession:
         return QueryResult(name=query.name, answers=answers, reports=reports,
                            latency_s=latency,
                            load_stats=self.store.stats - stats0)
+
+    def scheduler(self, heuristic: Optional[str] = None,
+                  seed: Optional[int] = None,
+                  release_retired: bool = False,
+                  fairness_gamma: float = 0.0) -> "Any":
+        """A ``QueryScheduler`` bound to this session's store, engine and
+        catalog (core/scheduler.py) — the multi-query serving loop.
+        ``heuristic`` is a *shared* ranking (default MAX-YIELD-SHARED);
+        ``fairness_gamma`` weights the anti-starvation aging term.  Prefer
+        ``submit_many`` unless you need streaming admission: only
+        ``submit_many`` feeds results into the session's counters."""
+        from .heuristics import MAX_YIELD_SHARED
+        from .scheduler import QueryScheduler
+        return QueryScheduler(
+            self,
+            heuristic=heuristic if heuristic is not None else MAX_YIELD_SHARED,
+            seed=seed, release_retired=release_retired,
+            fairness_gamma=fairness_gamma)
+
+    def submit_many(self, queries: Sequence[Union[Query, DisjunctiveQuery]],
+                    max_answers: Union[None, int,
+                                       Sequence[Optional[int]]] = None,
+                    heuristic: Optional[str] = None,
+                    seed: Optional[int] = None,
+                    release_retired: bool = False,
+                    fairness_gamma: float = 0.0) -> "Any":
+        """Serve a batch of queries through the shared-load scheduler and
+        return its ``ScheduleReport`` (``.results`` holds one
+        ``QueryResult`` per query, in input order).  ``max_answers`` is one
+        per-disjunct budget K for the whole batch, or a per-query sequence
+        of budgets (None entries = exhaustive).
+
+        Answers match a loop of ``submit`` calls when exhaustive, with the
+        same per-disjunct budget K, and every result is absorbed into the
+        session's counters as single submits are; but the partition-load
+        sequence is chosen at the *workload* level, so overlapping queries
+        share loads, and each ``QueryResult.load_stats`` reports the loads
+        that query took part in."""
+        if isinstance(max_answers, (list, tuple)):
+            budgets = list(max_answers)
+            if len(budgets) != len(queries):
+                raise ValueError(f"got {len(budgets)} budgets for "
+                                 f"{len(queries)} queries")
+        else:
+            budgets = [max_answers] * len(queries)
+        sched = self.scheduler(heuristic=heuristic, seed=seed,
+                               release_retired=release_retired,
+                               fairness_gamma=fairness_gamma)
+        for q, b in zip(queries, budgets):
+            sched.admit(q, max_answers=b)
+        report = sched.run()
+        for res in report.results:
+            self._absorb(res.reports, res.answers)
+        return report
 
     def _absorb(self, reports: List[RunReport], answers: np.ndarray) -> None:
         for rep in reports:

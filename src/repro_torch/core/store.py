@@ -26,15 +26,25 @@ the evaluator never reads a partition before its copy lands and the
 caching allocator never reuses its memory while the current stream may
 still read it.  On CPU the "device" tensors share the host arrays' memory.
 
-Only single-partition entries are held (OPAT's unit); generation views,
-the disk tier and stacked entries come with later slices.
+Entries come in two shapes, as in the JAX package's store: one partition
+(``get(pid)``, OPAT's unit, keyed by the int pid) and a *stacked* bundle
+over an ordered tuple of pids (``get_stacked(pids)``, TraditionalMP's
+per-iteration unit, keyed by the tuple — order and duplicates included).
+A stacked bundle of n partitions costs n against ``capacity_parts``, and
+at most ``max_stacked_entries`` distinct bundles stay resident (LRU),
+since each one duplicates its partitions' buffers.  A stacked bundle is
+staged without a stacked host copy: each partition's page-locked host
+tensors copy straight into their slice of the device tensor.
+
+``release(key)`` is the scheduler's retirement hook: a counted ``drop``.
+Generation views and the disk tier come with later slices.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,16 +109,25 @@ class LoadStats:
         return d
 
 
+StoreKey = Union[int, Tuple[int, ...]]
+
+
 @dataclasses.dataclass
 class StoreEntry:
-    """One device-resident partition: evaluator inputs + its g2l row."""
+    """One device-resident unit: evaluator inputs + the matching g2l
+    row(s).  A single partition keeps its scalars (pid, n_core) as ints; a
+    stacked bundle holds [n, ...] tensors, scalars as [n] int32."""
 
-    key: int
-    part: Dict[str, Union[int, torch.Tensor]]  # scalars (pid, n_core) as ints
-    g2l: torch.Tensor            # [V] row
-    nbytes: int                  # bytes of the host numpy bundle
+    key: StoreKey
+    part: Dict[str, Union[int, torch.Tensor]]
+    g2l: torch.Tensor            # [V] row, or [n, V] for a stacked bundle
+    nbytes: int                  # bytes of the host numpy bundle(s)
     prefetched: bool = False     # staged by prefetch(), not yet touched by get()
     ready: Optional[Any] = None  # CUDA event the side-stream copy recorded
+
+    @property
+    def cost_parts(self) -> int:
+        return len(self.key) if isinstance(self.key, tuple) else 1
 
 
 class PartitionStore:
@@ -121,16 +140,21 @@ class PartitionStore:
     def __init__(self, pg: PartitionedGraph,
                  capacity_parts: Optional[int] = None,
                  capacity_bytes: Optional[int] = None,
+                 max_stacked_entries: Optional[int] = 8,
                  tracer: Optional[Any] = None,
                  device: Union[None, str, torch.device] = None):
         if capacity_parts is not None and capacity_parts < 1:
             raise ValueError(f"capacity_parts must be >= 1, got {capacity_parts}")
         if capacity_bytes is not None and capacity_bytes < 1:
             raise ValueError(f"capacity_bytes must be >= 1, got {capacity_bytes}")
+        if max_stacked_entries is not None and max_stacked_entries < 1:
+            raise ValueError(f"max_stacked_entries must be >= 1, "
+                             f"got {max_stacked_entries}")
         self.device = resolve_device(device)
         self.pg = pg
         self.capacity_parts = capacity_parts
         self.capacity_bytes = capacity_bytes
+        self.max_stacked_entries = max_stacked_entries
         self.stats = LoadStats()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self._host_tier = HostArrayTier(pg)
@@ -138,11 +162,11 @@ class PartitionStore:
         self._pinned_host: Dict[int, tuple] = {}
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
-        self._cache: "OrderedDict[int, StoreEntry]" = OrderedDict()
+        self._cache: "OrderedDict[StoreKey, StoreEntry]" = OrderedDict()
         self._owner_dev: Optional[torch.Tensor] = None
         # pinned keys (refcounted): protected from LRU eviction while a
         # caller evaluates against them — the double-buffer guarantee
-        self._pins: Dict[int, int] = {}
+        self._pins: Dict[StoreKey, int] = {}
 
     # -- global (non-partition) arrays ------------------------------------
 
@@ -156,32 +180,23 @@ class PartitionStore:
     def resident_keys(self) -> list:
         return [e.key for e in self._cache.values()]
 
+    def contains(self, key: StoreKey) -> bool:
+        return self._normkey(key) in self._cache
+
     # -- loads -------------------------------------------------------------
 
     def get(self, pid: int) -> StoreEntry:
         """One partition's evaluator inputs, device-resident (OPAT's load),
         safe to read on the current stream."""
-        pid = int(pid)
-        with self.tracer.span("store.load", pid=pid) as sp:
-            got = self._cache.get(pid)
-            if got is not None:
-                self._cache.move_to_end(pid)
-                self.stats.hits += 1
-                if got.prefetched:
-                    got.prefetched = False
-                    self.stats.prefetch_hits += 1
-                    sp.set(tier="prefetch")
-                else:
-                    sp.set(tier="warm")
-                self._await(got)
-                return got
-            sp.set(tier="cold")
-            entry = self._stage(pid, side_stream=False)
-            self.stats.misses += 1
-            self.stats.bytes_cold += entry.nbytes
-            sp.set(nbytes=entry.nbytes)
-            self._insert(entry)
-            return entry
+        return self._lookup(int(pid))
+
+    def get_stacked(self, pids: Sequence[int]) -> StoreEntry:
+        """A stacked [n, ...] bundle over ``pids`` (order-sensitive), the
+        unit TraditionalMP ships per iteration."""
+        key = tuple(int(p) for p in pids)
+        if not key:
+            raise ValueError("get_stacked needs at least one partition id")
+        return self._lookup(key)
 
     def prefetch(self, pid: int) -> bool:
         """Stage ``pid`` off the critical path (a side-stream copy on
@@ -201,17 +216,18 @@ class PartitionStore:
 
     # -- pinning (double-buffered streaming) --------------------------------
 
-    def pin(self, key: int) -> None:
+    def pin(self, key: StoreKey) -> None:
         """Protect ``key`` from LRU eviction until the matching unpin().
         While partition i is evaluated, prefetching the runner-up may push
         the cache over capacity; pinning i guarantees the staging evicts
         something else.  The cache may transiently exceed its budget by
-        the pinned entries.  Pins refcount."""
-        k = int(key)
+        the pinned entries.  Pins refcount; ``drop`` / ``release`` still
+        remove a pinned entry (pins only guard the implicit LRU path)."""
+        k = self._normkey(key)
         self._pins[k] = self._pins.get(k, 0) + 1
 
-    def unpin(self, key: int) -> None:
-        k = int(key)
+    def unpin(self, key: StoreKey) -> None:
+        k = self._normkey(key)
         n = self._pins.get(k, 0) - 1
         if n <= 0:
             self._pins.pop(k, None)
@@ -222,7 +238,7 @@ class PartitionStore:
             self._pins[k] = n
 
     @contextlib.contextmanager
-    def pinned(self, *keys: int):
+    def pinned(self, *keys: StoreKey):
         """``with store.pinned(pid): ...`` — pin for the block's duration."""
         for k in keys:
             self.pin(k)
@@ -232,7 +248,46 @@ class PartitionStore:
             for k in keys:
                 self.unpin(k)
 
+    def drop(self, key: StoreKey) -> bool:
+        """Remove ``key``'s device entry (not counted as an eviction)."""
+        return self._cache.pop(self._normkey(key), None) is not None
+
+    def release(self, key: StoreKey) -> bool:
+        """A counted ``drop``: the scheduler's retirement hook, observable
+        as ``LoadStats.released``.  A later ``get`` re-stages cold."""
+        ok = self.drop(key)
+        if ok:
+            self.stats.released += 1
+        return ok
+
     # -- internals ---------------------------------------------------------
+
+    @staticmethod
+    def _normkey(key: StoreKey) -> StoreKey:
+        return tuple(int(p) for p in key) if isinstance(key, tuple) else int(key)
+
+    def _lookup(self, key: StoreKey) -> StoreEntry:
+        with self.tracer.span("store.load", pid=key) as sp:
+            got = self._cache.get(key)
+            if got is not None:
+                self._cache.move_to_end(key)
+                self.stats.hits += 1
+                if got.prefetched:
+                    got.prefetched = False
+                    self.stats.prefetch_hits += 1
+                    sp.set(tier="prefetch")
+                else:
+                    sp.set(tier="warm")
+                self._await(got)
+                return got
+            sp.set(tier="cold")
+            entry = (self._stage_stacked(key) if isinstance(key, tuple)
+                     else self._stage(key, side_stream=False))
+            self.stats.misses += 1
+            self.stats.bytes_cold += entry.nbytes
+            sp.set(nbytes=entry.nbytes)
+            self._insert(entry)
+            return entry
 
     def _host_tensors(self, pid: int) -> tuple:
         """(part dict, g2l, nbytes): the host bundle as CPU tensors —
@@ -274,6 +329,34 @@ class PartitionStore:
             ready.record(self._copy_stream)
         return StoreEntry(key=pid, part=part, g2l=g2l, nbytes=nbytes, ready=ready)
 
+    def _stage_stacked(self, key: Tuple[int, ...]) -> StoreEntry:
+        """Stack the partitions of ``key`` on the device, on the current
+        stream.  On CUDA each partition's page-locked host tensors copy
+        (``non_blocking``) straight into their slice of the stacked device
+        tensor, so no unpinned stacked host copy is ever made."""
+        bundles = [self._host_tensors(p) for p in key]
+        nbytes = sum(b[2] for b in bundles)
+        scalars = {k: torch.tensor([b[0][k] for b in bundles], dtype=torch.int32)
+                   for k, v in bundles[0][0].items() if isinstance(v, int)}
+        tensors = [(k, [b[0][k] for b in bundles])
+                   for k, v in bundles[0][0].items() if not isinstance(v, int)]
+        tensors.append(("g2l", [b[1] for b in bundles]))
+        if self.device.type != "cuda":
+            stacked = {k: torch.stack(ts) for k, ts in tensors}
+        else:
+            stacked = {}
+            for k, ts in tensors:
+                out = torch.empty((len(ts), *ts[0].shape), dtype=ts[0].dtype,
+                                  device=self.device)
+                for i, t in enumerate(ts):
+                    out[i].copy_(t, non_blocking=True)
+                stacked[k] = out
+            scalars = {k: v.pin_memory().to(self.device, non_blocking=True)
+                       for k, v in scalars.items()}
+        g2l = stacked.pop("g2l")
+        return StoreEntry(key=key, part={**scalars, **stacked}, g2l=g2l,
+                          nbytes=nbytes)
+
     def _await(self, entry: StoreEntry) -> None:
         """Order the current stream after a side-stream copy, once."""
         if entry.ready is None:
@@ -290,23 +373,34 @@ class PartitionStore:
         self._cache.move_to_end(entry.key)
         self._evict_to_capacity(keep=entry.key)
 
-    def _evict_to_capacity(self, keep: Optional[int]) -> None:
+    def _evict_to_capacity(self, keep: Optional[StoreKey]) -> None:
         """Drop least-recently-used entries until within capacity.  The
         just-inserted entry and pinned entries are never evicted, so the
-        cache can transiently exceed capacity by the pinned set."""
+        cache can transiently exceed capacity by the pinned set.  A stacked
+        bundle costs its length in partitions, and at most
+        ``max_stacked_entries`` bundles stay."""
         def over() -> bool:
             if self.capacity_parts is not None \
-                    and len(self._cache) > self.capacity_parts:
+                    and sum(e.cost_parts for e in self._cache.values()) > self.capacity_parts:
                 return True
             if self.capacity_bytes is not None \
                     and sum(e.nbytes for e in self._cache.values()) > self.capacity_bytes:
                 return True
             return False
 
-        while over():
-            victim = next((k for k in self._cache
+        def evict(candidates) -> bool:
+            victim = next((k for k in candidates
                            if k != keep and k not in self._pins), None)
             if victim is None:
-                break
+                return False
             del self._cache[victim]
             self.stats.evictions += 1
+            return True
+
+        while over() and evict(list(self._cache)):
+            pass
+        if self.max_stacked_entries is not None:
+            def stacked():
+                return [k for k in self._cache if isinstance(k, tuple)]
+            while len(stacked()) > self.max_stacked_entries and evict(stacked()):
+                pass

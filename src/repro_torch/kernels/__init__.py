@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch twins.
 
-  fused_frontier — expansion + match + done/keep/out routing (engine inner
-                   step); CUDA source in csrc/fused_frontier.cu
+  fused_frontier  — expansion + match + done/keep/out routing (engine inner
+                    step); CUDA source in csrc/fused_frontier.cu
+  frontier_expand — the match alone (ok, dg); csrc/frontier_expand.cu
+  label_histogram — start-node count of one partition (SNI seed);
+                    csrc/label_histogram.cu
+
+The two frontier kernels share their match through csrc/frontier_match.cuh.
 
 build.py compiles csrc/*.cu with nvcc at first use and counts launches;
 ops.py holds the engine-facing adapters; ref.py the gather-based oracles.

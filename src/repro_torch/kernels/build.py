@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds) and loaded with ``ctypes``.  Libraries are built at first
 use into ``build/repro_torch_kernels/`` at the repository root, named by
-a hash of their source and flags, so an edited source rebuilds.
+a hash of their source, the shared headers and the flags, so an edited
+source or header rebuilds.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them; ``load(name)`` builds one library if needed and returns it.
@@ -52,7 +53,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every shared
+    header in ``csrc/`` (any source may include one) and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -25,28 +25,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "frontier_match.cuh"
+
 namespace {
 
-// label / direction / op encodings (core/graph.py, core/query.py)
-constexpr int WILDCARD = -1;
-constexpr int DIR_UNDIRECTED = 0, DIR_FORWARD = 1, DIR_BACKWARD = 2;
-constexpr int QDIR_ANY = 0, QDIR_OUT = 1, QDIR_IN = 2;
-constexpr int OP_NONE = 0, OP_EQ = 1, OP_NE = 2, OP_LT = 3, OP_LE = 4,
-              OP_GT = 5, OP_GE = 6;
+using namespace frontier;
 
 // packed per-binding int parameters: pint[i, F_*]
 constexpr int F_EL = 0, F_DIR = 1, F_DLAB = 2, F_DOP = 3, F_DST = 4,
               F_CLOSES = 5, F_ACTIVE = 6, F_ISLAST = 7, F_USEDG = 8,
               F_FGLIDX = 9, F_FGOWNER = 10, F_NCORE = 11, N_FPINT = 12;
-
-__device__ __forceinline__ bool value_ok(int op, float dv, float v) {
-  // NaN fails every op but OP_NONE
-  bool finite = dv == dv;
-  bool cmp = (op == OP_EQ && dv == v) || (op == OP_NE && dv != v) ||
-             (op == OP_LT && dv < v) || (op == OP_LE && dv <= v) ||
-             (op == OP_GT && dv > v) || (op == OP_GE && dv >= v);
-  return op == OP_NONE || (finite && cmp);
-}
 
 __global__ void fused_frontier_kernel(
     const int32_t* __restrict__ lidx, const int32_t* __restrict__ pint,
@@ -65,43 +53,22 @@ __global__ void fused_frontier_kernel(
   const int w = (int)(t - (int64_t)i * W);
 
   const int32_t* p = pint + (int64_t)i * N_FPINT;
-  const int p_el = p[F_EL], p_dir = p[F_DIR], p_dlab = p[F_DLAB];
-  const int p_dop = p[F_DOP], p_dst = p[F_DST], p_closes = p[F_CLOSES];
-  const int active = p[F_ACTIVE], islast = p[F_ISLAST], use_dg = p[F_USEDG];
+  const StepParams sp{p[F_EL],     p[F_DIR],    p[F_DLAB],  p[F_DOP],
+                      p[F_DST],    p[F_CLOSES], p[F_ACTIVE], pflt[i]};
+  const int islast = p[F_ISLAST], use_dg = p[F_USEDG];
   const int fg_lidx = p[F_FGLIDX], fg_owner = p[F_FGOWNER];
   const int n_core = p[F_NCORE];
-  const float p_dval = pflt[i];
 
   // the wrapper clips lidx into [0, Np)
   const int64_t e = (int64_t)lidx[i] * W + w;
-  const int ed = ell_dst[e];
-  const int el = ell_label[e];
-  const int edir = ell_dir[e];
-  const int dl = ell_dlab[e];
-  const float dv = ell_dval[e];
-  const int dg = ell_dgid[e];
+  const Candidate c{ell_dst[e], ell_label[e], ell_dir[e],
+                    ell_dlab[e], ell_dgid[e], ell_dval[e]};
+  const int dg = c.dg;
   const int dlidx = ell_dlidx[e];
   const int downer = ell_downer[e];
 
-  // ---- the match ----
-  const bool edge_exists = ed >= 0;
-  const bool elabel_ok = p_el == WILDCARD || el == p_el;
-  const bool dir_ok = p_dir == QDIR_ANY || edir == DIR_UNDIRECTED ||
-                      (p_dir == QDIR_OUT && edir == DIR_FORWARD) ||
-                      (p_dir == QDIR_IN && edir == DIR_BACKWARD);
-  const bool dlabel_ok = p_dlab == WILDCARD || dl == p_dlab;
-  const bool dval_ok = value_ok(p_dop, dv, p_dval);
-
-  // injectivity: dg must differ from every bound slot of the row
-  const int32_t* r = rows + (int64_t)i * Q;
-  bool already = false;
-  for (int q = 0; q < Q; ++q) already |= (dg == r[q]);
-  // plan slots lie in [0, Q); the guard only keeps a bad plan in bounds
-  const bool dst_in = p_dst >= 0 && p_dst < Q;
-  const bool cyc_ok = p_closes == 1 && dst_in && dg == r[dst_in ? p_dst : 0];
-  const bool new_ok = p_closes == 0 && dlabel_ok && dval_ok && !already;
-  const bool ok = active == 1 && edge_exists && elabel_ok && dir_ok &&
-                  (cyc_ok || new_ok);
+  // ---- the match (frontier_match.cuh) ----
+  const bool ok = edge_match(sp, c, rows + (int64_t)i * Q, Q);
 
   // ---- the routing ----
   // the produced row's next frontier vertex is the freshly bound dst when

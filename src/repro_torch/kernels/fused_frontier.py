@@ -75,22 +75,27 @@ def fused_frontier_plain(lidx, pint, pflt, rows,
     return ok, dg, done, keep, outm, dest
 
 
-def _check(lidx, pint, pflt, rows, tables):
+def check_inputs(lidx, pint, pflt, rows, tables, n_pint, table_dtypes):
+    """Raise unless the kernel-level inputs have the kernel's dtypes and
+    shapes (``n_pint`` packed columns, one [Np, W] table per entry of
+    ``table_dtypes``), lie on one device and are contiguous."""
     dev = lidx.device
     EB = lidx.shape[0]
     if lidx.dim() != 1 or lidx.dtype != torch.int32:
         raise ValueError(f"lidx must be [EB] int32, got {tuple(lidx.shape)} {lidx.dtype}")
-    if tuple(pint.shape) != (EB, N_FPINT) or pint.dtype != torch.int32:
-        raise ValueError(f"pint must be [{EB}, {N_FPINT}] int32, got "
+    if tuple(pint.shape) != (EB, n_pint) or pint.dtype != torch.int32:
+        raise ValueError(f"pint must be [{EB}, {n_pint}] int32, got "
                          f"{tuple(pint.shape)} {pint.dtype}")
     if tuple(pflt.shape) != (EB,) or pflt.dtype != torch.float32:
         raise ValueError(f"pflt must be [{EB}] float32, got {tuple(pflt.shape)} {pflt.dtype}")
     if rows.dim() != 2 or rows.shape[0] != EB or rows.dtype != torch.int32:
         raise ValueError(f"rows must be [{EB}, Q] int32, got {tuple(rows.shape)} {rows.dtype}")
+    if len(tables) != len(table_dtypes):
+        raise ValueError(f"need {len(table_dtypes)} ELL tables, got {len(tables)}")
     shape = tuple(tables[0].shape)
     if len(shape) != 2:
         raise ValueError(f"ELL tables must be [Np, W], got {shape}")
-    for t, dt in zip(tables, _TABLE_DTYPES):
+    for t, dt in zip(tables, table_dtypes):
         if tuple(t.shape) != shape or t.dtype != dt:
             raise ValueError(f"ELL table must be {shape} {dt}, got "
                              f"{tuple(t.shape)} {t.dtype}")
@@ -112,7 +117,7 @@ def _launcher():
 def fused_frontier_cuda(lidx, pint, pflt, rows, *tables):
     """Launch the CUDA kernel on the current stream (outputs allocated
     here; nothing synchronises)."""
-    _check(lidx, pint, pflt, rows, tables)
+    check_inputs(lidx, pint, pflt, rows, tables, N_FPINT, _TABLE_DTYPES)
     EB, Q = rows.shape
     W = tables[0].shape[1]
     dev = lidx.device
@@ -135,7 +140,7 @@ def fused_frontier_kernel(lidx, pint, pflt, rows, *tables):
     launch the kernel, anything else raises."""
     kind = lidx.device.type
     if kind == "cpu":
-        _check(lidx, pint, pflt, rows, tables)
+        check_inputs(lidx, pint, pflt, rows, tables, N_FPINT, _TABLE_DTYPES)
         return fused_frontier_plain(lidx, pint, pflt, rows, *tables)
     if kind == "cuda":
         return fused_frontier_cuda(lidx, pint, pflt, rows, *tables)

@@ -1,9 +1,11 @@
-"""Plain PyTorch oracles for the fused frontier step (the correctness
-references, written the way the JAX package's ``kernels/ref.py`` writes
-them: gathers over the ELL tables and the partition's g2l/owner rows).
+"""Plain PyTorch oracles for the frontier step and the label histogram
+(the correctness references, written the way the JAX package's
+``kernels/ref.py`` writes them: gathers over the ELL tables and the
+partition's g2l/owner rows).
 
-The CPU tests hold these against the JAX package's oracles; the kernel and
-its plain version (kernels/fused_frontier.py) are held against them.
+The CPU tests hold these against the JAX package's oracles; the kernels'
+plain versions (kernels/fused_frontier.py, kernels/frontier_expand.py,
+kernels/label_histogram.py) are held against them.
 """
 from __future__ import annotations
 
@@ -118,3 +120,16 @@ def fused_frontier_ref(rows_b, step_b, lidx_b, m,
     outm = ok & ~done & ~local
     dest = owner[fg_safe]
     return ok, dg, done, keep, outm, dest
+
+
+def label_histogram_ref(node_label, node_value, n_core_mask,
+                        label, value_op, value):
+    """#nodes matching (label, value predicate) among core nodes.
+
+    node_label [Np] int32, node_value [Np] f32, n_core_mask [Np] bool.
+    Returns a 0-dim int32 count.
+    """
+    ok = n_core_mask & ((label == WILDCARD) | (node_label == label))
+    ok = ok & value_pred(value_op, node_value,
+                         torch.tensor(float(value), dtype=torch.float32))
+    return ok.sum(dtype=torch.int32)

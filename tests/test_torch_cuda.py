@@ -19,7 +19,9 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke
+from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import fused_frontier as ff
+from repro_torch.kernels import label_histogram as lh
 
 CASES = [((4, 4, 4, 8), False), ((16, 7, 6, 32), False),
          ((32, 128, 8, 64), False), ((8, 130, 5, 16), False),
@@ -43,3 +45,38 @@ def test_cuda_fused_frontier_matches_plain():
         rec = chip_smoke.compare_fused(got, ff.fused_frontier_plain(*args), args)
         assert rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0, rec
         assert rec["disjoint"] and rec["covers_ok"], rec
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_expand_matches_plain():
+    """Bit-equal ok, dg where an edge exists, over the sweep, an empty
+    frontier and the main path's EB/W/Q."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(1)
+    for (EB, W, Q, Np), empty in CASES:
+        args = chip_smoke.expand_args(chip_smoke.engine_case(
+            rng, EB, W, Q, Np, V=1000 + 2 * Np, empty=empty))
+        got = fe.frontier_expand_cuda(*args)
+        torch.cuda.synchronize()
+        rec = chip_smoke.compare_expand(got, fe.frontier_expand_plain(*args), args)
+        assert rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0, rec
+        if empty:
+            assert rec["n_ok"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_label_histogram_matches_plain():
+    """Exact counts across the 1024-node block edge, every label kind and
+    value op, NaN values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(2)
+    for n in (1, 1023, 1024, 1025, 3000, 294_400):
+        args = chip_smoke.histogram_case(rng, n)
+        for label in (-1, 2, 9):
+            for op in range(7):
+                got = lh.label_histogram_cuda(*args, label, op, 0.1)
+                want = lh.label_histogram_plain(*args, label, op, 0.1)
+                assert got.dtype == torch.int32 and got.dim() == 0
+                assert int(got) == int(want), (n, label, op)

@@ -1,5 +1,6 @@
-"""The PyTorch port's evaluator, partition store, OPAT engine and session
-against the JAX package, on the CPU.
+"""The PyTorch port's evaluators (single and lane-batched), partition
+store, OPAT and TraditionalMP engines and session against the JAX
+package, on the CPU.
 
 Both packages get identical inputs: the graph is made by the JAX
 package's generator from a seed and carried into the port with
@@ -16,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
+
 from repro.core import (EngineConfig as RefConfig, GraphSession as RefSession,
                         OPATEngine as RefOPAT, PartitionStore as RefStore,
                         build_catalog as ref_catalog,
@@ -24,6 +27,7 @@ from repro.core import (EngineConfig as RefConfig, GraphSession as RefSession,
                         match_disjunctive, match_query)
 from repro.core.engine import part_to_device_dict as ref_part_dict
 from repro.core.plan import PlanArrays as RefPlanArrays
+from repro.core.traditional_mp import TraditionalMPEngine as RefTMP
 from repro.data.generators import subgen_queries as ref_subgen_queries
 
 import repro_torch.core as tc
@@ -242,9 +246,10 @@ def test_session_profile_counters_match_reference(both):
 
 def test_session_rejects_unported_engines_and_devices(both):
     tpg = both[3]
-    for engine in ("traditional", "mapreduce"):
-        with pytest.raises(NotImplementedError):
-            tc.GraphSession(pg=tpg, engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tc.GraphSession(pg=tpg, engine="mapreduce", device="cpu")
+    sess = tc.GraphSession(pg=tpg, engine="traditional", device="cpu")
+    assert isinstance(sess.engine, tc.TraditionalMPEngine) and sess.engine.p == 2
     with pytest.raises(ValueError):
         tc.GraphSession(pg=tpg, engine="nope", device="cpu")
     with pytest.raises(ValueError):
@@ -296,6 +301,311 @@ def test_store_capacity_bytes_matches_reference(both):
             s.get(pid)
     assert store.stats.to_dict() == ref_store.stats.to_dict()
     assert sorted(store.resident_keys()) == sorted(ref_store.resident_keys())
+
+
+# ---------------------------------------------------------------------------
+# the lane evaluator against jax.vmap of the JAX evaluator
+# ---------------------------------------------------------------------------
+
+def _ref_plans(both, n=None):
+    g, _, _, _ = both
+    cat = ref_catalog(g)
+    qs = [q for q, _ in _queries(g, both[2])]
+    return [RefPlanArrays.from_plan(ref_generate_plan(q, g, cat), pad_steps=12)
+            for q in qs[:n]]
+
+
+def _ref_stacked(pg, pids):
+    parts = [ref_part_dict(pg.parts[p]) for p in pids]
+    return ({k: np.stack([d[k] for d in parts]) for k in parts[0]},
+            np.stack([pg.g2l[p] for p in pids]))
+
+
+def _lane_inputs(L, cap, rows=None):
+    """Empty [L, cap] inputs; ``rows`` maps lane -> (rows, step)."""
+    in_rows = np.full((L, cap, 8), -1, np.int32)
+    in_step = np.zeros((L, cap), np.int32)
+    in_valid = np.zeros((L, cap), bool)
+    for i, (r, st) in (rows or {}).items():
+        n = min(len(r), cap)
+        in_rows[i, :n], in_step[i, :n], in_valid[i, :n] = r[:n], st[:n], True
+    return in_rows, in_step, in_valid
+
+
+def _assert_lanes_equal(got, loops, want, what):
+    for name in tc.EvalResult._fields:
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=f"{what} {name}")
+    # the loop runs while any lane is active: as long as the longest lane
+    assert loops == int(np.asarray(want.n_iters).max())
+
+
+def _routed(res, lane_dest):
+    """Continuations each lane emitted, regrouped by destination lane."""
+    out = {}
+    n = np.asarray(res.out_n)
+    for i in range(n.shape[0]):
+        rows = np.asarray(res.out_rows)[i, :n[i]]
+        step = np.asarray(res.out_step)[i, :n[i]]
+        dest = np.asarray(res.out_dest)[i, :n[i]]
+        for q, lane in lane_dest.items():
+            sel = dest == q
+            if sel.any():
+                r, st = out.get(lane, (np.zeros((0, 8), np.int32),
+                                       np.zeros(0, np.int32)))
+                out[lane] = (np.concatenate([r, rows[sel]]),
+                             np.concatenate([st, step[sel]]))
+    return out
+
+
+@pytest.mark.parametrize("use_pallas,cap,max_iters",
+                         [(False, CAP, 10_000), (True, CAP, 10_000),
+                          (False, 1, 10_000), (False, CAP, 2)])
+def test_lane_evaluator_matches_vmap_over_partitions(both, use_pallas, cap,
+                                                     max_iters):
+    """TraditionalMP's form: one plan, one lane per partition of a stacked
+    bundle (``traditional_mp.py:56``).  A seeding round, then a round fed
+    with the continuations each lane routed to the others.  A small cap
+    overflows some lanes only; a small ``max_inner_iters`` freezes lanes
+    that are still active."""
+    g, pg, tg, tpg = both
+    cfg = dict(cap=cap, expand_block=16, max_inner_iters=max_iters)
+    ref_eval = ref_evaluator(pg.node_pad, pg.ell_width,
+                             RefConfig(**cfg, use_pallas=use_pallas))
+    veval = jax.jit(jax.vmap(ref_eval, in_axes=(0, 0, None, None, None,
+                                                0, 0, 0, 0)))
+    lanes = tc.make_batched_evaluator(tc.EngineConfig(**cfg))
+    pids = (0, 1, 2, 3)
+    part, g2l = _ref_stacked(pg, pids)
+    entry = tc.PartitionStore(tpg, device="cpu").get_stacked(pids)
+    owner = torch.from_numpy(tpg.owner)
+    overflow, n_iters = [], []
+    for plan in _ref_plans(both, 2 if (cap, max_iters) == (CAP, 10_000)
+                           and not use_pallas else 1):
+        tplans = plan_to_device(tc.PlanArrays.stack(
+            [plan_arrays_from_numpy(**_plan_fields(plan))]), "cpu")
+        seeds = np.array([True, True, False, True])
+        inputs = _lane_inputs(4, cap)
+        for rnd in range(2):
+            want = veval(part, g2l, pg.owner, plan, np.int32(plan.n_steps),
+                         *inputs, seeds)
+            got, loops = lanes(entry.part, entry.g2l, owner, tplans,
+                               [plan.n_steps], range(4), [0] * 4,
+                               *(torch.from_numpy(a) for a in inputs),
+                               torch.from_numpy(seeds))
+            _assert_lanes_equal(got, loops, want, f"round {rnd}")
+            overflow += np.asarray(want.overflow).tolist()
+            n_iters += np.asarray(want.n_iters).tolist()
+            inputs = _lane_inputs(4, cap, _routed(want, {p: p for p in pids}))
+            seeds = ~seeds
+    if cap < CAP:
+        assert any(overflow) and not all(overflow)
+    if max_iters < 10_000:
+        assert max_iters in n_iters
+        assert any(0 < n < max_iters for n in n_iters)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_lane_evaluator_matches_vmap_over_queries(both, use_pallas):
+    """OPAT's ``batched_evaluator()`` (``opat.py:103-117``): one partition,
+    one lane per stacked plan, seeding round then continuations routed to
+    the partition."""
+    g, pg, tg, tpg = both
+    cfg = dict(cap=CAP, expand_block=16)
+    beval = RefOPAT(pg, RefConfig(**cfg, use_pallas=use_pallas)).batched_evaluator()
+    store = tc.PartitionStore(tpg, device="cpu")
+    eng = tc.OPATEngine(tpg, tc.EngineConfig(**cfg), store=store)
+    port = eng.batched_evaluator()
+    plans = _ref_plans(both)
+    if use_pallas:
+        plans = plans[:2]
+    B = len(plans) + 1                      # a repeated plan rides too
+    plans = plans + plans[:1]
+    stacked = RefPlanArrays.stack(plans)
+    tplans = plan_to_device(tc.PlanArrays.stack(
+        [plan_arrays_from_numpy(**_plan_fields(p)) for p in plans]), "cpu")
+    n_steps = np.array([p.n_steps for p in plans], np.int32)
+    seeds = np.array([True] * (B - 1) + [False])
+    continuations = {}
+    for pid in (1, 0):
+        inputs = _lane_inputs(B, CAP, continuations)
+        want = beval(ref_part_dict(pg.parts[pid]), pg.g2l[pid], pg.owner,
+                     stacked, n_steps, *inputs, seeds)
+        entry = store.get(pid)
+        loops0 = eng.batched_iters
+        got = port(entry.part, entry.g2l, store.owner, tplans,
+                   torch.from_numpy(n_steps),
+                   *(torch.from_numpy(a) for a in inputs), seeds.tolist())
+        _assert_lanes_equal(got, eng.batched_iters - loops0, want, f"pid {pid}")
+        # lane b's rows bound for partition 0 feed lane b's next call
+        continuations = {}
+        for b in range(B):
+            n = int(np.asarray(want.out_n)[b])
+            sel = np.asarray(want.out_dest)[b, :n] == 0
+            continuations[b] = (np.asarray(want.out_rows)[b, :n][sel],
+                                np.asarray(want.out_step)[b, :n][sel])
+        seeds = np.ones(B, bool)
+
+
+# ---------------------------------------------------------------------------
+# TraditionalMP
+# ---------------------------------------------------------------------------
+
+_REF_TMP = {}
+
+
+def _ref_tmp(pg, p, cap):
+    """One JAX engine per (p, cap) for the whole module, so its jit cache
+    (one trace per plan shape) is reused; each use gets a fresh store."""
+    eng = _REF_TMP.get((p, cap))
+    if eng is None or eng.pg is not pg:
+        eng = _REF_TMP[(p, cap)] = RefTMP(pg, p, RefConfig(cap=cap))
+    eng.store = RefStore(pg)
+    return eng
+
+
+def _tmp_both(both, p, heuristics, queries, max_answers=None, cap=CAP):
+    g, pg, tg, tpg = both
+    cat, tcat = ref_catalog(g), tc.build_catalog(tg)
+    ref_eng = _ref_tmp(pg, p, cap)
+    port_eng = tc.TraditionalMPEngine(tpg, p, tc.EngineConfig(cap=cap),
+                                      device="cpu")
+    for h in heuristics:
+        for q, tq in [_queries(g, tg)[i] for i in queries]:
+            want = ref_eng.run(ref_generate_plan(q, g, cat), h, seed=1,
+                               max_answers=max_answers)
+            got = port_eng.run(tc.generate_plan(tq, tg, tcat), h, seed=1,
+                               max_answers=max_answers)
+            yield q, want, got
+
+
+def _assert_tmp_equal(q, want, got):
+    np.testing.assert_array_equal(got.answers, want.answers, err_msg=q.name)
+    assert got.stats.loads == want.stats.loads, q.name
+    assert got.stats.iterations == want.stats.iterations, q.name
+    assert got.partitions_per_iteration == want.partitions_per_iteration, q.name
+    for f in ("cold_loads", "warm_loads", "bytes_cold", "n_answers"):
+        assert getattr(got.stats, f) == getattr(want.stats, f), (q.name, f)
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 6])
+def test_traditional_matches_reference(both, p):
+    """Answers, loads, iterations, partitions_per_iteration and store
+    counters for MAX-SN, MIN-SN and MAX-YIELD (Q4 and Q6; Q5 at p=2)."""
+    g = both[0]
+    queries = (0, 1, 2) if p == 2 else (0, 2)
+    for q, want, got in _tmp_both(both, p, ("max-sn", "min-sn", "max-yield"),
+                                  queries):
+        _assert_tmp_equal(q, want, got)
+        assert np.array_equal(got.answers, match_query(g, q, q_pad=8)), q.name
+
+
+@pytest.mark.parametrize("K", [0, 1, 3])
+def test_traditional_answer_budget_matches_reference(both, K):
+    for q, want, got in _tmp_both(both, 2, ("max-sn",), (0, 1), max_answers=K):
+        _assert_tmp_equal(q, want, got)
+        assert got.answers.shape[0] <= K
+    if K == 0:
+        assert got.stats.loads == []
+
+
+def test_traditional_overflow_raises(both):
+    with pytest.raises(RuntimeError, match="overflow"):
+        list(_tmp_both(both, 2, ("max-sn",), (0,), cap=1))
+    g, _, tg, tpg = both
+    tq = subgen_queries(tg)[0].disjuncts[0]
+    eng = tc.TraditionalMPEngine(tpg, 2, tc.EngineConfig(cap=1), device="cpu")
+    with pytest.raises(RuntimeError, match="overflow"):
+        eng.run(tc.generate_plan(tq, tg, tc.build_catalog(tg)), "max-sn")
+
+
+def test_traditional_counts_one_launch_per_loop(both):
+    """Each lane-evaluator call adds its loop count to batched_iters: one
+    fused-step call per loop iteration, however many lanes."""
+    from repro_torch.kernels import ops as kops
+    _, _, tg, tpg = both
+    eng = tc.TraditionalMPEngine(tpg, 4, tc.EngineConfig(cap=CAP), device="cpu")
+    calls = []
+    inner = kops.fused_frontier
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape[0])
+        return inner(*a, **kw)
+    kops.fused_frontier = counting
+    try:
+        tq = subgen_queries(tg)[1].disjuncts[0]
+        eng.run(tc.generate_plan(tq, tg, tc.build_catalog(tg)), "max-sn")
+    finally:
+        kops.fused_frontier = inner
+    assert eng.batched_iters == len(calls) > 0
+    assert max(calls) > 16 * 1      # some launch carried several lanes' rows
+
+
+# ---------------------------------------------------------------------------
+# the stacked store and the SNI seed
+# ---------------------------------------------------------------------------
+
+def test_store_stacked_counters_match_reference(both):
+    """get_stacked keys are order-sensitive and keep padding duplicates; a
+    bundle costs its length against capacity_parts; at most
+    max_stacked_entries bundles stay; release counts, drop does not."""
+    _, pg, _, tpg = both
+
+    def ops(s):
+        s.get_stacked((0, 1))
+        s.get_stacked((0, 1))
+        s.get_stacked((1, 0))
+        s.get_stacked((2, 2))
+        s.get(3)
+        with s.pinned((0, 1)):
+            s.get_stacked((0, 1, 2))
+            keys = sorted(map(str, s.resident_keys()))
+        s.get_stacked((3,))
+        released = (s.release((2, 2)), s.release(3), s.release(0))
+        dropped = s.drop((3,))
+        return s.stats.to_dict(), keys, released, dropped, \
+            sorted(map(str, s.resident_keys()))
+
+    for kw in (dict(capacity_parts=5), dict(max_stacked_entries=2), {}):
+        got = ops(tc.PartitionStore(tpg, device="cpu", **kw))
+        assert got == ops(RefStore(pg, **kw)), kw
+    with pytest.raises(ValueError):
+        tc.PartitionStore(tpg, device="cpu").get_stacked(())
+    with pytest.raises(ValueError):
+        tc.PartitionStore(tpg, device="cpu", max_stacked_entries=0)
+
+
+def test_stacked_entry_holds_the_partitions_in_order(both):
+    _, pg, _, tpg = both
+    entry = tc.PartitionStore(tpg, device="cpu").get_stacked((2, 0, 2))
+    for i, pid in enumerate((2, 0, 2)):
+        want = tc.engine.part_to_device_dict(tpg.parts[pid])
+        for k, v in want.items():
+            np.testing.assert_array_equal(entry.part[k][i].numpy(), v, err_msg=k)
+        np.testing.assert_array_equal(entry.g2l[i].numpy(), tpg.g2l[pid])
+    assert entry.cost_parts == 3
+
+
+def test_label_histogram_gives_the_sni_seed(both):
+    """ops.label_histogram over each partition's core nodes equals the
+    host's start_label_counts, for every subgen start predicate and a
+    wildcard one."""
+    from repro_torch.kernels import ops as kops
+    g, _, tg, tpg = both
+    cat = tc.build_catalog(tg)
+    preds = [(-1, 0, 0.0)]
+    for _, tq in _queries(g, tg):
+        plan = tc.generate_plan(tq, tg, cat)
+        preds.append((plan.start_label, plan.start_value_op, plan.start_value))
+    for label, op, value in preds:
+        want = tpg.start_label_counts(label, op, value)
+        for p in tpg.parts:
+            core = (np.arange(tpg.node_pad) < p.n_core).astype(np.int32)
+            got = kops.label_histogram(torch.from_numpy(p.node_label),
+                                       torch.from_numpy(p.node_value),
+                                       torch.from_numpy(core), label, op, value)
+            assert int(got) == want[p.pid], (label, op, p.pid)
 
 
 def _imports(path):

@@ -1,18 +1,21 @@
-"""The PyTorch port's fused frontier step against the JAX package's
-oracles and its Pallas kernel (interpret mode), on the CPU.
+"""The PyTorch port's kernels — the fused frontier step, the frontier
+expansion match and the label histogram — against the JAX package's
+oracles and its Pallas kernels (interpret mode), on the CPU.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 Every output is an integer or a mask, so every comparison is exact.  The
-CUDA kernel itself runs only on a card: tests/test_torch_cuda.py holds it
-against this plain version there.
+CUDA kernels themselves run only on a card: tests/test_torch_cuda.py
+holds them against these plain versions there.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from repro.core.plan import PlanArrays as RefPlanArrays
@@ -21,7 +24,9 @@ from repro.kernels import ref as ref_ref
 from repro_torch.core.engine import plan_to_device
 from repro_torch.convert import plan_arrays_from_numpy
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import fused_frontier as ff
+from repro_torch.kernels import label_histogram as lh
 
 _V = 1000   # global-id space of the random dgid column
 SWEEP = [
@@ -290,3 +295,202 @@ def test_build_targets_hopper():
     assert 'extern "C" int fused_frontier_launch' in src
     assert "torch/extension.h" not in src
 
+
+# ---------------------------------------------------------------------------
+# frontier_expand: the match alone
+# ---------------------------------------------------------------------------
+
+# the JAX adapter under jit, so interpret mode traces once per shape
+_jax_frontier_expand = jax.jit(functools.partial(ref_ops.frontier_expand,
+                                                 interpret=True))
+
+
+def _port_expand(c):
+    t = torch.from_numpy
+    return ops.frontier_expand(t(c["rows"]), t(c["step"]), t(c["lidx"]),
+                               t(c["m"]), *[t(a) for a in c["tables"]],
+                               _torch_plan(c["plan"]), c["n_steps"])
+
+
+def _assert_expand_equal(got, want, c):
+    """ok bit-equal; dg where an edge exists (the Pallas kernel pads W to
+    128 lanes, the port does not)."""
+    ok, dg = (np.asarray(x) for x in got)
+    wok, wdg = (np.asarray(x) for x in want)
+    assert ok.dtype == np.bool_ and dg.dtype == np.int32
+    np.testing.assert_array_equal(ok, wok, err_msg="ok")
+    edge = c["tables"][0][c["lidx"]] >= 0
+    np.testing.assert_array_equal(dg[edge], wdg[edge], err_msg="dg")
+
+
+def _jax_expand(c):
+    return _jax_frontier_expand(c["rows"], c["step"], c["lidx"], c["m"],
+                                *c["tables"], c["plan"], np.int32(c["n_steps"]))
+
+
+@pytest.mark.parametrize("EB,W,Q,Np", SWEEP)
+def test_frontier_expand_matches_pallas_interpret(EB, W, Q, Np):
+    c = _case(EB * 1000 + W + 13, EB, W, Q, Np)
+    got = _port_expand(c)
+    _assert_expand_equal(got, _jax_expand(c), c)
+    # the adapter's oracle and the fused step's match agree with it too
+    t = torch.from_numpy
+    want = ops.frontier_expand_ref(t(c["rows"]), t(c["step"]), t(c["lidx"]),
+                                   t(c["m"]), *[t(a) for a in c["tables"]],
+                                   _torch_plan(c["plan"]), c["n_steps"])
+    _assert_expand_equal(got, want, c)
+    _assert_expand_equal(got, _port_fused(c)[:2], c)
+
+
+def test_frontier_expand_empty_frontier_and_nan_values():
+    c = _case(23, 8, 16, 4, 8, m=np.zeros(8, bool))
+    got = _port_expand(c)
+    _assert_expand_equal(got, _jax_expand(c), c)
+    assert not got[0].any()
+
+    def ne_plan(plan):
+        return dataclasses.replace(plan, dst_value_op=np.full(6, 2, np.int32),
+                                   closes_cycle=np.zeros(6, np.int32),
+                                   edge_label=np.full(6, -1, np.int32),
+                                   dst_label=np.full(6, -1, np.int32),
+                                   direction=np.zeros(6, np.int32))
+    c = _case(29, 16, 9, 4, 12, m=np.ones(16, bool), plan_fn=ne_plan)
+    c["tables"][4][:, ::2] = np.nan
+    got = _port_expand(c)
+    _assert_expand_equal(got, _jax_expand(c), c)
+    ok = got[0].numpy()
+    assert not ok[:, ::2].any() and ok.any()   # NaN fails OP_NE
+
+
+def _packed_expand(c):
+    """The frontier_expand kernel-level inputs (lidx, pint, pflt, rows,
+    six tables), packed as ops.frontier_expand packs them."""
+    t = torch.from_numpy
+    pint, pflt = ops._expand_params(t(c["step"]), t(c["m"]),
+                                    _torch_plan(c["plan"]), c["n_steps"])
+    Np = c["tables"][0].shape[0]
+    return (t(c["lidx"]).clamp(0, Np - 1), pint, pflt, t(c["rows"]),
+            *[t(a) for a in c["tables"]])
+
+
+def test_frontier_expand_packing_matches_jax():
+    """pint/pflt as the JAX adapter packs them (its _P_* columns)."""
+    c = _case(31, 16, 7, 6, 32)
+    lidx, pint, pflt = _packed_expand(c)[:3]
+    assert pint.shape == (16, fe.N_PINT) and pint.dtype == torch.int32
+    S = c["plan"].src_slot.shape[0]
+    s = np.clip(c["step"], 0, S - 1)
+    p = c["plan"]
+    want = np.stack([p.edge_label[s], p.direction[s], p.dst_label[s],
+                     p.dst_value_op[s], p.dst_slot[s], p.closes_cycle[s],
+                     c["step"], (c["m"] & (c["step"] < c["n_steps"]))], 1)
+    np.testing.assert_array_equal(pint.numpy(), want.astype(np.int32))
+    np.testing.assert_array_equal(pflt.numpy(), p.dst_value[s])
+    np.testing.assert_array_equal(lidx.numpy(), np.clip(c["lidx"], 0, 31))
+
+
+def test_frontier_expand_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
+    args = list(_packed_expand(_case(37, 8, 5, 4, 8)))
+    with pytest.raises(ValueError):
+        fe.frontier_expand_kernel(*[a.to("meta") for a in args])
+    for i, bad in ((8, args[8].int()),                     # ell_dval must be f32
+                   (1, args[1][:, :7].contiguous()),       # pint has 8 columns
+                   (3, args[3].t()),                       # rows: shape/layout
+                   (0, args[0].long())):                   # lidx must be int32
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            fe.frontier_expand_kernel(*broken)
+    with pytest.raises(ValueError):
+        fe.frontier_expand_kernel(*args[:-1])              # a table missing
+    build.LAUNCHES.clear()
+    got = fe.frontier_expand_kernel(*args)
+    for a, b in zip(got, fe.frontier_expand_plain(*args)):
+        assert torch.equal(a, b)
+    assert build.LAUNCHES[fe.NAME] == 0
+
+
+# ---------------------------------------------------------------------------
+# label_histogram
+# ---------------------------------------------------------------------------
+
+_jax_label_histogram = jax.jit(functools.partial(ref_ops.label_histogram,
+                                                 interpret=True))
+_LABELS = (-1, 2, 9)       # WILDCARD, a present label, an absent label
+
+
+def _histogram_case(Np, seed):
+    rng = np.random.default_rng(seed)
+    lab = rng.integers(0, 4, Np).astype(np.int32)
+    val = rng.normal(size=Np).astype(np.float32)
+    val[rng.random(Np) < 0.2] = np.nan
+    core = (rng.random(Np) < 0.7).astype(np.int32)
+    return lab, val, core
+
+
+@pytest.mark.parametrize("Np", [1, 1023, 1024, 1025, 3000])
+def test_label_histogram_matches_pallas_interpret(Np):
+    """Every label kind x all seven value ops, with NaN values, across
+    the 1024-node block edge."""
+    lab, val, core = _histogram_case(Np, Np)
+    t = torch.from_numpy
+    value = float(np.nanmedian(val)) if Np > 1 else 0.1
+    for label in _LABELS:
+        for op in range(7):
+            got = ops.label_histogram(t(lab), t(val), t(core), label, op, value)
+            want = _jax_label_histogram(lab, val, core, np.int32(label),
+                                        np.int32(op), np.float32(value))
+            oracle = ref.label_histogram_ref(t(lab), t(val), t(core) == 1,
+                                             label, op, value)
+            assert got.dtype == torch.int32 and got.dim() == 0
+            assert int(got) == int(want) == int(oracle), (Np, label, op)
+
+
+def test_label_histogram_nan_fails_every_op_but_none():
+    lab = np.zeros(4, np.int32)
+    val = np.full(4, np.nan, np.float32)
+    core = np.ones(4, np.int32)
+    t = torch.from_numpy
+    for op in range(7):
+        got = int(ops.label_histogram(t(lab), t(val), t(core), -1, op, 0.0))
+        assert got == (4 if op == 0 else 0), op
+
+
+def test_label_histogram_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
+    lab, val, core = (torch.from_numpy(a) for a in _histogram_case(50, 3))
+    with pytest.raises(ValueError):
+        ops.label_histogram(lab, val, core.bool(), -1, 0, 0.0)   # mask dtype
+    with pytest.raises(ValueError):
+        lh.label_histogram_kernel(lab, val.double(), core, -1, 0, 0.0)
+    with pytest.raises(ValueError):
+        lh.label_histogram_kernel(lab, val[:-1], core, -1, 0, 0.0)
+    with pytest.raises(ValueError):
+        lh.label_histogram_kernel(lab[None], val, core, -1, 0, 0.0)
+    with pytest.raises(ValueError):
+        lh.label_histogram_kernel(lab.to("meta"), val.to("meta"),
+                                  core.to("meta"), -1, 0, 0.0)
+    build.LAUNCHES.clear()
+    got = lh.label_histogram_kernel(lab, val, core, 2, 5, 0.0)
+    assert torch.equal(got, lh.label_histogram_plain(lab, val, core, 2, 5, 0.0))
+    assert build.LAUNCHES[lh.NAME] == 0
+
+
+def test_every_kernel_targets_hopper_with_a_c_launcher():
+    assert build.kernel_names() == sorted([ff.NAME, fe.NAME, lh.NAME])
+    for name in build.kernel_names():
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch' in src
+        assert "torch/extension.h" not in src
+
+
+def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared csrc/*.cuh header renames every library, so no
+    stale build is reused."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._lib_path(n) for n in build.kernel_names()}
+    header = tmp_path / "frontier_match.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build._lib_path(n) for n in build.kernel_names()}
+    assert all(before[n] != after[n] for n in before)
