@@ -14,9 +14,11 @@ Phases, each printing one JSON line:
                440,000 nodes, 1,240,000 edges), k=4, kway_shem
   kernels      each kernel against its plain PyTorch version on the card
                (bit-equal), on the test sweep, an empty frontier, NaN values
-               and the main path's shapes; each timed three ways (CUDA-graph
-               replay, per call through the wrapper, the plain version)
-               beside its byte bound
+               and the main path's shapes (the frontier step at one lane and
+               at two lanes over stacked partitions); each timed three ways
+               (CUDA-graph replay, per call through the wrapper, the plain
+               version) beside its byte bound, the step's device time over
+               256 selections of distinct table rows
   small        a small graph served on the card and on the CPU (plain
                versions): identical answers, loads and iterations for OPAT
                and TraditionalMP submits and for submit_many on both
@@ -41,7 +43,9 @@ Phases, each printing one JSON line:
                engine goes first (each latency's spread, the rounds
                TraditionalMP was faster, evaluator loops per query), then
                one run each under torch.profiler: device busy/idle share,
-               device time by kernel name, host time by op
+               device time by kernel name, host time by op, host kernel
+               launches per evaluator loop; and the peak device memory of
+               an unprofiled warm run (both sessions' resident data in it)
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  Then a
@@ -53,11 +57,13 @@ written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import resource
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -126,14 +132,14 @@ def graph_time_ms(fn, reps: int = 200, replays: int = 10) -> float:
 
 
 # ---------------------------------------------------------------------------
-# kernels: fused_frontier against its plain version
+# kernels: each against its plain version
 # ---------------------------------------------------------------------------
 
 def engine_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
-    """Random engine-level inputs for one expansion step: a random plan,
-    six ELL tables (~20% NaN destination values), a g2l row and owner map
-    over V global ids, binding rows, steps drawn past n_steps, and
-    (``empty``) an all-inactive frontier."""
+    """Random engine-level inputs for one frontier_expand match: a random
+    plan, six ELL tables (~20% NaN destination values) over V global ids,
+    binding rows, steps drawn past n_steps, and (``empty``) an all-inactive
+    frontier."""
     from repro_torch.core.engine import plan_to_device
     from repro_torch.core.plan import PlanArrays
 
@@ -159,28 +165,12 @@ def engine_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
               t(rng.integers(-2, 3, size=(Np, W)).astype(np.int32)),
               t(dval),
               t(np.where(dst >= 0, rng.integers(0, V, size=(Np, W)), -1).astype(np.int32))]
-    g2l = np.full(V, -1, np.int32)
-    present = rng.choice(V, size=min(Np, V), replace=False)
-    g2l[present] = rng.permutation(len(present)).astype(np.int32)
     return dict(
         plan=plan_to_device(plan, dev), n_steps=5, tables=tables,
-        g2l=t(g2l), owner=t(rng.integers(0, 4, V).astype(np.int32)),
-        n_core=int(rng.integers(1, Np + 1)),
         rows=t(rng.integers(-1, V, size=(EB, Q)).astype(np.int32)),
         step=t(rng.integers(0, S + 2, size=EB).astype(np.int32)),
         lidx=t(rng.integers(0, Np, size=EB).astype(np.int32)),
         m=t(np.zeros(EB, bool) if empty else rng.random(EB) < 0.8))
-
-
-def fused_args(c) -> tuple:
-    """fused_frontier's kernel-level inputs, packed as the engine packs
-    them (ops._fused_params, ops.denorm_locality)."""
-    from repro_torch.kernels import ops
-    pint, pflt, _ = ops._fused_params(c["rows"], c["step"], c["m"], c["g2l"],
-                                      c["owner"], c["n_core"], c["plan"],
-                                      c["n_steps"])
-    dlidx, downer = ops.denorm_locality(c["tables"][5], c["g2l"], c["owner"])
-    return (c["lidx"], pint, pflt, c["rows"], *c["tables"], dlidx, downer)
 
 
 def expand_args(c) -> tuple:
@@ -191,25 +181,68 @@ def expand_args(c) -> tuple:
     return (c["lidx"], pint, pflt, c["rows"], *c["tables"])
 
 
-def fused_case(rng, EB, W, Q, Np, V, *, empty=False, dev="cuda"):
-    return fused_args(engine_case(rng, EB, W, Q, Np, V, empty=empty, dev=dev))
+def step_case(rng, L, EB, W, Q, Np, *, P=1, V=None, N=None, empty=False,
+              dev="cuda"):
+    """Random loop state for the frontier step, packed as the evaluators
+    pack it: P stacked partitions of random ELL tables (~20% NaN
+    destination values), their g2l rows over V global ids (most work-row
+    ids absent), owner, one random plan per lane (cycle-closing steps
+    included) with n_steps drawn per lane, work buffers of N rows with
+    steps past n_steps, and a selection of EB work rows per lane whose
+    lane stride is N, as the evaluators slice it.  ``lidx`` picks distinct
+    table rows when N <= Np.  ``empty`` makes every lane's frontier
+    inactive.  Returns (invariants, (wr, ws, lidx, sel, m))."""
+    from repro_torch.kernels import ops
+    V = V or max(1000, 2 * Np)
+    N = N or EB + 7
+    S = 6
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    R = P * Np
+    dst = rng.integers(-1, Np, size=(R, W)).astype(np.int32)
+    dval = rng.normal(size=(R, W)).astype(np.float32)
+    dval[rng.random((R, W)) < 0.2] = np.nan
+    tables = [t(dst),
+              t(rng.integers(-2, 3, size=(R, W)).astype(np.int32)),
+              t(rng.integers(0, 3, size=(R, W)).astype(np.int32)),
+              t(rng.integers(-2, 3, size=(R, W)).astype(np.int32)),
+              t(dval),
+              t(np.where(dst >= 0, rng.integers(0, V, size=(R, W)), -1).astype(np.int32))]
+    g2l = np.full((P, V), -1, np.int32)
+    for p in range(P):
+        present = rng.choice(V, size=min(Np, V), replace=False)
+        g2l[p, present] = rng.permutation(len(present)).astype(np.int32)
+    plan = {f: t(rng.integers(lo, hi, size=(L, S)).astype(np.int32))
+            for f, lo, hi in (("src_slot", 0, Q), ("dst_slot", 0, Q),
+                              ("edge_label", -1, 3), ("direction", 0, 3),
+                              ("dst_label", -1, 3), ("dst_value_op", 0, 7),
+                              ("closes_cycle", 0, 2))}
+    plan["dst_value"] = t(rng.normal(size=(L, S)).astype(np.float32))
+    lane_part = rng.integers(0, P, L)
+    n_core = rng.integers(1, Np + 1, P)[lane_part]
+    inv = ops.step_invariants([x.view(P, Np, W) for x in tables], t(g2l), t(rng.integers(0, 4, V).astype(np.int32)),
+                              types.SimpleNamespace(**plan), t(lane_part), t(n_core),
+                              t(rng.integers(3, S + 1, L)))
+    lidx = (np.stack([rng.permutation(Np)[:N] for _ in range(L)]) if N <= Np
+            else rng.integers(-2, Np + 2, size=(L, N)))
+    sel = np.stack([rng.permutation(N) for _ in range(L)])
+    m = np.zeros((L, EB), bool) if empty else rng.random((L, EB)) < 0.8
+    return inv, (t(rng.integers(-1, V, size=(L, N + 1, Q)).astype(np.int32)),
+                 t(rng.integers(0, S + 2, size=(L, N + 1)).astype(np.int32)),
+                 t(lidx.astype(np.int32)), t(sel)[:, :EB], t(m))
 
 
-def compare_fused(got, want, args) -> dict:
-    """Masks bit-equal, dg where an edge exists, dest where routed out,
-    done/keep/out disjoint and covering ok.  Returns the error record."""
-    ok, dg, done, keep, out, dest = got
-    wok, wdg, wdone, wkeep, wout, wdest = want
-    mism = sum(int((a != b).sum()) for a, b in
-               ((ok, wok), (done, wdone), (keep, wkeep), (out, wout)))
-    edge = args[4][args[0].long()] >= 0
-    err_dg = int((dg - wdg).abs()[edge].max()) if bool(edge.any()) else 0
-    err_dest = int((dest - wdest).abs()[wout].max()) if bool(wout.any()) else 0
+def compare_step(got, want) -> dict:
+    """Every output bit-equal (masks, dg, dest, nr, ns); done/keep/out
+    disjoint and covering ok.  Returns the error record."""
+    ok, done, keep, out = got[0], got[2], got[3], got[4]
+    mism = sum(int((a != b).sum()) for a, b in zip(got, want))
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+              for a, b in zip(got, want))
     disjoint = not bool((done & keep).any() | (done & out).any() | (keep & out).any())
     covers = bool(torch.equal(done | keep | out, ok))
-    return {"mask_mismatches": mism, "max_abs_err": max(err_dg, err_dest),
-            "disjoint": disjoint, "covers_ok": covers,
-            "n_ok": int(ok.sum())}
+    return {"mismatches": mism, "max_abs_err": err, "disjoint": disjoint,
+            "covers_ok": covers, "n_ok": int(ok.sum()), "n_done": int(done.sum()),
+            "n_keep": int(keep.sum()), "n_out": int(out.sum())}
 
 
 def compare_expand(got, want, args) -> dict:
@@ -269,26 +302,92 @@ def check_frontier(name, rec, kw) -> None:
         check(rec["n_ok"] > 0, f"{name}: paper-shape case matched nothing")
 
 
+def step_cases(Np: int) -> list:
+    """The sweep (Q = 1, 5, 6, 8; W up to 130) and the main path's shape,
+    each at L = 1 and at L = 2 lanes over two stacked partitions."""
+    out = []
+    for L, P in ((1, 1), (2, 2)):
+        out += [(name, (L, EB, W, Q, n), dict(kw, P=P))
+                for name, (EB, W, Q, n), kw in frontier_cases(Np)]
+        out.append(("sweep", (L, 8, 9, 1, 24), {"P": P}))
+    return out
+
+
+STEP_SETS = 256     # rotating selections for the device-time run
+
+
+def step_bytes_ops(inv, args, got) -> tuple:
+    """Bytes the step must move at these inputs -- each input read once:
+    the table rows, g2l and owner entries and binding inputs this call's
+    selection needs; each output written once -- and its elementwise
+    integer operations."""
+    wr, ws, lidx, sel, m = args
+    L, EB = sel.shape
+    W, Q, Np, V = inv.tables[0].shape[1], wr.shape[2], inv.node_pad, inv.owner.shape[0]
+    S = inv.plan_int.shape[1]
+    lanes = torch.arange(L, device=sel.device)[:, None]
+    part = inv.lane[:, 0].long()[:, None]
+    rows = lidx[lanes, sel].long().clamp(0, Np - 1) + part * Np
+    step = ws[lanes, sel].long()
+    pl = inv.plan_int[lanes, step.clamp(0, S - 1)]
+    nsrc = inv.plan_int[lanes, (step + 1).clamp(0, S - 1), 0].long()
+    use_dg = (nsrc == pl[..., 1]) & (pl[..., 6] == 0)
+    fg = wr[lanes, sel].gather(2, nsrc[..., None])[..., 0].long()
+    dg = got[1].view(L, EB, W).long()
+    dgu = use_dg[..., None].expand_as(dg)
+    owner_idx = torch.cat([dg[dgu].clamp(0, V - 1), fg.reshape(-1).clamp(0, V - 1)])
+    g2l_idx = torch.cat([(part[..., None] * V + dg)[dgu & (dg >= 0)],
+                         (part * V + fg)[fg >= 0]])
+    lookups = 4 * (torch.unique(owner_idx).numel() + torch.unique(g2l_idx).numel())
+    tables = 6 * torch.unique(rows).numel() * W * 4
+    binding = L * EB * (8 + 1 + 4 + 4 + 4 * Q) + L * (S * (8 * 4 + 4) + 3 * 4)
+    outputs = L * EB * W * (4 * 1 + 3 * 4 + 4 * Q)
+    return (tables + lookups + binding + outputs,
+            {"tables": tables, "g2l_owner": lookups, "binding": binding,
+             "outputs": outputs}, L * EB * W * (40 + 3 * Q))
+
+
 def kernel_fused_frontier(rng, Np: int) -> tuple:
+    """The frontier step bit-equal to its plain version on every case; at
+    the main path's shape (L = 1) timed over STEP_SETS selections of
+    distinct table rows (about the 50 MB L2 in all), and over one."""
     from repro_torch.kernels import fused_frontier as ff
     results, worst = [], 0
-    for name, (EB, W, Q, n), kw in frontier_cases(Np):
-        args = fused_case(rng, EB, W, Q, n, V=max(1000, 2 * n), **kw)
-        got = ff.fused_frontier_cuda(*args)
+    for name, (L, EB, W, Q, n), kw in step_cases(Np):
+        timed = name == "paper" and L == 1
+        V = 440_000 if name.startswith("paper") else max(1000, 2 * n)
+        inv, args = step_case(rng, L, EB, W, Q, n, V=V,
+                              N=STEP_SETS * EB if timed else None, **kw)
+        out = ff.step_outputs(L, EB, W, Q, "cuda")
+        got = ff.frontier_step_cuda(inv, *args, out)
         torch.cuda.synchronize()
-        rec = compare_fused(got, ff.fused_frontier_plain(*args), args)
-        rec.update(case=name, EB=EB, W=W, Q=Q, Np=n)
+        rec = compare_step(got, ff.frontier_step_plain(inv, *args))
+        rec.update(case=name, L=L, EB=EB, W=W, Q=Q, Np=n)
         results.append(rec)
-        check(rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0
+        check(rec["mismatches"] == 0 and rec["max_abs_err"] == 0
               and rec["disjoint"] and rec["covers_ok"],
               f"fused_frontier disagrees with its plain version: {rec}")
         check_frontier("fused_frontier", rec, kw)
         worst = max(worst, rec["max_abs_err"])
-        paper = args
-    nbytes, nops = frontier_bytes_ops(paper, 8, 4 * 1 + 2 * 4, 40)
-    timing = timing_record(lambda: ff.fused_frontier_cuda(*paper),
-                           lambda: ff.fused_frontier_plain(*paper),
+        if timed:
+            paper = (inv, args, out)
+    inv, args, out = paper
+    nbytes, parts, nops = step_bytes_ops(inv, args, out)
+    wr, ws, lidx, sel, m = args
+    sets = [(torch.arange(k * 512, (k + 1) * 512, device="cuda")[None],
+             torch.from_numpy(rng.random((1, 512)) < 0.8).cuda())
+            for k in range(STEP_SETS)]
+    cycle = itertools.cycle(sets)
+
+    def rotating():
+        s, mm = next(cycle)
+        ff.frontier_step_cuda(inv, wr, ws, lidx, s, mm, out)
+
+    timing = timing_record(rotating, lambda: ff.frontier_step_plain(inv, *args),
                            nbytes, nops, worst, call_reps=5000)
+    timing["ms_one_set"] = graph_time_ms(lambda: ff.frontier_step_cuda(inv, *args, out))
+    timing["bytes_by_part"] = parts
+    timing["sets"] = STEP_SETS
     return results, timing
 
 
@@ -571,8 +670,7 @@ def phase_sni(pg, sess) -> dict:
                                         "ell_dlab", "ell_dval", "ell_dgid")]
             ok, dg = ops.frontier_expand(rows, step, lidx, m, *tables, pa,
                                          plan.n_steps)
-            dl, do = ops.denorm_locality(part["ell_dgid"], e.g2l, owner)
-            fok, fdg, *_ = ops.fused_frontier(rows, step, lidx, m, *tables, dl, do,
+            fok, fdg, *_ = ops.fused_frontier(rows, step, lidx, m, *tables,
                                               e.g2l, owner, part["n_core"], pa,
                                               plan.n_steps)
             check(torch.equal(ok, fok) and torch.equal(dg, fdg),
@@ -686,20 +784,31 @@ def warm_pairs(sessions, dq, rounds: int = 12) -> dict:
     return out
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
 def profile_query(sess, dq, engine: str) -> dict:
     """One warm query under torch.profiler: the device's busy and idle
-    share of the query's wall time and device time by kernel name (read
-    from the exported Chrome trace), and host time by op."""
+    share of the query's wall time, device time by kernel name (read from
+    the exported Chrome trace), host time by op, and the host's kernel
+    launches per evaluator loop; before it, one unprofiled warm run gives
+    the query's peak device memory."""
     from torch.profiler import ProfilerActivity, profile
     out = ROOT / "chiprun_out" / f"profile_{engine}_{dq.name}.json"
     out.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     sess.submit(dq)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    loops0 = engine_loops(sess.engine)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sess.submit(dq)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    loops = engine_loops(sess.engine) - loops0
     prof.export_chrome_trace(str(out))
     events = json.loads(out.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
@@ -720,10 +829,17 @@ def profile_query(sess, dq, engine: str) -> dict:
             hi = max(hi, e)
     busy_us += hi - lo
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    ours = [v for n, v in by_name.items() if "fused_frontier" in n]
-    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
+    ours = [v for n, v in by_name.items() if "frontier_step" in n]
+    averages = prof.key_averages()
+    launches = sum(e.count for e in averages if e.key in LAUNCH_CALLS)
+    kernels = sum(e.get("cat") == "kernel" for e in dev)
+    host = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:10]
     return dict(query=dq.name, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
          device_idle_share=1.0 - busy_us / 1e3 / wall_ms, device_events=len(dev),
+         loops=loops, host_kernel_launches=launches,
+         host_launches_per_loop=launches / max(loops, 1),
+         device_kernels=kernels, device_kernels_per_loop=kernels / max(loops, 1),
+         max_memory_allocated=peak,
          fused_frontier_ms=sum(v[0] for v in ours),
          fused_frontier_count=sum(v[1] for v in ours),
          kernels_by_device_time=[{"name": n, "ms": v[0], "count": v[1]}

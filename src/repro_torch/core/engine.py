@@ -13,8 +13,10 @@ classifies every produced row as
 All buffers are fixed capacity; saturation sets an ``overflow`` flag the
 host checks (never silent).  The per-step expansion evaluates an [EB, W]
 tile (EB active bindings x ELLPACK width W) of candidate edges densely in
-one fused kernel (kernels/fused_frontier.py): the CUDA kernel on CUDA
-tensors, its plain PyTorch version on CPU tensors.
+one step (kernels/fused_frontier.py): from the loop's selection straight
+to the routed masks and the new rows, as one CUDA launch on CUDA tensors
+and its plain PyTorch version on CPU tensors.  Its loop-invariant inputs
+are packed once per evaluator call (``kops.step_invariants``).
 
 The expansion loop is a Python loop with one host sync per iteration (the
 "any row still active" test).  Row selection breaks ties the way the
@@ -48,6 +50,7 @@ from ..kernels import ref as kref
 from .graph import WILDCARD, PartitionArrays
 from .plan import PlanArrays
 
+_ELL_TABLES = ("ell_dst", "ell_label", "ell_dir", "ell_dlab", "ell_dval", "ell_dgid")
 _PLAN_TENSOR_FIELDS = ("start_slot", "start_label", "start_value_op",
                        "start_value", "src_slot", "dst_slot", "edge_label",
                        "direction", "dst_label", "dst_value_op", "dst_value",
@@ -89,41 +92,6 @@ class EvalResult(NamedTuple):
     overflow: torch.Tensor       # [] bool
     n_iters: torch.Tensor        # [] int32 expansion-loop iterations
     n_expanded: torch.Tensor     # [] int32 total candidate rows expanded
-
-
-def _next_rows(rows_b, step_b, dg, plan):
-    """New binding rows [EB, W, Q] and steps [EB, W]; ``plan`` fields are
-    [S] or per binding [EB, S]."""
-    EB, Q = rows_b.shape
-    W = dg.shape[1]
-    s = step_b.clamp(0, plan.src_slot.shape[-1] - 1).long()
-    p_dst = kops.plan_at(plan.dst_slot, s)
-    p_closes = kops.plan_at(plan.closes_cycle, s)
-    col = torch.arange(Q, dtype=torch.int32, device=rows_b.device)
-    setcol = (col[None, None, :] == p_dst[:, None, None]) & (p_closes[:, None, None] == 0)
-    nr = torch.where(setcol, dg[:, :, None], rows_b[:, None, :])
-    ns = (step_b[:, None] + 1).expand(EB, W)
-    return nr, ns
-
-
-def _expand_classify(rows_b, step_b, lidx_b, m, part, g2l_row, owner, aux,
-                     plan, n_steps):
-    """Fused inner step: match an [EB, W] candidate tile AND classify every
-    produced row as done / keep / outgoing (with destination pid).
-
-    ``aux`` is the (ell_dlidx, ell_downer) pair from kops.denorm_locality,
-    computed once per evaluator call.  Returns ([EB, W]-shaped) ok, dg,
-    ns, nr, done, keep, outm, dest.
-    """
-    ell_dlidx, ell_downer = aux
-    ok, dg, done, keep, outm, dest = kops.fused_frontier(
-        rows_b, step_b, lidx_b, m,
-        part["ell_dst"], part["ell_label"], part["ell_dir"],
-        part["ell_dlab"], part["ell_dval"], part["ell_dgid"],
-        ell_dlidx, ell_downer, g2l_row, owner, part["n_core"],
-        plan, n_steps)
-    nr, ns = _next_rows(rows_b, step_b, dg, plan)
-    return ok, dg, ns, nr, done, keep, outm, dest
 
 
 def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
@@ -177,8 +145,11 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
         EBW = EB * W
         kfree = min(EBW, WT)
 
-        # locality tables for the fused kernel: once per call
-        aux = kops.denorm_locality(part["ell_dgid"], g2l_row, owner)
+        # the frontier step's loop-invariant inputs and its outputs: once
+        # per call
+        step_in = kops.step_invariants([part[k] for k in _ELL_TABLES], g2l_row,
+                                       owner, plan, 0, n_core, n_steps)
+        step_out = kops.step_outputs(1, EB, W, Q, dev)
 
         # ---- seed fresh start-node bindings (SNI entries with NULL vid) ----
         node_idx = torch.arange(Np, dtype=torch.int32, device=dev)
@@ -226,22 +197,14 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
             # up to EB active rows, lowest index first (lax.top_k's ties)
             sel = torch.sort(act.to(torch.uint8), descending=True, stable=True)[1][:EB]
             m = act[sel]
-            rows_b = wr[sel]
-            step_b = ws[sel]
-            lidx_b = lidx[sel]
             # consume them
             wv[sel] = wv[sel] & ~m
 
-            (ok, dg, ns, nr, done_t, keep_t, outm_t, dest_t) = _expand_classify(
-                rows_b, step_b, lidx_b, m, part, g2l_row, owner, aux,
-                plan, n_steps)
-
-            nr_f = nr.reshape(EBW, Q)
-            ns_f = ns.reshape(EBW)
-            done = done_t.reshape(EBW)
-            keep = keep_t.reshape(EBW)
-            outm = outm_t.reshape(EBW)
-            dest = dest_t.reshape(EBW)
+            # one lane: [1, ...] views of the buffers
+            _, _, done, keep, outm, dest, nr_f, ns_f = (
+                x[0] for x in kops.frontier_step(
+                    step_in, wr_full[None], ws_full[None], lidx[None],
+                    sel[None], m[None], step_out))
 
             comp_n, overflow = _append(comp_rows, (), comp_n, nr_f, (), done, overflow)
             out_n, overflow = _append(out_rows, (out_step, out_dest), out_n, nr_f,
@@ -266,11 +229,6 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
                           n_expanded.to(i32))
 
     return evaluate
-
-
-_ELL_TABLES = ("ell_dst", "ell_label", "ell_dir", "ell_dlab", "ell_dval", "ell_dgid")
-_STEP_FIELDS = ("src_slot", "dst_slot", "edge_label", "direction", "dst_label",
-                "dst_value_op", "dst_value", "closes_cycle")
 
 
 def make_batched_evaluator(cfg: EngineConfig):
@@ -305,7 +263,7 @@ def make_batched_evaluator(cfg: EngineConfig):
                  in_step: torch.Tensor, in_valid: torch.Tensor,
                  seed_fresh) -> Tuple[EvalResult, int]:
         dev = in_rows.device
-        P, Np = parts["node_label"].shape
+        Np = parts["node_label"].shape[1]
         W = parts["ell_dst"].shape[2]
         V = owner.shape[0]
         L = in_rows.shape[0]
@@ -328,18 +286,11 @@ def make_batched_evaluator(cfg: EngineConfig):
         g2l_flat = g2l.reshape(-1)
         g2l_off = lane_part * V
 
-        # the fused kernel reads the stacked tables as one [P*Np, W] view;
-        # a binding's row is offset by its lane's partition
-        tables = [parts[k].reshape(P * Np, W) for k in _ELL_TABLES]
-        dlidx, downer = kops.denorm_locality(parts["ell_dgid"], g2l, owner)
-        aux = (dlidx.reshape(P * Np, W), downer.reshape(P * Np, W))
-        # per-binding copies of the lane scalars, once per call
-        plan_b = dataclasses.replace(plan, **{
-            f: getattr(plan, f).repeat_interleave(EB, 0) for f in _STEP_FIELDS})
-        nst_b = nst.repeat_interleave(EB)
-        n_core_b = n_core.repeat_interleave(EB)
-        g2l_off_b = g2l_off.repeat_interleave(EB)
-        row_off = (lane_part * Np)[:, None]
+        # the frontier step reads the stacked tables as one [P*Np, W] view,
+        # each lane's rows offset by its partition: packed once per call
+        step_in = kops.step_invariants([parts[k] for k in _ELL_TABLES], g2l,
+                                       owner, plan, lane_part, n_core, nst)
+        step_out = kops.step_outputs(L, EB, W, Q, dev)
 
         def frontier_local(rows, step, valid):
             """[L, N] active mask + local index of each row's next frontier
@@ -421,26 +372,16 @@ def make_batched_evaluator(cfg: EngineConfig):
             sel = torch.sort(act.to(torch.uint8), dim=1, descending=True,
                              stable=True)[1][:, :EB]
             m = act.gather(1, sel)
-            rows_b = wr.gather(1, sel[:, :, None].expand(L, EB, Q))
-            step_b = ws.gather(1, sel)
-            lidx_b = lidx.gather(1, sel).clamp(0, Np - 1) + row_off
             # consume them
             wv.scatter_(1, sel, wv.gather(1, sel) & ~m)
 
-            rows_f, step_f = rows_b.reshape(L * EB, Q), step_b.reshape(-1)
-            ok, dg, done_t, keep_t, outm_t, dest_t = kops.fused_frontier(
-                rows_f, step_f, lidx_b.reshape(-1), m.reshape(-1), *tables, *aux,
-                g2l_flat, owner, n_core_b, plan_b, nst_b, g2l_off=g2l_off_b)
-            nr, ns = _next_rows(rows_f, step_f, dg, plan_b)
-            nr_f = nr.reshape(L, EBW, Q)
-            ns_f = ns.reshape(L, EBW)
-            keep = keep_t.reshape(L, EBW)
+            _, _, done, keep, outm, dest, nr_f, ns_f = kops.frontier_step(
+                step_in, wr_full, ws_full, lidx, sel, m, step_out)
 
-            comp_n, overflow = append(comp_rows, (), comp_n, nr_f, (),
-                                      done_t.reshape(L, EBW), overflow)
+            comp_n, overflow = append(comp_rows, (), comp_n, nr_f, (), done,
+                                      overflow)
             out_n, overflow = append(out_rows, (out_step, out_dest), out_n, nr_f,
-                                     (ns_f, dest_t.reshape(L, EBW)),
-                                     outm_t.reshape(L, EBW), overflow)
+                                     (ns_f, dest), outm, overflow)
             # keep-rows go into each lane's lowest free work slots
             free = torch.sort((~wv).to(torch.uint8), dim=1, descending=True,
                               stable=True)[1][:, :kfree]

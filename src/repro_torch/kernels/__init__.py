@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch twins.
 
-  fused_frontier  — expansion + match + done/keep/out routing (engine inner
-                    step); CUDA source in csrc/fused_frontier.cu
+  fused_frontier  — the evaluator loop's frontier step: from the loop's
+                    selection to the match, the done/keep/out routing and
+                    the new rows, one launch per loop; csrc/fused_frontier.cu
   frontier_expand — the match alone (ok, dg); csrc/frontier_expand.cu
   label_histogram — start-node count of one partition (SNI seed);
                     csrc/label_histogram.cu

@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# per-kernel build record: seconds, ptxas registers / spill bytes, log
+# per-kernel build record: seconds, ptxas registers / static shared memory
+# / spill bytes, log
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -67,7 +68,9 @@ def _ptxas_summary(log: str) -> dict:
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     spill_st = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
     spill_ld = [int(x) for x in re.findall(r"(\d+) bytes spill loads", log)]
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", log)]
     return {"registers": max(regs) if regs else None,
+            "static_smem_bytes": max(smem) if smem else None,
             "spill_store_bytes": sum(spill_st), "spill_load_bytes": sum(spill_ld)}
 
 

@@ -1,24 +1,35 @@
 """Engine-facing adapters around the port's kernels.
 
-``fused_frontier`` and ``frontier_expand`` pack engine-level arguments
-(binding rows, steps, the plan, the partition's locality tables) into
-their kernels' layouts, and ``label_histogram`` checks its mask; each
-calls its device-dispatching wrapper: the CUDA kernel on CUDA tensors,
-its plain version on CPU tensors.  There is no fallback between the two.
-``fused_frontier_ref`` and ``frontier_expand_ref`` are the gather-based
-oracles with the same adapter signatures (minus the locality tables).
+``step_invariants`` packs, once per evaluator call, what the frontier
+step reads in every loop (the ELL tables viewed as [P*Np, W], the g2l
+rows, each lane's plan as one [L, S, 8] table and its partition, n_core
+and n_steps); ``frontier_step`` is the step's device-dispatching wrapper,
+which the evaluators call once per loop.  ``fused_frontier`` and
+``frontier_expand`` take the JAX adapters' engine-level signatures (one
+batch of binding rows, steps and local indices); ``label_histogram``
+checks its mask.  Each reaches its kernel's wrapper: the CUDA kernel on
+CUDA tensors, its plain version on CPU tensors.  There is no fallback
+between the two.  ``fused_frontier_ref`` and ``frontier_expand_ref`` are
+the gather-based oracles with the same signatures.
 
-A plan passed here has fields of shape [S] (one plan for every binding)
-or [EB, S] (a plan per binding, as the lane evaluator packs them).
+``denorm_locality``, ``_fused_params`` and ``_next_rows`` are the pieces
+of the JAX design that the step's plain version is composed of.  A plan
+passed here has fields of shape [S] (one plan for every binding) or
+[EB, S] (a plan per binding).
 """
 from __future__ import annotations
 
 import torch
 
+from . import fused_frontier as ff
 from . import ref
 from .frontier_expand import N_PINT, frontier_expand_kernel
-from .fused_frontier import fused_frontier_kernel
+from .fused_frontier import frontier_step, step_outputs
 from .label_histogram import label_histogram_kernel
+
+__all__ = ["frontier_step", "step_invariants", "step_outputs", "fused_frontier",
+           "fused_frontier_ref", "frontier_expand", "frontier_expand_ref",
+           "label_histogram", "denorm_locality", "plan_at"]
 
 
 def plan_at(field, s):
@@ -28,11 +39,12 @@ def plan_at(field, s):
 
 
 def denorm_locality(ell_dgid, g2l_row, owner):
-    """Precompute the per-candidate locality tables the fused kernel needs.
+    """The TPU design's per-candidate locality tables.
 
     Denormalizes ``g2l_row[dst]`` / ``owner[dst]`` into two extra [Np, W]
-    ELL-shaped tables so the kernel never performs a data-dependent gather.
-    Call ONCE per evaluator invocation (outside the expansion loop).
+    ELL-shaped tables, because the Pallas kernel can do no data-dependent
+    gather.  Only the step's plain version builds them; the CUDA kernel
+    looks g2l and owner up directly.
     Stacked partitions work the same way: ``ell_dgid`` [P, Np, W] with
     ``g2l_row`` [P, V] looks each partition's candidates up in its own row.
 
@@ -52,7 +64,7 @@ def denorm_locality(ell_dgid, g2l_row, owner):
 
 def _fused_params(rows_b, step_b, m, g2l_row, owner, n_core, plan, n_steps,
                   g2l_off=None):
-    """Pack the per-binding scalars for the fused kernel: pint [EB, 12]
+    """Pack the TPU kernel's per-binding scalars: pint [EB, 12]
     int32 (columns ``fused_frontier._F_*``), pflt [EB] f32, and the src
     slot of each binding's NEXT plan step.
 
@@ -89,25 +101,69 @@ def _fused_params(rows_b, step_b, m, g2l_row, owner, n_core, plan, n_steps,
     return pint, pflt, nsrc
 
 
+def _next_rows(rows_b, step_b, dg, plan):
+    """New binding rows [EB, W, Q] and steps [EB, W]: the dst slot bound to
+    each candidate unless the step closes a cycle."""
+    EB, Q = rows_b.shape
+    W = dg.shape[1]
+    s = step_b.clamp(0, plan.src_slot.shape[-1] - 1).long()
+    p_dst = plan_at(plan.dst_slot, s)
+    p_closes = plan_at(plan.closes_cycle, s)
+    col = torch.arange(Q, dtype=torch.int32, device=rows_b.device)
+    setcol = (col[None, None, :] == p_dst[:, None, None]) & (p_closes[:, None, None] == 0)
+    nr = torch.where(setcol, dg[:, :, None], rows_b[:, None, :])
+    ns = (step_b[:, None] + 1).expand(EB, W)
+    return nr, ns
+
+
+def step_invariants(tables, g2l, owner, plan, lane_part, n_core, n_steps):
+    """Pack and check the frontier step's loop-invariant inputs, once per
+    evaluator call.
+
+    ``tables`` are the six ELL tables (ell_dst, ell_label, ell_dir,
+    ell_dlab, ell_dval, ell_dgid), [Np, W] or stacked [P, Np, W]; ``g2l``
+    is [V] or [P, V]; ``plan``'s step fields are [S] (one lane) or [L, S];
+    ``lane_part``, ``n_core`` and ``n_steps`` are ints (for every lane) or
+    [L] tensors."""
+    Np, W = tables[0].shape[-2:]
+    S = plan.src_slot.shape[-1]
+    dev = owner.device
+    cols = [getattr(plan, f).reshape(-1, S).int() for f in ff.PLAN_INT_FIELDS]
+    plan_int = torch.stack(cols + [torch.zeros_like(cols[0])], dim=2)
+    plan_val = plan.dst_value.reshape(-1, S).float().contiguous()
+    L = plan_int.shape[0]
+    vals = (lane_part, n_core, n_steps)
+    if not any(isinstance(v, torch.Tensor) for v in vals):
+        lane = torch.tensor([[int(v) for v in vals]] * L, dtype=torch.int32,
+                            device=dev)
+    else:
+        lane = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
+                            .reshape(-1).expand(L) for v in vals], dim=1)
+    return ff.make_step_invariants(
+        [t.reshape(-1, W) for t in tables], g2l.reshape(-1), owner,
+        plan_int.contiguous(), plan_val, lane.contiguous(), Np)
+
+
 def fused_frontier(rows_b, step_b, lidx_b, m,
                    ell_dst, ell_label, ell_dir,
                    ell_dlab, ell_dval, ell_dgid,
-                   ell_dlidx, ell_downer,
                    g2l_row, owner, n_core,
-                   plan, n_steps, g2l_off=None):
-    """The fused expand+classify step.  ``ell_dlidx`` / ``ell_downer`` come
-    from denorm_locality; ``plan`` is a PlanArrays of tensors on the same
-    device; ``g2l_off`` as in ``_fused_params``.  Returns six [EB, W]
-    tensors: (ok, dg, done, keep, out, dest), the masks bool, dg/dest
-    int32."""
-    Np = ell_dst.shape[0]
-    pint, pflt, _ = _fused_params(rows_b, step_b, m, g2l_row, owner, n_core,
-                                  plan, n_steps, g2l_off)
-    lidx = lidx_b.clamp(0, Np - 1).int()
-    return fused_frontier_kernel(
-        lidx, pint, pflt, rows_b.int().contiguous(),
-        ell_dst, ell_label, ell_dir, ell_dlab, ell_dval, ell_dgid,
-        ell_dlidx, ell_downer)
+                   plan, n_steps):
+    """The fused expand+classify step on one batch of bindings, with the
+    JAX adapter's signature less its two locality tables (the step looks
+    g2l and owner up itself): the bindings form a one-lane work buffer,
+    every row selected.  Returns six [EB, W] tensors: (ok, dg, done, keep,
+    out, dest), the masks bool, dg/dest int32."""
+    EB, Q = rows_b.shape
+    W = ell_dst.shape[1]
+    dev = rows_b.device
+    inv = step_invariants((ell_dst, ell_label, ell_dir, ell_dlab, ell_dval,
+                           ell_dgid), g2l_row, owner, plan, 0, n_core, n_steps)
+    out = ff.step_outputs(1, EB, W, Q, dev)
+    sel = torch.arange(EB, device=dev)[None]
+    one = [x.int().contiguous()[None] for x in (rows_b, step_b, lidx_b)]
+    frontier_step(inv, *one, sel, m.contiguous()[None], out)
+    return tuple(x.view(EB, W) for x in out[:6])
 
 
 def fused_frontier_ref(rows_b, step_b, lidx_b, m,

@@ -31,20 +31,25 @@ CASES = [((4, 4, 4, 8), False), ((16, 7, 6, 32), False),
 
 @pytest.mark.cuda
 def test_cuda_fused_frontier_matches_plain():
-    """Bit-equal masks, dg where an edge exists, dest where routed out,
-    done/keep/out disjoint and covering ok — over the test sweep, an
-    empty frontier and the main path's EB/W/Q."""
+    """The frontier step: every output bit-equal to its plain version,
+    done/keep/out disjoint and covering ok -- over the test sweep, an empty
+    frontier and the main path's EB/W/Q, at one lane and at two lanes over
+    two stacked partitions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(0)
-    for (EB, W, Q, Np), empty in CASES:
-        args = chip_smoke.fused_case(rng, EB, W, Q, Np, V=1000 + 2 * Np,
-                                     empty=empty)
-        got = ff.fused_frontier_cuda(*args)
-        torch.cuda.synchronize()
-        rec = chip_smoke.compare_fused(got, ff.fused_frontier_plain(*args), args)
-        assert rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0, rec
-        assert rec["disjoint"] and rec["covers_ok"], rec
+    for L in (1, 2):
+        for (EB, W, Q, Np), empty in CASES:
+            inv, args = chip_smoke.step_case(rng, L, EB, W, Q, Np, P=L,
+                                             V=1000 + 2 * Np, empty=empty)
+            out = ff.step_outputs(L, EB, W, Q, "cuda")
+            got = ff.frontier_step_cuda(inv, *args, out)
+            torch.cuda.synchronize()
+            rec = chip_smoke.compare_step(got, ff.frontier_step_plain(inv, *args))
+            assert rec["mismatches"] == 0 and rec["max_abs_err"] == 0, rec
+            assert rec["disjoint"] and rec["covers_ok"], rec
+            if empty:
+                assert rec["n_ok"] == 0
 
 
 @pytest.mark.cuda

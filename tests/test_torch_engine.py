@@ -527,17 +527,17 @@ def test_traditional_counts_one_launch_per_loop(both):
     _, _, tg, tpg = both
     eng = tc.TraditionalMPEngine(tpg, 4, tc.EngineConfig(cap=CAP), device="cpu")
     calls = []
-    inner = kops.fused_frontier
+    inner = kops.frontier_step
 
-    def counting(*a, **kw):
-        calls.append(a[0].shape[0])
-        return inner(*a, **kw)
-    kops.fused_frontier = counting
+    def counting(inv, wr, ws, lidx, sel, m, out):
+        calls.append(sel.numel())          # rows of all lanes in one launch
+        return inner(inv, wr, ws, lidx, sel, m, out)
+    kops.frontier_step = counting
     try:
         tq = subgen_queries(tg)[1].disjuncts[0]
         eng.run(tc.generate_plan(tq, tg, tc.build_catalog(tg)), "max-sn")
     finally:
-        kops.fused_frontier = inner
+        kops.frontier_step = inner
     assert eng.batched_iters == len(calls) > 0
     assert max(calls) > 16 * 1      # some launch carried several lanes' rows
 

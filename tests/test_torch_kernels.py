@@ -9,6 +9,7 @@ holds them against these plain versions there.
 """
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+from repro.core import engine as ref_engine
 from repro.core.plan import PlanArrays as RefPlanArrays
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_ref
@@ -99,12 +101,10 @@ def _case(seed, EB, W, Q, Np, m=None, plan_fn=None):
 
 def _port_fused(c):
     t = torch.from_numpy
-    tables = [t(a) for a in c["tables"]]
-    g2l, owner = t(c["g2l_row"]), t(c["owner"])
-    dlidx, downer = ops.denorm_locality(tables[5], g2l, owner)
     return ops.fused_frontier(t(c["rows"]), t(c["step"]), t(c["lidx"]),
-                              t(c["m"]), *tables, dlidx, downer, g2l, owner,
-                              c["n_core"], _torch_plan(c["plan"]), c["n_steps"])
+                              t(c["m"]), *[t(a) for a in c["tables"]],
+                              t(c["g2l_row"]), t(c["owner"]), c["n_core"],
+                              _torch_plan(c["plan"]), c["n_steps"])
 
 
 def _port_oracle(c):
@@ -200,6 +200,123 @@ def test_fused_frontier_matches_pallas_interpret():
     _assert_fused_equal(_port_fused(c), want, c)
 
 
+# ---------------------------------------------------------------------------
+# the step (one launch per evaluator loop) against the JAX engine's
+# _expand_classify, lane by lane
+# ---------------------------------------------------------------------------
+
+def _step_case(seed, L, EB, W, Q, Np, P=2, empty_lane=None):
+    """Random loop state for the step, as numpy arrays: P partitions whose
+    ELL destination attributes are their nodes' (so the JAX engine's jnp
+    path, which reads the node arrays, sees the same graph), a g2l row per
+    partition (most work-row ids absent from it), one random plan per lane
+    (cycle-closing steps included), work rows with steps past n_steps,
+    unclipped lidx, a selection of EB work rows per lane and ``m``
+    (all False on ``empty_lane``).  Destination values are 20% NaN."""
+    rng = np.random.default_rng(seed)
+    V = 4 * Np + 50
+    parts, g2l = [], np.full((P, V), -1, np.int32)
+    for p in range(P):
+        gid = rng.choice(V, Np, replace=False).astype(np.int32)
+        g2l[p, gid] = np.arange(Np, dtype=np.int32)
+        label = rng.integers(0, 3, Np).astype(np.int32)
+        value = rng.normal(size=Np).astype(np.float32)
+        value[rng.random(Np) < 0.2] = np.nan
+        ed = rng.integers(-1, Np, size=(Np, W)).astype(np.int32)
+        d = np.clip(ed, 0, Np - 1)
+        parts.append(dict(
+            n_core=np.int32(rng.integers(1, Np + 1)), node_label=label,
+            node_value=value, node_gid=gid, ell_dst=ed,
+            ell_label=rng.integers(-2, 3, size=(Np, W)).astype(np.int32),
+            ell_dir=rng.integers(0, 3, size=(Np, W)).astype(np.int32),
+            ell_dlab=np.where(ed >= 0, label[d], -2).astype(np.int32),
+            ell_dval=np.where(ed >= 0, value[d], np.nan).astype(np.float32),
+            ell_dgid=np.where(ed >= 0, gid[d], -1).astype(np.int32)))
+    N = EB + 7
+    m = rng.random((L, EB)) < 0.8
+    if empty_lane is not None:
+        m[empty_lane] = False
+    return dict(
+        parts=parts, g2l=g2l, owner=rng.integers(0, 4, V).astype(np.int32),
+        plans=[_random_plan(rng, 6, Q) for _ in range(L)],
+        n_steps=rng.integers(3, 7, L).astype(np.int32),
+        lane_part=rng.integers(0, P, L),
+        wr=rng.integers(-1, V, size=(L, N + 1, Q)).astype(np.int32),
+        ws=rng.integers(0, 8, size=(L, N + 1)).astype(np.int32),
+        lidx=rng.integers(-2, Np + 2, size=(L, N)).astype(np.int32),
+        sel=np.stack([rng.permutation(N)[:EB] for _ in range(L)]),
+        m=m)
+
+
+def _port_step_inputs(c):
+    """(invariants, per-launch args, output buffers) of the port's step."""
+    t = torch.from_numpy
+    part = lambda k: t(np.stack([p[k] for p in c["parts"]]))  # noqa: E731
+    plan = types.SimpleNamespace(**{
+        f: t(np.stack([getattr(p, f) for p in c["plans"]]))
+        for f in (*ff.PLAN_INT_FIELDS, "dst_value")})
+    lane_part = t(c["lane_part"])
+    inv = ops.step_invariants(
+        [part(k) for k in ("ell_dst", "ell_label", "ell_dir", "ell_dlab",
+                           "ell_dval", "ell_dgid")],
+        t(c["g2l"]), t(c["owner"]), plan, lane_part,
+        part("n_core")[lane_part], t(c["n_steps"]))
+    L, EB = c["sel"].shape
+    W, Q = c["parts"][0]["ell_dst"].shape[1], c["wr"].shape[2]
+    args = (t(c["wr"]), t(c["ws"]), t(c["lidx"]), t(c["sel"]), t(c["m"]))
+    return inv, args, ops.step_outputs(L, EB, W, Q, "cpu")
+
+
+_jax_expand_classify = jax.jit(ref_engine._expand_classify,
+                               static_argnames=("use_pallas",))
+
+_STEP_CASES = [dict(seed=56, L=1, EB=16, W=7, Q=8, Np=32),
+               dict(seed=43, L=3, EB=8, W=130, Q=5, Np=16, empty_lane=1),
+               dict(seed=47, L=3, EB=12, W=9, Q=1, Np=24)]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("case", _STEP_CASES, ids=lambda k: f"L{k['L']}Q{k['Q']}W{k['W']}")
+def test_frontier_step_matches_jax_expand_classify(case, use_pallas):
+    """Lane by lane, the step's plain version equals the JAX engine's
+    ``_expand_classify`` on that lane's selected rows, on its jnp path and
+    through the Pallas kernel (interpret mode): masks and ns bit-equal; nr
+    and dg where an edge exists (everywhere on the Pallas path, whose dg
+    is ell_dgid like the port's); dest where routed out."""
+    c = _step_case(**case)
+    inv, args, out = _port_step_inputs(c)
+    got = [x.numpy() for x in ff.frontier_step(inv, *args, out)]
+    L, EB = c["sel"].shape
+    W = c["parts"][0]["ell_dst"].shape[1]
+    n_ok = 0
+    for lane in range(L):
+        part = c["parts"][c["lane_part"][lane]]
+        g2l_row = c["g2l"][c["lane_part"][lane]]
+        s = c["sel"][lane]
+        aux = (ref_ops.denorm_locality(part["ell_dgid"], g2l_row, c["owner"])
+               if use_pallas else None)
+        want = _jax_expand_classify(
+            c["wr"][lane][s], c["ws"][lane][s], c["lidx"][lane][s],
+            c["m"][lane], part, g2l_row, c["owner"], aux, c["plans"][lane],
+            c["n_steps"][lane], use_pallas=use_pallas)
+        ok, dg, ns, nr, done, keep, outm, dest = (np.asarray(x) for x in want)
+        g = [x[lane].reshape((EB, W) + x.shape[2:]) for x in got]
+        for name, a, b in (("ok", g[0], ok), ("done", g[2], done),
+                           ("keep", g[3], keep), ("outm", g[4], outm),
+                           ("ns", g[7], ns)):
+            np.testing.assert_array_equal(a, b, err_msg=f"lane {lane} {name}")
+        edge = part["ell_dst"][np.clip(c["lidx"][lane][s], 0, part["ell_dst"].shape[0] - 1)] >= 0
+        if use_pallas:
+            edge = np.ones_like(edge)
+        np.testing.assert_array_equal(g[1][edge], dg[edge], err_msg=f"lane {lane} dg")
+        np.testing.assert_array_equal(g[6][edge], nr[edge], err_msg=f"lane {lane} nr")
+        np.testing.assert_array_equal(g[5][outm], dest[outm], err_msg=f"lane {lane} dest")
+        if not c["m"][lane].any():
+            assert not g[0].any()
+        n_ok += int(ok.sum())
+    assert n_ok > 0
+
+
 @pytest.mark.parametrize("EB,W,Q,Np", SWEEP[:3])
 def test_denorm_locality_and_params_match_jax(EB, W, Q, Np):
     c = _case(EB + W + 3, EB, W, Q, Np)
@@ -247,42 +364,43 @@ def test_frontier_expand_ref_matches_jax():
     np.testing.assert_array_equal(dg.numpy()[edge], np.asarray(rdg)[edge])
 
 
-def _packed(c):
-    """The kernel-level inputs (lidx, pint, pflt, rows, eight tables)."""
-    t = torch.from_numpy
-    tables = [t(a) for a in c["tables"]]
-    g2l, owner = t(c["g2l_row"]), t(c["owner"])
-    pint, pflt, _ = ops._fused_params(t(c["rows"]), t(c["step"]), t(c["m"]),
-                                      g2l, owner, c["n_core"],
-                                      _torch_plan(c["plan"]), c["n_steps"])
-    return (t(c["lidx"]), pint, pflt, t(c["rows"]), *tables,
-            *ops.denorm_locality(tables[5], g2l, owner))
-
-
 def test_wrapper_rejects_bad_inputs():
-    args = list(_packed(_case(3, 8, 5, 4, 8)))
+    c = _step_case(3, 2, 8, 5, 4, 8)
+    inv, args, out = _port_step_inputs(c)
+    with pytest.raises(ValueError):             # neither cpu nor cuda
+        ff.frontier_step(inv, *[a.to("meta") for a in args],
+                         [o.to("meta") for o in out])
+    tables = list(inv.tables)
+    pieces = (tables, inv.g2l, inv.owner, inv.plan_int, inv.plan_val, inv.lane,
+              inv.node_pad)
+    for i, bad in ((0, tables[:4] + [tables[4].int(), tables[5]]),  # dval f32
+                   (3, inv.plan_int[:, :, :7].contiguous()),       # 8 columns
+                   (5, inv.lane + torch.tensor([2, 0, 0], dtype=torch.int32)),
+                   (6, 7)):                                        # Np | rows
+        broken = list(pieces)
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            ff.make_step_invariants(*broken)
+    for i, bad in ((0, args[0].transpose(1, 2)),      # wr rows not contiguous
+                   (2, args[2].long()),                 # lidx must be int32
+                   (3, args[3].int()),                  # sel must be int64
+                   (4, args[4].int())):                 # m must be bool
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises(ValueError):
+            ff.frontier_step(inv, *broken, out)
     with pytest.raises(ValueError):
-        ff.fused_frontier_kernel(*[a.to("meta") for a in args])
-    bad = list(args)
-    bad[8] = bad[8].int()                       # ell_dval must be float32
-    with pytest.raises(ValueError):
-        ff.fused_frontier_kernel(*bad)
-    bad = list(args)
-    bad[3] = bad[3].t()                         # rows: wrong shape/layout
-    with pytest.raises(ValueError):
-        ff.fused_frontier_kernel(*bad)
-    bad = list(args)
-    bad[1] = bad[1][:, :11].contiguous()        # pint must have 12 columns
-    with pytest.raises(ValueError):
-        ff.fused_frontier_kernel(*bad)
+        ff.frontier_step(inv, *args, tuple(out))        # not from step_outputs
+    with pytest.raises(ValueError):                     # sized for EB = 4
+        ff.frontier_step(inv, *args, ff.step_outputs(2, 4, 5, 4, "cpu"))
 
 
 def test_cpu_dispatch_runs_plain_and_counts_no_launch():
     build.LAUNCHES.clear()
-    args = _packed(_case(9, 8, 5, 4, 8))
-    got = ff.fused_frontier_kernel(*args)
-    want = ff.fused_frontier_plain(*args)
-    for a, b in zip(got, want):
+    inv, args, out = _port_step_inputs(_step_case(9, 2, 8, 5, 4, 8))
+    got = ff.frontier_step(inv, *args, out)
+    assert got is out
+    for a, b in zip(got, ff.frontier_step_plain(inv, *args)):
         assert torch.equal(a, b)
     assert build.LAUNCHES[ff.NAME] == 0
 

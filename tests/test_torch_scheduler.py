@@ -166,16 +166,16 @@ def test_one_fused_launch_per_batched_loop(both, engine):
     sess = tc.GraphSession(pg=tpg, engine=engine, seed=1, device="cpu",
                            config=tc.EngineConfig(cap=CAP))
     calls = []
-    inner = kops.fused_frontier
+    inner = kops.frontier_step
 
-    def counting(*a, **kw):
-        calls.append(a[0].shape[0])
-        return inner(*a, **kw)
-    kops.fused_frontier = counting
+    def counting(inv, wr, ws, lidx, sel, m, out):
+        calls.append(sel.numel())          # rows of all lanes in one launch
+        return inner(inv, wr, ws, lidx, sel, m, out)
+    kops.frontier_step = counting
     try:
         sess.submit_many(subgen_queries(tg) * 2)
     finally:
-        kops.fused_frontier = inner
+        kops.frontier_step = inner
     assert sess.engine.batched_iters == len(calls) > 0
     assert max(calls) > sess.config.expand_block   # several lanes per launch
 
