@@ -15,10 +15,13 @@ Phases, each printing one JSON line:
   kernels      each kernel against its plain PyTorch version on the card
                (bit-equal), on the test sweep, an empty frontier, NaN values
                and the main path's shapes (the frontier step at one lane and
-               at two lanes over stacked partitions); each timed three ways
-               (CUDA-graph replay, per call through the wrapper, the plain
-               version) beside its byte bound, the step's device time over
-               256 selections of distinct table rows
+               at two lanes over stacked partitions; frontier_expand at W on
+               each side of a warp; label_histogram on misaligned views,
+               n % 4 tails, two streams at once and a replayed CUDA graph);
+               each timed three ways (CUDA-graph replay, per call through
+               the wrapper, the plain version) beside its byte bound and the
+               card's launch floor, the step's device time over 256
+               selections of distinct table rows
   small        a small graph served on the card and on the CPU (plain
                versions): identical answers, loads and iterations for OPAT
                and TraditionalMP submits and for submit_many on both
@@ -108,7 +111,10 @@ def cuda_time_ms(fn, reps: int, warmup: int = 20) -> float:
 
 def graph_time_ms(fn, reps: int = 200, replays: int = 10) -> float:
     """Device time per call: ``reps`` calls captured into one CUDA graph
-    and replayed, so host-side launch overhead drops out."""
+    and replayed, so host-side launch overhead drops out.  The capture runs
+    on the stream the warm-up ran on, so per-stream scratch a kernel makes
+    at its first call (label_histogram's) exists before the capture and no
+    zero-fill enters the graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -116,7 +122,7 @@ def graph_time_ms(fn, reps: int = 200, replays: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -286,6 +292,18 @@ def timing_record(fn, plain, nbytes: int, nops: int, worst: int,
             "library_ms": None, "max_abs_err": worst}
 
 
+def launch_floor_ms() -> float:
+    """The shortest a captured launch takes on this card: graph replay of a
+    one-element fill_.  A yardstick only; no path of the port calls it."""
+    one = torch.zeros(1, device="cuda")
+    return graph_time_ms(lambda: one.fill_(1.0))
+
+
+# frontier_expand beside the warp width: (EB, W, Q, Np)
+EXPAND_WARP_CASES = [(16, 31, 8, 32), (16, 32, 1, 32), (16, 33, 8, 32),
+                     (16, 31, 1, 32), (8, 130, 8, 16), (8, 130, 1, 16)]
+
+
 def frontier_cases(Np: int) -> list:
     return [("sweep", (4, 4, 4, 8), {}), ("sweep", (16, 7, 6, 32), {}),
             ("sweep", (32, 128, 8, 64), {}), ("sweep", (8, 130, 5, 16), {}),
@@ -394,7 +412,8 @@ def kernel_fused_frontier(rng, Np: int) -> tuple:
 def kernel_frontier_expand(rng, Np: int) -> tuple:
     from repro_torch.kernels import frontier_expand as fe
     results, worst = [], 0
-    for name, (EB, W, Q, n), kw in frontier_cases(Np):
+    cases = [("warp", shape, {}) for shape in EXPAND_WARP_CASES] + frontier_cases(Np)
+    for name, (EB, W, Q, n), kw in cases:
         args = expand_args(engine_case(rng, EB, W, Q, n, V=max(1000, 2 * n), **kw))
         got = fe.frontier_expand_cuda(*args)
         torch.cuda.synchronize()
@@ -421,9 +440,81 @@ def histogram_case(rng, n: int, dev="cuda") -> tuple:
     return tuple(torch.from_numpy(a).to(dev) for a in (lab, val, core))
 
 
+def histogram_views(rng, n: int) -> list:
+    """(offset, tail, inputs): views at offsets 0-3 into longer arrays, of
+    n + tail nodes for each tail 0-3.  An offset other than 0 makes every
+    pointer of a non-empty view miss 16-byte alignment (the kernel's
+    scalar path); the tail gives each n % 4."""
+    out = []
+    for tail in range(4):
+        base = histogram_case(rng, n + tail + 3)
+        out += [(off, tail, tuple(a[off:off + n + tail] for a in base))
+                for off in range(4)]
+    return out
+
+
+HISTOGRAM_PROBES = ((-1, 0, 0.0), (1, 5, 0.1), (2, 3, -0.2), (9, 0, 0.0))
+
+
+def histogram_two_streams(cases):
+    """label_histogram on two streams at once.  Both streams first wait
+    behind a spin kernel (about 10 ms), so the host queues 20 launches on
+    each before either runs and the two queues then drain side by side.
+    ``cases`` gives each stream its (inputs, label, op, value).  Returns
+    [(stream, got, want)] with got and want as ints."""
+    from repro_torch.kernels import label_histogram as lh
+    calls, sleep_cycles = 20, 20_000_000
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    pending = []
+    for st, (args, label, op, value) in zip(streams, cases):
+        st.wait_stream(main)
+        with torch.cuda.stream(st):
+            lh.label_histogram_cuda(*args, label, op, value)  # makes the scratch
+            torch.cuda._sleep(sleep_cycles)
+    for _ in range(calls):
+        for k, (st, (args, label, op, value)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(st):
+                pending.append((k, lh.label_histogram_cuda(*args, label, op, value)))
+    for st in streams:
+        main.wait_stream(st)
+    torch.cuda.synchronize()
+    want = [int(lh.label_histogram_plain(*a, lb, op, v)) for a, lb, op, v in cases]
+    return [(k, int(got), want[k]) for k, got in pending]
+
+
+def histogram_graph_replay(cases):
+    """label_histogram captured into one CUDA graph, one call per case, and
+    replayed 5 times; then the same calls eagerly on the capture stream.
+    The capture stream's scratch is dropped first, so it is made (and its
+    one zero-fill captured) inside the capture.  Returns [(replay or -1
+    for eager, case index, got, want)]."""
+    from repro_torch.kernels import label_histogram as lh
+    replays = 5
+    st = torch.cuda.Stream()
+    lh._SCRATCH.pop((torch.cuda.current_device(), st.cuda_stream), None)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=st):
+        outs = [lh.label_histogram_cuda(*a, lb, op, v) for a, lb, op, v in cases]
+    want = [int(lh.label_histogram_plain(*a, lb, op, v)) for a, lb, op, v in cases]
+    res = []
+    for r in range(replays):
+        for o in outs:
+            o.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        res += [(r, k, int(o), want[k]) for k, o in enumerate(outs)]
+    with torch.cuda.stream(st):
+        eager = [lh.label_histogram_cuda(*a, lb, op, v) for a, lb, op, v in cases]
+    torch.cuda.synchronize()
+    res += [(-1, k, int(o), want[k]) for k, o in enumerate(eager)]
+    return res
+
+
 def kernel_label_histogram(rng, pg) -> tuple:
     """The sweep (the 1024-node block edge, every label kind and op, NaN
-    values), one partition of the path, and the whole graph."""
+    values), offset views and n % 4 tails, two streams at once, CUDA-graph
+    replay, one partition of the path, and the whole graph."""
     from repro_torch.kernels import label_histogram as lh
     results = []
 
@@ -432,7 +523,8 @@ def kernel_label_histogram(rng, pg) -> tuple:
         torch.cuda.synchronize()
         want = lh.label_histogram_plain(*args, label, op, value)
         rec = {"case": case, "n": int(args[0].shape[0]), "label": label, "op": op,
-               "count": int(got), "max_abs_err": abs(int(got) - int(want))}
+               "count": int(got), "max_abs_err": abs(int(got) - int(want)),
+               "vector_loads": lh.use_vector_loads(*args)}
         check(rec["max_abs_err"] == 0,
               f"label_histogram disagrees with its plain version: {rec}")
         return rec
@@ -441,6 +533,23 @@ def kernel_label_histogram(rng, pg) -> tuple:
         args = histogram_case(rng, n)
         for label in (-1, 2, 9):
             results += [one("sweep", args, label, op, 0.1) for op in range(7)]
+    for n in (0, 3000, pg.node_pad):
+        for off, tail, args in histogram_views(rng, n):
+            check(lh.use_vector_loads(*args) == (off == 0 or n + tail == 0),
+                  f"offset {off}: vector path chosen wrongly")
+            results += [one(f"view{off}_tail{tail}", args, *p) for p in HISTOGRAM_PROBES]
+    # one input a misaligned view (the scalar path), one aligned
+    mis = tuple(a[1:] for a in histogram_case(rng, pg.node_pad + 1))
+    big = histogram_case(rng, pg.node_pad)
+    streamed = histogram_two_streams([(mis, 1, 5, 0.1), (big, -1, 0, 0.0)])
+    check(all(g == w for _, g, w in streamed),
+          f"label_histogram on two streams: {[x for x in streamed if x[1] != x[2]][:4]}")
+    replayed = histogram_graph_replay([(mis, 1, 5, 0.1), (big, 2, 3, -0.2),
+                                       (histogram_case(rng, 1025), -1, 0, 0.0)])
+    check(all(g == w for _, _, g, w in replayed),
+          f"label_histogram in a CUDA graph: {[x for x in replayed if x[2] != x[3]][:4]}")
+    results.append({"case": "two_streams", "calls": len(streamed), "max_abs_err": 0})
+    results.append({"case": "graph_replay", "calls": len(replayed), "max_abs_err": 0})
     part = pg.parts[0]
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
     core = (np.arange(pg.node_pad) < part.n_core).astype(np.int32)
@@ -466,10 +575,13 @@ def phase_kernels(seed: int, pg) -> dict:
     ff_cases, ff_t = kernel_fused_frontier(rng, Np)
     fe_cases, fe_t = kernel_frontier_expand(rng, Np)
     lh_cases, lh_t, lh_whole = kernel_label_histogram(rng, pg)
-    emit("kernels", node_pad=Np, fused_frontier_cases=ff_cases,
-         frontier_expand_cases=fe_cases,
-         label_histogram_cases=[c for c in lh_cases if c["case"] != "sweep"],
-         label_histogram_sweep_checked=sum(c["case"] == "sweep" for c in lh_cases),
+    floor = launch_floor_ms()
+    emit("kernels", node_pad=Np, launch_floor_ms=floor,
+         fused_frontier_cases=ff_cases, frontier_expand_cases=fe_cases,
+         label_histogram_cases=[c for c in lh_cases
+                                if c["case"] in ("partition", "graph", "two_streams",
+                                                 "graph_replay")],
+         label_histogram_cases_checked=len(lh_cases),
          fused_frontier=ff_t, frontier_expand=fe_t, label_histogram=lh_t,
          label_histogram_whole_graph=lh_whole)
     return {"fused_frontier": ff_t, "frontier_expand": fe_t, "label_histogram": lh_t}

@@ -12,16 +12,25 @@
 //
 // The Pallas kernel gathers one (1, W) block of each table per grid step
 // through a scalar-prefetch index map and pads W to 128 lanes; both are TPU
-// layout and do not carry over.  Here one thread handles one candidate
-// (i, w) over a flat grid of EB*W threads: threads of one binding read the
-// same table row at consecutive w, so those reads coalesce, and the
-// per-binding scalars are broadcast reads that the L1 serves.
+// layout and do not carry over.  Here one warp handles one binding:
+//  * First load: lane k brings one per-binding value -- the 8 pint
+//    columns, pflt, lidx, then the Q row values (a loop takes the rows
+//    past lane 31) -- so each is read once, not once per candidate.
+//  * Broadcast: the scalars reach every lane by __shfl_sync; the row is
+//    staged in the warp's slice of shared memory behind __syncwarp(), so
+//    frontier::edge_match keeps taking a pointer.  No block barrier.
+//  * Candidates: lane w takes slot w of the binding's table row and loops
+//    in strides of 32 when W > 32, so each table read coalesces.
+//  * Grid: WARPS = 4 bindings a block, 128 blocks at EB = 512, about one
+//    block per SM of 132.
 //
-// What bounds it on Hopper: bytes, and at the main path's shape launch
-// time.  One call reads six [W] table rows per binding plus its 8 packed
-// scalars, its value and its [Q] row, and writes a byte mask and an int32
-// array of [EB, W]: about 0.33 MB at EB=512, W=20, Q=8, a tenth of a
-// microsecond at HBM rate, so a launch costs more than its traffic.
+// What bounds it on Hopper: at the main path's shape, latency.  One call
+// reads six [W] table rows per binding plus its 8 packed scalars, its
+// value, its lidx and its [Q] row, and writes a byte mask and an int32
+// array of [EB, W]: 333,824 B at EB=512, W=20, Q=8, 0.0996 us at 3.35
+// TB/s.  Two dependent DRAM latencies (lidx, then the table row it names;
+// the outputs follow) and the launch come to more than a microsecond, so
+// the launch floor, not the byte bound, is what the kernel can approach.
 //
 // The kernel allocates nothing and does not synchronise; the launcher runs
 // it on the caller's stream and returns cudaGetLastError().
@@ -39,8 +48,12 @@ using namespace frontier;
 // m & (step < n_steps), so n_steps never enters the kernel
 constexpr int P_EL = 0, P_DIR = 1, P_DLAB = 2, P_DOP = 3, P_DST = 4,
               P_CLOSES = 5, P_STEP = 6, P_ACTIVE = 7, N_PINT = 8;
+// the first load's lanes: pint columns, then pflt, lidx and the row
+constexpr int L_PFLT = N_PINT, L_LIDX = N_PINT + 1, L_ROW = N_PINT + 2;
+constexpr int WARPS = 4;  // bindings per block
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void frontier_expand_kernel(
+__global__ void __launch_bounds__(WARPS * 32) frontier_expand_kernel(
     const int32_t* __restrict__ lidx, const int32_t* __restrict__ pint,
     const float* __restrict__ pflt, const int32_t* __restrict__ rows,
     const int32_t* __restrict__ ell_dst, const int32_t* __restrict__ ell_label,
@@ -48,22 +61,45 @@ __global__ void frontier_expand_kernel(
     const float* __restrict__ ell_dval, const int32_t* __restrict__ ell_dgid,
     uint8_t* __restrict__ ok_out, int32_t* __restrict__ dg_out, int n_bind,
     int W, int Q) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)n_bind * W) return;
-  const int i = (int)(t / W);
-  const int w = (int)(t - (int64_t)i * W);
+  extern __shared__ int32_t s_rows[];  // [WARPS][Q]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * WARPS + warp;
+  if (i >= n_bind) return;  // the whole warp leaves together
+  int32_t* r = s_rows + warp * Q;
+  const int32_t* row = rows + (int64_t)i * Q;
 
-  const int32_t* p = pint + (int64_t)i * N_PINT;
-  const StepParams sp{p[P_EL],     p[P_DIR],    p[P_DLAB],  p[P_DOP],
-                      p[P_DST],    p[P_CLOSES], p[P_ACTIVE], pflt[i]};
+  int v = 0;
+  if (lane < N_PINT) {
+    v = pint[(int64_t)i * N_PINT + lane];
+  } else if (lane == L_PFLT) {
+    v = __float_as_int(pflt[i]);
+  } else if (lane == L_LIDX) {
+    v = lidx[i];
+  } else if (lane - L_ROW < Q) {
+    v = row[lane - L_ROW];
+    r[lane - L_ROW] = v;
+  }
+  for (int q = 32 - L_ROW + lane; q < Q; q += 32) r[q] = row[q];
+  __syncwarp();
 
+  const StepParams sp{__shfl_sync(FULL, v, P_EL),
+                      __shfl_sync(FULL, v, P_DIR),
+                      __shfl_sync(FULL, v, P_DLAB),
+                      __shfl_sync(FULL, v, P_DOP),
+                      __shfl_sync(FULL, v, P_DST),
+                      __shfl_sync(FULL, v, P_CLOSES),
+                      __shfl_sync(FULL, v, P_ACTIVE),
+                      __int_as_float(__shfl_sync(FULL, v, L_PFLT))};
   // the wrapper clips lidx into [0, Np)
-  const int64_t e = (int64_t)lidx[i] * W + w;
-  const Candidate c{ell_dst[e], ell_label[e], ell_dir[e],
-                    ell_dlab[e], ell_dgid[e], ell_dval[e]};
-
-  ok_out[t] = edge_match(sp, c, rows + (int64_t)i * Q, Q);
-  dg_out[t] = c.dg;
+  const int64_t base = (int64_t)__shfl_sync(FULL, v, L_LIDX) * W;
+  const int64_t out = (int64_t)i * W;
+  for (int w = lane; w < W; w += 32) {
+    const int64_t e = base + w;
+    const Candidate c{ell_dst[e], ell_label[e], ell_dir[e],
+                      ell_dlab[e], ell_dgid[e], ell_dval[e]};
+    ok_out[out + w] = edge_match(sp, c, r, Q);
+    dg_out[out + w] = c.dg;
+  }
 }
 
 }  // namespace
@@ -73,12 +109,11 @@ extern "C" int frontier_expand_launch(
     const void* ell_dst, const void* ell_label, const void* ell_dir,
     const void* ell_dlab, const void* ell_dval, const void* ell_dgid, void* ok,
     void* dg, int n_bind, int W, int Q, void* stream) {
-  const int64_t n = (int64_t)n_bind * W;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  frontier_expand_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
+  if ((int64_t)n_bind * W == 0) return 0;
+  const size_t smem = (size_t)WARPS * Q * sizeof(int32_t);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n_bind + WARPS - 1) / WARPS);
+  frontier_expand_kernel<<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const int32_t*)lidx, (const int32_t*)pint, (const float*)pflt,
       (const int32_t*)rows, (const int32_t*)ell_dst,
       (const int32_t*)ell_label, (const int32_t*)ell_dir,

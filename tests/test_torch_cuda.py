@@ -85,3 +85,54 @@ def test_cuda_label_histogram_matches_plain():
                 want = lh.label_histogram_plain(*args, label, op, 0.1)
                 assert got.dtype == torch.int32 and got.dim() == 0
                 assert int(got) == int(want), (n, label, op)
+
+
+@pytest.mark.cuda
+def test_cuda_label_histogram_offset_views_and_tails():
+    """Views at offsets 1-3 (every pointer misaligned: the scalar path) and
+    at 0 (the 16-byte path), each at n % 4 = 0-3, exact."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    for n in (0, 3000, 294_400):
+        for off, tail, args in chip_smoke.histogram_views(rng, n):
+            assert lh.use_vector_loads(*args) == (off == 0 or n + tail == 0)
+            for label, op, value in chip_smoke.HISTOGRAM_PROBES:
+                got = lh.label_histogram_cuda(*args, label, op, value)
+                want = lh.label_histogram_plain(*args, label, op, value)
+                assert int(got) == int(want), (n, off, tail, label, op)
+
+
+@pytest.mark.cuda
+def test_cuda_label_histogram_two_streams_and_graph_replay():
+    """Two streams at once draw from separate tickets; a captured CUDA graph
+    whose stream's scratch is made inside the capture gives exact counts
+    on every replay, and eager calls on that stream after it do too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    mis = tuple(a[1:] for a in chip_smoke.histogram_case(rng, 294_401))
+    big = chip_smoke.histogram_case(rng, 294_400)
+    streamed = chip_smoke.histogram_two_streams([(mis, 1, 5, 0.1), (big, -1, 0, 0.0)])
+    assert len(streamed) == 40
+    assert all(got == want for _, got, want in streamed), streamed
+    replayed = chip_smoke.histogram_graph_replay(
+        [(mis, 1, 5, 0.1), (big, 2, 3, -0.2),
+         (chip_smoke.histogram_case(rng, 1025), -1, 0, 0.0)])
+    assert len(replayed) == 6 * 3
+    assert all(got == want for *_, got, want in replayed), replayed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("EB,W,Q,Np", chip_smoke.EXPAND_WARP_CASES)
+def test_cuda_frontier_expand_across_the_warp_width(EB, W, Q, Np):
+    """A warp per binding: W on each side of 32 and W = 130 (lanes loop),
+    Q = 1 and 8, bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(W * 10 + Q)
+    args = chip_smoke.expand_args(chip_smoke.engine_case(rng, EB, W, Q, Np, V=1000))
+    got = fe.frontier_expand_cuda(*args)
+    torch.cuda.synchronize()
+    rec = chip_smoke.compare_expand(got, fe.frontier_expand_plain(*args), args)
+    assert rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0, rec

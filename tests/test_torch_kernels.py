@@ -612,3 +612,64 @@ def test_library_name_hashes_shared_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build._lib_path(n) for n in build.kernel_names()}
     assert all(before[n] != after[n] for n in before)
+
+
+def _offset_histogram(offset, tail, seed):
+    """Views at ``offset`` into longer arrays, of 2048 + ``tail`` nodes:
+    misaligned for the 16-byte loads unless offset % 4 == 0, with an
+    n % 4 tail."""
+    n = 2048 + tail
+    lab, val, core = _histogram_case(n + 4, seed)
+    return tuple(a[offset:offset + n] for a in (lab, val, core))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("tail", [1, 2, 3])
+def test_label_histogram_offset_views_and_tails(offset, tail):
+    """Offset views ([1:], [2:], [3:]) and n % 4 tails against the Pallas
+    kernel in interpret mode and the gather-based oracle."""
+    lab, val, core = _offset_histogram(offset, tail, 10 * offset + tail)
+    t = torch.from_numpy
+    lab_t, val_t, core_t = (t(np.ascontiguousarray(a)) for a in (lab, val, core))
+    # a torch view at the same offset is the kernel's real input
+    full = [t(np.concatenate([np.zeros(offset, a.dtype), a])) for a in (lab, val, core)]
+    views = [f[offset:] for f in full]
+    assert all(v.is_contiguous() for v in views)
+    value = float(np.nanmedian(val))
+    for label, op in ((-1, 0), (1, 3), (2, 6), (9, 1), (0, 2)):
+        got = ops.label_histogram(*views, label, op, value)
+        want = _jax_label_histogram(lab, val, core, np.int32(label),
+                                    np.int32(op), np.float32(value))
+        oracle = ref.label_histogram_ref(lab_t, val_t, core_t == 1, label, op,
+                                         value)
+        assert got.dtype == torch.int32 and got.dim() == 0
+        assert int(got) == int(want) == int(oracle), (offset, tail, label, op)
+    assert not lh._SCRATCH          # CPU tensors make no kernel scratch
+
+
+def test_use_vector_loads_needs_every_pointer_aligned():
+    base = [torch.zeros(64, dtype=dt) for dt in (torch.int32, torch.float32,
+                                                 torch.int32)]
+    assert all(b.data_ptr() % lh.VECTOR_BYTES == 0 for b in base)
+    assert lh.use_vector_loads(*base)
+    for k in (1, 2, 3):
+        assert not lh.use_vector_loads(*[b[k:] for b in base])
+        mixed = list(base)
+        mixed[k - 1] = base[k - 1][k:]
+        assert not lh.use_vector_loads(*mixed), k
+    assert lh.use_vector_loads(*[b[4:] for b in base])   # 16 bytes in
+    assert lh.use_vector_loads(*[b[8:12] for b in base])
+
+
+@pytest.mark.parametrize("W", [31, 32, 33])
+@pytest.mark.parametrize("Q", [1, 8])
+def test_frontier_expand_across_the_warp_width(W, Q):
+    """W on each side of one warp (the kernel's lane-per-slot loop) and Q
+    from one slot to the main path's 8, against the JAX adapter in
+    interpret mode."""
+    def open_steps(plan):        # every other step binds a fresh slot
+        return dataclasses.replace(plan, closes_cycle=np.arange(6, dtype=np.int32) % 2)
+    c = _case(100 * W + Q, 32, W, Q, 16, m=np.ones(32, bool), plan_fn=open_steps)
+    got = _port_expand(c)
+    _assert_expand_equal(got, _jax_expand(c), c)
+    assert got[0].any()
