@@ -14,8 +14,9 @@ Phases, each printing one JSON line:
                440,000 nodes, 1,240,000 edges), k=4, kway_shem
   kernels      each kernel against its plain PyTorch version on the card
                (bit-equal), on the test sweep, an empty frontier, NaN values
-               and the main path's shapes (the frontier step at one lane and
-               at two lanes over stacked partitions; frontier_expand at W on
+               and the main path's shapes (the frontier step at one lane, at
+               two lanes over stacked partitions, and at MapReduceMP's four
+               lanes over the path's work-buffer length; frontier_expand at W on
                each side of a warp; label_histogram on misaligned views,
                n % 4 tails, two streams at once and a replayed CUDA graph);
                each timed three ways (CUDA-graph replay, per call through
@@ -24,7 +25,10 @@ Phases, each printing one JSON line:
                selections of distinct table rows
   small        a small graph served on the card and on the CPU (plain
                versions): identical answers, loads and iterations for OPAT
-               and TraditionalMP submits and for submit_many on both
+               and TraditionalMP submits and for submit_many on both; for
+               MapReduceMP identical answers, iterations and yield
+               counters, exhaustive, under K=5 and gated to m_limit=2
+               under MAX-YIELD
   path         the main path: one in-RAM GraphSession with the OPAT engine,
                the three subgen queries and Q4 again under an answer budget,
                each checked against the whole-graph oracle; fused_frontier
@@ -41,14 +45,25 @@ Phases, each printing one JSON line:
                TraditionalMP session: answers equal the per-query results;
                loads per query against the isolated total; launches equal
                the batched loop count
-  profile      Q5 on the OPAT session and on the TraditionalMP session: 12
-               rounds of warm runs on the host clock, alternating which
-               engine goes first (each latency's spread, the rounds
-               TraditionalMP was faster, evaluator loops per query), then
-               one run each under torch.profiler: device busy/idle share,
-               device time by kernel name, host time by op, host kernel
-               launches per evaluator loop; and the peak device memory of
-               an unprofiled warm run (both sessions' resident data in it)
+  mapreduce    GraphSession(engine="mapreduce") on the path's graph (one
+               lane per partition): the same queries and Q4 again warm,
+               checked against the oracle answers of the path phase;
+               fused_frontier launches equal the summed iterations (one
+               launch a iteration for all four lanes); each lane's FAA
+               fill against cap; Q5 gated to m_limit=2 under MAX-YIELD;
+               submit_many of the four queries (the sequential drain)
+               equal to the per-query results
+  cli          ``python -m repro_torch.launch.serve`` in-process at
+               ``--scale 20`` with ``--verify``, for the mapreduce and opat
+               engines: every query MATCH, return code 0
+  profile      Q5 on the OPAT, TraditionalMP and MapReduceMP sessions: 12
+               rounds of warm runs on the host clock, rotating which engine
+               goes first (each latency's spread, the rounds each engine
+               beat OPAT, evaluator loops per query), then one run each
+               under torch.profiler: device busy/idle share, device time by
+               kernel name, host time by op, host kernel launches per
+               evaluator loop; and the peak device memory of an
+               unprofiled warm run (every session's resident data in it)
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  Then a
@@ -316,18 +331,24 @@ def frontier_cases(Np: int) -> list:
 def check_frontier(name, rec, kw) -> None:
     if kw.get("empty"):
         check(rec["n_ok"] == 0, f"{name}: empty frontier matched something: {rec}")
-    if rec["case"] == "paper":
+    if rec["case"] in ("paper", "mapreduce"):
         check(rec["n_ok"] > 0, f"{name}: paper-shape case matched nothing")
+
+
+MR_CAP = 16384      # EngineConfig(cap=...) of the mapreduce phase
 
 
 def step_cases(Np: int) -> list:
     """The sweep (Q = 1, 5, 6, 8; W up to 130) and the main path's shape,
-    each at L = 1 and at L = 2 lanes over two stacked partitions."""
+    each at L = 1 and at L = 2 lanes over two stacked partitions; then
+    MapReduceMP's shape: four lanes over four partitions, each lane's
+    selection drawn from a work buffer of MR_CAP + Np rows."""
     out = []
     for L, P in ((1, 1), (2, 2)):
         out += [(name, (L, EB, W, Q, n), dict(kw, P=P))
                 for name, (EB, W, Q, n), kw in frontier_cases(Np)]
         out.append(("sweep", (L, 8, 9, 1, 24), {"P": P}))
+    out.append(("mapreduce", (4, 512, 20, 8, Np), {"P": 4, "N": MR_CAP + Np}))
     return out
 
 
@@ -373,9 +394,10 @@ def kernel_fused_frontier(rng, Np: int) -> tuple:
     results, worst = [], 0
     for name, (L, EB, W, Q, n), kw in step_cases(Np):
         timed = name == "paper" and L == 1
-        V = 440_000 if name.startswith("paper") else max(1000, 2 * n)
-        inv, args = step_case(rng, L, EB, W, Q, n, V=V,
-                              N=STEP_SETS * EB if timed else None, **kw)
+        V = 440_000 if name in ("paper", "paper_empty", "mapreduce") else max(1000, 2 * n)
+        kw = dict(kw)
+        N = STEP_SETS * EB if timed else kw.pop("N", None)
+        inv, args = step_case(rng, L, EB, W, Q, n, V=V, N=N, **kw)
         out = ff.step_outputs(L, EB, W, Q, "cuda")
         got = ff.frontier_step_cuda(inv, *args, out)
         torch.cuda.synchronize()
@@ -389,6 +411,13 @@ def kernel_fused_frontier(rng, Np: int) -> tuple:
         worst = max(worst, rec["max_abs_err"])
         if timed:
             paper = (inv, args, out)
+        if name == "mapreduce":
+            # the step at MapReduceMP's shape: device time beside its bound
+            nbytes, _, nops = step_bytes_ops(inv, args, got)
+            lanes4 = {"ms": graph_time_ms(lambda: ff.frontier_step_cuda(inv, *args, out)),
+                      "bytes": nbytes, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                       nops / FP32_OPS_PER_S) * 1e3}
+            del inv, args, out, got
     inv, args, out = paper
     nbytes, parts, nops = step_bytes_ops(inv, args, out)
     wr, ws, lidx, sel, m = args
@@ -406,6 +435,7 @@ def kernel_fused_frontier(rng, Np: int) -> tuple:
     timing["ms_one_set"] = graph_time_ms(lambda: ff.frontier_step_cuda(inv, *args, out))
     timing["bytes_by_part"] = parts
     timing["sets"] = STEP_SETS
+    timing["mapreduce_four_lanes"] = lanes4
     return results, timing
 
 
@@ -600,6 +630,35 @@ def same_results(a, b) -> bool:
             == [r.stats.iterations for r in b.reports])
 
 
+def mapreduce_small(g, qs, dev: str) -> list:
+    """MapReduceMP on ``g`` (k=4) on one device: each query exhaustive and
+    under K=5 through the session's engine (MAX-SN, every lane expands),
+    then gated to m_limit=2 under MAX-YIELD.  Returns one (run, query,
+    answers, n_iterations, completed_from, spawned_from) per run."""
+    from repro_torch.core import (EngineConfig, GraphSession, MapReduceMPEngine,
+                                  generate_plan)
+    sess = GraphSession(g, engine="mapreduce", config=EngineConfig(cap=16384),
+                        device=dev)
+    gated = MapReduceMPEngine(sess.pg, sess.config, m_limit=2,
+                              heuristic="max-yield", store=sess.store)
+    out = []
+    for dq in qs:
+        plan = generate_plan(dq.disjuncts[0], g, sess.catalog)
+        for run, eng, K in (("all", sess.engine, None), ("K5", sess.engine, 5),
+                            ("m2_max-yield", gated, None)):
+            r = eng.run(plan, max_answers=K)
+            out.append((run, dq.name, r.answers, r.n_iterations,
+                        r.completed_from.tolist(), r.spawned_from.tolist()))
+    return out
+
+
+def same_mapreduce(a, b) -> bool:
+    """Two ``mapreduce_small`` runs agree on every field, answers bit for bit."""
+    return len(a) == len(b) and all(
+        x[:2] == y[:2] and np.array_equal(x[2], y[2]) and x[3:] == y[3:]
+        for x, y in zip(a, b))
+
+
 def phase_small(seed: int) -> None:
     from repro_torch.core import EngineConfig, GraphSession
     from repro_torch.data.generators import subgen_like_graph, subgen_queries
@@ -626,6 +685,12 @@ def phase_small(seed: int) -> None:
               f"{engine} submit_many: card and CPU runs differ")
         out.append({"engine": engine, "submit_many_loads": ar.loads,
                     "batch_sizes": ar.batch_sizes})
+    mr = {dev: mapreduce_small(g, qs, dev) for dev in ("cuda", "cpu")}
+    check(same_mapreduce(mr["cuda"], mr["cpu"]), "mapreduce: card and CPU runs differ")
+    out += [{"engine": "mapreduce", "run": run, "query": name,
+             "n_answers": int(ans.shape[0]), "n_iterations": it,
+             "completed_from": comp, "spawned_from": spawn}
+            for run, name, ans, it, comp, spawn in mr["cuda"]]
     emit("small", nodes=g.n_nodes, edges=g.n_edges, queries=out)
 
 
@@ -871,27 +936,143 @@ def phase_shared(sessions, oracle, isolated) -> None:
     emit("shared", **out)
 
 
+def phase_mapreduce(pg, oracle) -> tuple:
+    """MapReduceMP on the path's graph: the path's runs and Q4 again
+    (warm), the gated Q5 and the sequential drain, every answer checked
+    against the path phase's oracle."""
+    from repro_torch.core import (EngineConfig, GraphSession, MapReduceMPEngine,
+                                  generate_plan)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    cfg = EngineConfig(cap=MR_CAP)
+    sess = GraphSession(pg=pg, engine="mapreduce", heuristic="max-sn",
+                        config=cfg, device="cuda")
+    dqs, runs = path_runs(pg)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()    # the earlier sessions' data
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    it0 = sess.engine.batched_iters
+    served = serve(sess, runs + [(dqs[0], None)])
+    launches = build.LAUNCHES[NAME]
+    iters = sum(res.reports[0].extra["n_iterations"] for _, _, res, _ in served)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches > 0, "the mapreduce path launched no fused_frontier kernel")
+    check(iters == sess.engine.batched_iters - it0,
+          f"mapreduce: summed n_iterations {iters} != engine count")
+    check(launches == iters,
+          f"mapreduce: fused_frontier launches {launches} != summed iterations {iters}")
+    queries = []
+    for dq, budget, res, lat in served:
+        check(verify(res, oracle[dq.name], budget),
+              f"mapreduce {dq.name} (budget {budget}) disagrees with the oracle")
+        extra = res.reports[0].extra
+        rec = query_record(dq, budget, res, lat, oracle[dq.name])
+        # with no overflow each lane's completed rows are its FAA fill
+        rec.update(faa_fill=extra["completed_from"].tolist(), faa_cap=cfg.cap,
+                   spawned_from=extra["spawned_from"].tolist())
+        queries.append(rec)
+
+    # Q5 with two of the four mappers expanding per iteration, MAX-YIELD
+    q5 = dqs[1]
+    gated = MapReduceMPEngine(pg, cfg, m_limit=2, heuristic="max-yield",
+                              store=sess.store)
+    build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = gated.run(generate_plan(q5.disjuncts[0], pg.graph, sess.catalog))
+    torch.cuda.synchronize()
+    gated_rec = {"query": q5.name, "m_limit": 2, "heuristic": "max-yield",
+                 "latency_s": time.perf_counter() - t0,
+                 "n_iterations": res.n_iterations, "n_answers": int(res.answers.shape[0]),
+                 "completed_from": res.completed_from.tolist(),
+                 "spawned_from": res.spawned_from.tolist(),
+                 "fused_frontier_launches": build.LAUNCHES[NAME]}
+    check(np.array_equal(res.answers, oracle[q5.name]),
+          "mapreduce m_limit=2 max-yield Q5 disagrees with the oracle")
+    check(gated_rec["fused_frontier_launches"] == res.n_iterations,
+          f"gated mapreduce: launches != iterations: {gated_rec}")
+
+    # submit_many drains the same runs one query at a time
+    budgets = [b for _, b in runs]
+    build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    report = sess.submit_many([dq for dq, _ in runs], max_answers=budgets)
+    torch.cuda.synchronize()
+    drain_wall = time.perf_counter() - t0
+    drain_iters = sum(r.reports[0].extra["n_iterations"] for r in report.results)
+    for r, (dq, budget, single, _) in zip(report.results, served):
+        check(np.array_equal(r.answers, single.answers)
+              and r.reports[0].extra["n_iterations"]
+              == single.reports[0].extra["n_iterations"],
+              f"mapreduce submit_many {dq.name} differs from its submit")
+    check(build.LAUNCHES[NAME] == drain_iters,
+          f"mapreduce submit_many: launches {build.LAUNCHES[NAME]} != iterations {drain_iters}")
+    emit("mapreduce", P=pg.k, cap=cfg.cap, quota=sess.engine.quota,
+         fused_frontier_launches=launches, iterations=iters,
+         cold_latency_s=served[0][3], warm_latency_s=served[-1][3],
+         max_memory_allocated=peak, resident_before_bytes=resident,
+         queries=queries, gated=gated_rec,
+         submit_many={"wall_s": drain_wall, "shared": report.shared,
+                      "iterations": drain_iters,
+                      "fused_frontier_launches": build.LAUNCHES[NAME],
+                      "cold_loads": report.load_stats.cold_loads,
+                      "warm_loads": report.load_stats.warm_loads})
+    return launches, sess
+
+
+def phase_cli() -> None:
+    """The port's serving CLI in this process, as a user runs it."""
+    import contextlib
+    import io
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+    from repro_torch.launch import serve as cli
+
+    out = {}
+    for engine in ("mapreduce", "opat"):
+        text = io.StringIO()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["--dataset", "synthetic", "--scale", "20",
+                           "--engine", engine, "--verify"])
+        lines = text.getvalue().splitlines()
+        verdicts = [ln.split()[-1] for ln in lines if "oracle:" in ln]
+        check(rc == 0 and len(verdicts) == 3 and set(verdicts) == {"MATCH"},
+              f"cli --engine {engine}: rc {rc}, verdicts {verdicts}: {lines[-8:]}")
+        check(build.LAUNCHES[NAME] > 0, f"cli --engine {engine} launched no kernel")
+        out[engine] = {"rc": rc, "verdicts": verdicts,
+                       "seconds": time.perf_counter() - t0,
+                       "fused_frontier_launches": build.LAUNCHES[NAME],
+                       "output": lines}
+    emit("cli", scale=20, **out)
+
+
 def engine_loops(engine) -> int:
     """Evaluator loops the engine has run: single-partition and batched."""
     return getattr(engine, "inner_iters", 0) + engine.batched_iters
 
 
-def warm_pairs(sessions, dq, rounds: int = 12) -> dict:
+def warm_rounds(sessions, dq, rounds: int = 12) -> dict:
     """Warm latency of one query on each session, on the host clock, in
-    ``rounds`` rounds that alternate which session goes first (the spread
-    of each, and how many rounds the second session was the faster)."""
+    ``rounds`` rounds that rotate which session goes first (the spread of
+    each, and how many rounds each later session beat the first)."""
     names = list(sessions)
     lat = {n: [] for n in names}
     loops0 = {n: engine_loops(s.engine) for n, s in sessions.items()}
     for r in range(rounds):
-        for n in (names if r % 2 == 0 else names[::-1]):
+        k = r % len(names)
+        for n in names[k:] + names[:k]:
             lat[n] += [t for *_, t in serve(sessions[n], [(dq, None)])]
     out = {n: {"warm_latency_s": v, "median_s": float(np.median(v)),
                "quartiles_s": [float(q) for q in np.percentile(v, [25, 75])],
                "loops_per_query": (engine_loops(sessions[n].engine) - loops0[n]) // rounds}
            for n, v in lat.items()}
-    first, second = names
-    out[f"rounds_{second}_faster"] = sum(b < a for a, b in zip(lat[first], lat[second]))
+    first = names[0]
+    for n in names[1:]:
+        out[f"rounds_{n}_faster"] = sum(b < a for a, b in zip(lat[first], lat[n]))
     out["rounds"] = rounds
     return out
 
@@ -910,6 +1091,7 @@ def profile_query(sess, dq, engine: str) -> dict:
     out = ROOT / "chiprun_out" / f"profile_{engine}_{dq.name}.json"
     out.parent.mkdir(exist_ok=True)
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     sess.submit(dq)
     torch.cuda.synchronize()
@@ -931,6 +1113,15 @@ def profile_query(sess, dq, engine: str) -> dict:
         d = by_name.setdefault(e["name"][:90], [0.0, 0])
         d[0] += e["dur"] / 1e3
         d[1] += 1
+    # device time of the kernels inside each annotated range of the loop
+    # (MapReduceMP's "mapreduce.map" and "mapreduce.shuffle")
+    ranges: dict = {}
+    for a in events:
+        if a.get("cat") == "gpu_user_annotation" and a.get("ph") == "X":
+            r = ranges.setdefault(a["name"], {"calls": 0, "device_ms": 0.0})
+            r["calls"] += 1
+            r["device_ms"] += sum(e["dur"] for e in dev if a["ts"] <= e["ts"]
+                                  and e["ts"] + e["dur"] <= a["ts"] + a["dur"]) / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
     busy_us, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -951,7 +1142,8 @@ def profile_query(sess, dq, engine: str) -> dict:
          loops=loops, host_kernel_launches=launches,
          host_launches_per_loop=launches / max(loops, 1),
          device_kernels=kernels, device_kernels_per_loop=kernels / max(loops, 1),
-         max_memory_allocated=peak,
+         max_memory_allocated=peak, resident_before_bytes=resident,
+         device_ms_by_range=ranges,
          fused_frontier_ms=sum(v[0] for v in ours),
          fused_frontier_count=sum(v[1] for v in ours),
          kernels_by_device_time=[{"name": n, "ms": v[0], "count": v[1]}
@@ -961,7 +1153,7 @@ def profile_query(sess, dq, engine: str) -> dict:
 
 
 def phase_profile(sessions, dq) -> None:
-    emit("profile", warm=warm_pairs(sessions, dq),
+    emit("profile", warm=warm_rounds(sessions, dq),
          **{name: profile_query(sess, dq, name) for name, sess in sessions.items()})
 
 
@@ -1000,10 +1192,16 @@ def main() -> int:
     tsess, tserved = phase_traditional(pg, oracle)
     sessions = {"opat": sess, "traditional": tsess}
     phase_shared(sessions, oracle, {"opat": served, "traditional": tserved})
-    phase_profile(sessions, served[1][0])
+    mlaunches, msess = phase_mapreduce(pg, oracle)
+    phase_cli()
+    phase_profile({**sessions, "mapreduce": msess}, served[1][0])
 
+    # the step's launches on each engine's serving path (path, traditional,
+    # mapreduce), each counted from 0 in its own phase
+    step_launches = (launches + RECORD["traditional"]["fused_frontier_launches"]
+                     + mlaunches)
     sources = {
-        "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", launches),
+        "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", step_launches),
         "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",
                             sni["frontier_expand"]),
         "label_histogram": ("src/repro/kernels/label_histogram.py:23",

@@ -9,11 +9,14 @@ Public API of this slice:
   EngineConfig / make_partition_evaluator — the evaluator (core/engine.py)
   OPATEngine                           — One Partition At a Time serving
   TraditionalMPEngine                  — p partitions per iteration (Sec. 8)
+  MapReduceMPEngine                    — map/shuffle/reduce (Sec. 9), P lanes
+                                         of one device
   QueryScheduler / ScheduleReport      — shared-load multi-query serving
   PartitionStore / LoadStats           — device residency: LRU cache,
                                          pins, side-stream prefetch
   GraphSession / QueryResult           — in-RAM serving session (OPAT,
-                                         TraditionalMP; submit_many)
+                                         TraditionalMP, MapReduceMP;
+                                         submit_many, workload profile)
   oracle.match_query                   — whole-graph ground truth
 """
 from .catalog import Catalog, build_catalog
@@ -24,6 +27,7 @@ from .graph import (Graph, GraphBuilder, LabelVocab, PartitionArrays,
 from .heuristics import (ALL_HEURISTICS, MAX_SN, MAX_YIELD, MAX_YIELD_SHARED,
                          MIN_SN, RANDOM_SN, SHARED_HEURISTICS, rank_partitions,
                          rank_partitions_shared)
+from .mapreduce_mp import MapReduceMPEngine, MapReduceMPResult
 from .metrics import RunStats, l_ideal_for_plan
 from .opat import OPATEngine, OPATResult, absorb_eval_outputs
 from .oracle import match_disjunctive, match_query
@@ -55,6 +59,7 @@ __all__ = [
     "QueryRunner", "RunReport", "RunRequest", "truncate_answers",
     "QueryScheduler", "ScheduleReport", "batch_bucket",
     "TraditionalMPEngine", "TraditionalMPResult",
+    "MapReduceMPEngine", "MapReduceMPResult",
     "GraphSession", "QueryResult", "BindingBatch", "QueryState",
     "LoadStats", "PartitionStore", "StoreEntry",
 ]

@@ -42,10 +42,13 @@ is the store's exact delta over one ``run()``, and each
 ``QueryResult.load_stats`` is that query's participation view — the sum
 of the per-load-event deltas for loads its plans took part in.
 
+MapReduceMP has no host partition loop to share: its jobs drain one
+query at a time (``_run_sequential``), with answers, budgets and
+per-query ``LoadStats`` deltas identical to sequential ``submit``.
+
 The JAX package's generation pin (mutable on-disk graphs) and profiler
 hooks are not ported: in-RAM sessions have no generations.  Nor is the
 SLO front end's per-query urgency, which comes with the front end.
-MapReduceMP's sequential drain waits for that engine's port.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from .metrics import RunStats, l_ideal_for_plan
 from .opat import OPATEngine, absorb_eval_outputs, lane_outputs
 from .plan import Plan, PlanArrays, generate_plan
 from .query import DisjunctiveQuery, Query
-from .runner import RunReport, truncate_answers
+from .runner import RunReport, RunRequest, truncate_answers
 from .session import QueryResult
 from .state import BindingBatch, QueryState
 from .store import LoadStats
@@ -89,6 +92,7 @@ class _Job:
     load_stats: LoadStats = dataclasses.field(default_factory=LoadStats)
     rounds_waiting: int = 0              # consecutive rounds passed over
                                          # (the fairness aging signal)
+    report: Optional[RunReport] = None   # sequential drain: engine-built
 
 
 @dataclasses.dataclass
@@ -154,10 +158,6 @@ class QueryScheduler:
             raise ValueError(f"fairness_gamma must be >= 0, "
                              f"got {fairness_gamma}")
         engine = session.engine
-        if not isinstance(engine, (OPATEngine, TraditionalMPEngine)):
-            raise NotImplementedError(
-                f"the scheduler serves the opat and traditional engines, "
-                f"not {session.engine_name!r}")
         self.session = session
         self.fairness_gamma = float(fairness_gamma)
         self.pg = session.pg
@@ -224,22 +224,26 @@ class QueryScheduler:
         """Serve every pending job to retirement and return the round's
         report.  Re-entrant: queries admitted after a ``run()`` are served
         (and reported) by the next one.  ``max_rounds`` bounds this call
-        to that many load rounds, leaving the rest pending; None drains
-        everything."""
+        to that many load rounds (whole queries on the sequential drain),
+        leaving the rest pending; None drains everything."""
         t0 = time.time()
         stats0 = self.store.stats.copy()
         loads0, batches0 = len(self.loads), len(self.batch_sizes)
-        if isinstance(self.session.engine, OPATEngine):
+        engine = self.session.engine
+        shared = isinstance(engine, (OPATEngine, TraditionalMPEngine))
+        if isinstance(engine, OPATEngine):
             self._run_shared(max_rounds)
-        else:
+        elif isinstance(engine, TraditionalMPEngine):
             self._run_shared_tmp(max_rounds)
+        else:
+            self._run_sequential(max_rounds)
         return ScheduleReport(
             results=self._collect_results(t0),
             loads=self.loads[loads0:],
             batch_sizes=self.batch_sizes[batches0:],
             load_stats=self.store.stats - stats0,
             wall_s=time.time() - t0,
-            shared=True)
+            shared=shared)
 
     def _ranked(self, waiters: Dict[int, List[_Job]],
                 rng: np.random.Generator) -> List[int]:
@@ -447,6 +451,33 @@ class QueryScheduler:
                         f"raise EngineConfig.cap (currently {cfg.cap})")
                 absorb_eval_outputs(j.state, pid, self.pg.k, *rest)
 
+    def _run_sequential(self, max_rounds: Optional[int] = None) -> None:
+        """Engines with no host partition loop to share (MapReduceMP) run a
+        whole query per call, so their jobs drain one query at a time.
+        ``max_rounds`` bounds the number of QUERIES served this call."""
+        session = self.session
+        served = 0
+        for rec in self._admitted.values():
+            if rec.finished_at is not None:
+                continue
+            if max_rounds is not None and served >= max_rounds:
+                break
+            served += 1
+            ev0 = self.store.stats.copy()
+            for j in rec.jobs:
+                jv0 = self.store.stats.copy()
+                rep = session.engine.run_request(RunRequest(
+                    plan=j.plan, heuristic=session.heuristic,
+                    max_answers=j.max_answers, seed=self.seed))
+                j.retired = True
+                j.report = rep
+                j.load_stats = j.load_stats + (self.store.stats - jv0)
+                self.loads.extend(rep.stats.loads)
+                self.batch_sizes.extend([1] * len(rep.stats.loads))
+            rec.load_stats = rec.load_stats + (self.store.stats - ev0)
+            rec.finished_at = time.time()
+            rec.finished_perf = time.perf_counter()
+
     # -- retirement and the waiter index -----------------------------------
 
     def _waiters(self) -> Dict[int, List[_Job]]:
@@ -500,30 +531,33 @@ class QueryScheduler:
             reports: List[RunReport] = []
             answers: Optional[np.ndarray] = None
             for j in rec.jobs:
-                a = truncate_answers(j.state.unique_answers(), j.max_answers)
-                delta = j.load_stats
-                rep = RunReport(
-                    answers=a,
-                    stats=RunStats(
-                        query=j.plan.query.name, scheme=self.pg.scheme,
-                        heuristic=self.heuristic,
-                        loads=list(j.state.loads),
-                        l_ideal=l_ideal_for_plan(self.pg, j.plan),
-                        n_answers=int(a.shape[0]),
-                        iterations=j.state.iterations,
-                        answers_requested=j.max_answers,
-                        cold_loads=delta.cold_loads,
-                        warm_loads=delta.warm_loads,
-                        prefetch_hits=delta.prefetch_hits,
-                        disk_reads=delta.disk_reads,
-                        read_ahead_hits=delta.read_ahead_hits,
-                        bytes_cold=delta.bytes_cold,
-                        bytes_prefetched=delta.bytes_prefetched,
-                        bytes_disk=delta.bytes_disk,
-                        bytes_host=delta.bytes_host),
-                    engine=self.session.engine_name,
-                    extra={"state": j.state})
+                rep = j.report
+                if rep is None:          # shared path: build from job state
+                    a = truncate_answers(j.state.unique_answers(), j.max_answers)
+                    delta = j.load_stats
+                    rep = RunReport(
+                        answers=a,
+                        stats=RunStats(
+                            query=j.plan.query.name, scheme=self.pg.scheme,
+                            heuristic=self.heuristic,
+                            loads=list(j.state.loads),
+                            l_ideal=l_ideal_for_plan(self.pg, j.plan),
+                            n_answers=int(a.shape[0]),
+                            iterations=j.state.iterations,
+                            answers_requested=j.max_answers,
+                            cold_loads=delta.cold_loads,
+                            warm_loads=delta.warm_loads,
+                            prefetch_hits=delta.prefetch_hits,
+                            disk_reads=delta.disk_reads,
+                            read_ahead_hits=delta.read_ahead_hits,
+                            bytes_cold=delta.bytes_cold,
+                            bytes_prefetched=delta.bytes_prefetched,
+                            bytes_disk=delta.bytes_disk,
+                            bytes_host=delta.bytes_host),
+                        engine=self.session.engine_name,
+                        extra={"state": j.state})
                 reports.append(rep)
+                a = rep.answers
                 answers = a if answers is None else np.unique(
                     np.concatenate([answers, a]), axis=0)
             results.append(QueryResult(

@@ -20,15 +20,17 @@ serves a batch through the shared-load ``QueryScheduler``
 (core/scheduler.py), whose ``ScheduleReport`` holds one ``QueryResult``
 per query.
 
-This session is in RAM and serves the OPAT and TraditionalMP engines;
-MapReduceMP, ``open``/``save``, mutation, repartitioning and the SLO
-front end come with later slices.
+This session is in RAM and serves the OPAT, TraditionalMP and
+MapReduceMP engines, and keeps the per-partition workload profile
+(``workload_profile`` / ``save_profile``); ``open``/``save``, mutation,
+repartitioning and the SLO front end come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ from .catalog import Catalog, build_catalog
 from .engine import EngineConfig, resolve_device
 from .graph import Graph, PartitionedGraph, build_partitions
 from .heuristics import MAX_SN
+from .mapreduce_mp import MapReduceMPEngine
 from .metrics import RunStats
 from .opat import OPATEngine
 from .partition import partition_graph
@@ -81,12 +84,13 @@ class QueryResult:
 class GraphSession:
     """One partitioned graph, one engine, many queries.
 
-    ``engine`` is ``"opat"`` or ``"traditional"`` (with ``processors``
-    partitions per iteration); ``"mapreduce"`` raises
-    ``NotImplementedError``.  ``cache_parts`` / ``cache_bytes`` size the
-    store's LRU device cache (None = unbounded); ``prefetch`` enables
-    OPAT's runner-up staging.  Pass ``pg`` to reuse an existing
-    ``PartitionedGraph``.  ``device=None`` means ``"cuda"``.
+    ``engine`` is ``"opat"``, ``"traditional"`` (with ``processors``
+    partitions per iteration) or ``"mapreduce"`` (one lane per partition
+    on the one device, the session's ``heuristic`` fixed at construction).
+    ``cache_parts`` / ``cache_bytes`` size the store's LRU device cache
+    (None = unbounded); ``prefetch`` enables OPAT's runner-up staging.
+    Pass ``pg`` to reuse an existing ``PartitionedGraph``.  ``device=None``
+    means ``"cuda"``.
     """
 
     def __init__(self, graph: Optional[Graph] = None, *,
@@ -106,9 +110,6 @@ class GraphSession:
                  device: Union[None, str, torch.device] = None):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        if engine == "mapreduce":
-            raise NotImplementedError(
-                "engine 'mapreduce' is not ported yet; use 'opat' or 'traditional'")
         self.device = resolve_device(device)
         if pg is None:
             if graph is None:
@@ -140,9 +141,16 @@ class GraphSession:
         if self.engine_name == "opat":
             self.engine = OPATEngine(pg, self.config, store=self.store,
                                      prefetch=self._prefetch, tracer=self.tracer)
-        else:
+        elif self.engine_name == "traditional":
             self.engine = TraditionalMPEngine(pg, self._processors, self.config,
                                               store=self.store, tracer=self.tracer)
+        else:
+            self.engine = MapReduceMPEngine(pg, self.config, heuristic=self.heuristic,
+                                            store=self.store, tracer=self.tracer)
+        # MapReduceMP surfaces per-partition yield counters but has no host
+        # partition loop, so no per-partition load sequence: the profile
+        # says so rather than passing off zeros as load observations
+        self.observes_partition_counters = self.engine_name != "mapreduce"
         self._loads = np.zeros(self.k, dtype=np.int64)
         self._completed = np.zeros(self.k, dtype=np.int64)
         self._spawned = np.zeros(self.k, dtype=np.int64)
@@ -255,6 +263,10 @@ class GraphSession:
             if st is not None:
                 self._completed += st.completed_from
                 self._spawned += st.spawned_from
+            elif rep.extra.get("completed_from") is not None:
+                # MapReduceMP: the lanes' yield counters as [k] arrays
+                self._completed += rep.extra["completed_from"]
+                self._spawned += rep.extra["spawned_from"]
         pairs, span = answer_span_matrix(self.pg.owner, answers, self.k)
         self._cospan += pairs
         spanning = answers[span >= 2]
@@ -272,3 +284,63 @@ class GraphSession:
     def load_stats(self) -> LoadStats:
         """Lifetime store counters (cold/warm/evictions/prefetch)."""
         return self.store.stats
+
+    def workload_profile(self) -> Dict[str, Any]:
+        """Per-partition load/yield/completion-rate profile of everything
+        this session served, the answer-span (co-traversal) matrix, and
+        the assignment it was observed under: what ``serve --json``
+        embeds and what repartitioning consumes.
+        ``partition_counters_observed`` is False for MapReduceMP (yield
+        counters, but no per-partition load sequence)."""
+        partitions = []
+        for p in range(self.k):
+            comp = int(self._completed[p])
+            spawn = int(self._spawned[p])
+            partitions.append({
+                "pid": p,
+                "loads": int(self._loads[p]),
+                "completed": comp,
+                "spawned": spawn,
+                # Laplace-smoothed, matching heuristics.MAX_YIELD
+                "completion_rate": (comp + 1.0) / (comp + spawn + 2.0),
+            })
+        return {
+            "engine": self.engine_name,
+            "scheme": self.scheme,
+            "k": self.k,
+            "heuristic": self.heuristic,
+            "partition_counters_observed": self.observes_partition_counters,
+            "queries_served": self._queries_served,
+            "answers_served": self._answers_served,
+            "partitions": partitions,
+            "answer_spans": {
+                "answers_observed": self._span_rows,
+                "mean_span": (self._span_sum / self._span_rows
+                              if self._span_rows else 0.0),
+                "pair_counts": self._cospan.tolist(),
+                "vertex_span_counts": self._vertex_span.tolist(),
+            },
+            "assignment": self.pg.assignment.astype(int).tolist(),
+            "out_of_core": self.out_of_core,
+            "cache": self.store.stats.to_dict(),
+        }
+
+    def save_profile(self, path: str) -> None:
+        """Persist ``workload_profile()`` as JSON."""
+        with open(path, "w") as f:
+            json.dump(self.workload_profile(), f, indent=2)
+
+    @property
+    def out_of_core(self) -> bool:
+        """In-RAM sessions only: partitions are never disk-resident."""
+        return False
+
+    @property
+    def mutable(self) -> bool:
+        """In-RAM sessions take no graph updates."""
+        return False
+
+    @property
+    def generation(self) -> Optional[int]:
+        """The graph generation served; in-RAM sessions have none."""
+        return None

@@ -1,0 +1,367 @@
+"""End-to-end query-serving CLI of the PyTorch port — a thin client of
+``GraphSession`` (core/session.py).
+
+Generates a graph database and opens one in-RAM ``GraphSession``: the
+session partitions the graph with the chosen scheme, owns the
+``PartitionStore`` (device-resident partitions, LRU capacity via
+``--cache-parts``, OPAT runner-up prefetch) and the engine, then serves
+the query batch through one of the three strategies (OPAT / TraditionalMP
+/ MapReduceMP).  Reported per query: the paper's metrics (partition-load
+sequences, load ratios against L_ideal, answer counts, latency) plus the
+store's cold/warm/prefetch split; the ``--json`` report also carries the
+session's cache counters and per-partition workload profile.
+
+Two serving modes:
+
+  * default — the dataset's query batch, one ``submit`` per query (the
+    paper's one-at-a-time shape);
+  * ``--workload file.jsonl`` — a batch of queries (one JSON query per
+    line, optional per-line ``"max_answers"``) served through
+    ``submit_many`` (core/scheduler.py): overlapping queries share
+    partition loads (OPAT, TraditionalMP; MapReduceMP drains them one
+    query at a time), and the report adds aggregate throughput.
+    ``--emit-workload file.jsonl`` writes the dataset's own queries in
+    that format and exits (``--emit-repeat`` / ``--emit-arrival-spacing-ms``
+    / ``--emit-slo-classes`` synthesize larger workloads; combined with
+    ``--workload`` it round-trips an existing file losslessly).
+
+``--verify`` checks every answer set against the whole-graph oracle and
+prints ``MATCH``/``MISMATCH`` per query; any mismatch ends the run with a
+non-zero exit code.
+
+Every engine runs on one device: ``--device cuda`` (the default; raises
+with no card) or ``--device cpu`` (the kernels' plain versions).
+MapReduceMP runs its P mappers as P lanes of that one device, so it needs
+no device-count setting.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset synthetic \\
+        --scale 0.5 --k 4 --engine mapreduce --verify --device cpu
+
+Flags of modules not ported yet (out-of-core graph directories, mutation,
+repartitioning, the SLO front end, the metrics registry) are accepted by
+the parser and end the run with exit code 2 and the ``ROADMAP.md`` item
+that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from ..core import (EngineConfig, GraphSession, MAX_SN, MAX_YIELD,
+                    MAX_YIELD_SHARED, MIN_SN, RANDOM_SN, SHARED_HEURISTICS,
+                    partition_quality)
+from ..core.metrics import total_connected_components
+from ..core.oracle import match_disjunctive
+from ..core.query import DisjunctiveQuery
+from ..data.generators import (imdb_like_graph, imdb_queries,
+                               subgen_like_graph, subgen_queries)
+from ..obs import NULL_TRACER, Tracer, observability_snapshot, write_chrome_trace
+
+# flag dest -> the ROADMAP.md item that ports what it needs
+UNPORTED_FLAGS = {
+    "graph_dir": "§1 item 3 (out-of-core sessions)",
+    "save_graph": "§1 item 3 (out-of-core sessions)",
+    "host_cache_parts": "§1 item 3 (out-of-core sessions)",
+    "no_read_ahead": "§1 item 3 (out-of-core sessions)",
+    "mutate_workload": "§1 item 5 (mutation)",
+    "mutate_compact_every": "§1 item 5 (mutation)",
+    "mutate_seed": "§1 item 5 (mutation)",
+    "repartition_from": "§1 item 5 (repartition)",
+    "slo": "§1 item 9 (the SLO front end)",
+    "shed_policy": "§1 item 9 (the SLO front end)",
+    "arrival_replay": "§1 item 9 (the SLO front end)",
+    "default_slo": "§1 item 9 (the SLO front end)",
+    "metrics_out": "§1 item 10 (the metrics registry and its export)",
+}
+
+
+def load_queries(name: str, graph, seed: int):
+    """The dataset's query batch, built against ``graph``."""
+    if name == "imdb":
+        return imdb_queries(graph, seed=seed)
+    if name == "synthetic":
+        return subgen_queries(graph)
+    raise ValueError(name)
+
+
+def load_dataset(name: str, scale: float, seed: int):
+    if name == "imdb":
+        g = imdb_like_graph(n_movies=int(300 * scale),
+                            n_people=int(400 * scale),
+                            n_companies=max(4, int(40 * scale)), seed=seed)
+    elif name == "synthetic":
+        g = subgen_like_graph(n_nodes=int(2000 * scale),
+                              n_edges=int(6000 * scale),
+                              n_embed=max(5, int(50 * scale)), seed=seed)
+    else:
+        raise ValueError(name)
+    return g, load_queries(name, g, seed)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve subgraph queries on the PyTorch port.")
+    ap.add_argument("--dataset", default="imdb", choices=["imdb", "synthetic"])
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--k", type=int, default=4, help="number of partitions")
+    ap.add_argument("--scheme", default="kway_shem")
+    ap.add_argument("--engine", default="opat",
+                    choices=["opat", "traditional", "mapreduce"])
+    ap.add_argument("--heuristic", default=MAX_SN,
+                    choices=[MAX_SN, MIN_SN, RANDOM_SN, MAX_YIELD])
+    ap.add_argument("--processors", type=int, default=2,
+                    help="p for TraditionalMP")
+    ap.add_argument("--max-answers", type=int, default=None,
+                    help="answer budget K per disjunct: stop after K unique "
+                         "answers (default: all)")
+    ap.add_argument("--cache-parts", type=int, default=None,
+                    help="PartitionStore LRU capacity in partitions "
+                         "(default: unbounded)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="disable OPAT's runner-up partition prefetch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--verify", action="store_true",
+                    help="check answers against the whole-graph oracle")
+    ap.add_argument("--cap", type=int, default=16384)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="the one device every engine runs on (cpu: the "
+                         "kernels' plain versions)")
+    ap.add_argument("--json", default="", help="write a JSON report here")
+    ap.add_argument("--trace-out", default="", metavar="TRACE.json",
+                    help="record end-to-end spans and write a Chrome "
+                         "trace-event file loadable in Perfetto")
+    ap.add_argument("--profile-json", default="",
+                    help="also write the workload profile alone here")
+    ap.add_argument("--workload", default="", metavar="FILE.jsonl",
+                    help="batch mode: serve the queries of this JSON-lines "
+                         "file (optional per-line 'max_answers') through "
+                         "submit_many")
+    ap.add_argument("--emit-workload", default="", metavar="FILE.jsonl",
+                    help="write the dataset's query batch in --workload "
+                         "format to this path and exit")
+    ap.add_argument("--emit-repeat", type=int, default=1, metavar="N",
+                    help="with --emit-workload: the batch N times over")
+    ap.add_argument("--emit-arrival-spacing-ms", type=float, default=None,
+                    metavar="MS",
+                    help="with --emit-workload: arrival_ms = line_index * MS")
+    ap.add_argument("--emit-slo-classes", default="", metavar="A,B,...",
+                    help="with --emit-workload: slo_class round-robin from "
+                         "this comma-separated list")
+    ap.add_argument("--shared-heuristic", default=MAX_YIELD_SHARED,
+                    choices=list(SHARED_HEURISTICS),
+                    help="workload-level partition ranking of --workload")
+    ap.add_argument("--fairness-gamma", type=float, default=0.0,
+                    help="aging weight (rounds-waiting x SNI) in the shared "
+                         "ranking of --workload")
+    # flags of modules not ported yet: parsed, then refused (see main)
+    unported = ap.add_argument_group("not ported yet (exit 2)")
+    for flag, kw in (("--graph-dir", {}), ("--save-graph", {}),
+                     ("--host-cache-parts", {"type": int}),
+                     ("--no-read-ahead", {"action": "store_true"}),
+                     ("--mutate-workload", {"type": int}),
+                     ("--mutate-compact-every", {"type": int}),
+                     ("--mutate-seed", {"type": int}),
+                     ("--repartition-from", {}), ("--slo", {}),
+                     ("--shed-policy", {}),
+                     ("--arrival-replay", {"type": float}),
+                     ("--default-slo", {}), ("--metrics-out", {})):
+        dest = flag[2:].replace("-", "_")
+        unported.add_argument(flag, default=None,
+                              help=f"needs ROADMAP.md {UNPORTED_FLAGS[dest]}",
+                              **kw)
+    return ap
+
+
+def emit_workload(args, dqueries) -> None:
+    if args.workload:
+        # round-trip: re-emit an existing workload file's parsed lines
+        with open(args.workload) as f:
+            out_lines = [json.loads(ln) for ln in f if ln.strip()]
+    else:
+        out_lines = []
+        classes = [c for c in args.emit_slo_classes.split(",") if c]
+        for _ in range(max(1, args.emit_repeat)):
+            for dq in dqueries:
+                d = dq.to_json_dict()
+                i = len(out_lines)
+                if args.emit_arrival_spacing_ms is not None:
+                    d["arrival_ms"] = i * args.emit_arrival_spacing_ms
+                if classes:
+                    d["slo_class"] = classes[i % len(classes)]
+                out_lines.append(d)
+    with open(args.emit_workload, "w") as f:
+        for d in out_lines:
+            f.write(json.dumps(d) + "\n")
+    print(f"[serve] wrote {len(out_lines)} queries to {args.emit_workload}")
+
+
+def _throughput(report, fairness_gamma: float) -> dict:
+    lat = [r.latency_s for r in report.results]
+    return {
+        "n_queries": len(report.results),
+        "wall_s": report.wall_s,
+        "qps": len(report.results) / report.wall_s if report.wall_s else 0.0,
+        "shared": report.shared,
+        "workload_loads": report.n_loads,
+        "loads_per_query": report.loads_per_query,
+        "batch_sizes": report.batch_sizes,
+        "p50_latency_s": float(np.percentile(lat, 50)) if lat else 0.0,
+        "p95_latency_s": float(np.percentile(lat, 95)) if lat else 0.0,
+        "p99_latency_s": float(np.percentile(lat, 99)) if lat else 0.0,
+        "cold_loads": report.load_stats.cold_loads,
+        "warm_loads": report.load_stats.warm_loads,
+        "prefetch_hits": report.load_stats.prefetch_hits,
+        "disk_reads": report.load_stats.disk_reads,
+        "read_ahead_hits": report.load_stats.read_ahead_hits,
+        "fairness_gamma": fairness_gamma,
+    }
+
+
+def _verified(answers: np.ndarray, ref: np.ndarray, budget) -> bool:
+    if budget is None:
+        return (answers.shape[0] == ref.shape[0]
+                and (answers.shape[0] == 0
+                     or np.array_equal(np.unique(answers, axis=0), ref)))
+    # budgeted run: every returned row is a real answer, and each disjunct
+    # returning min(K, total_d) rows means the union never falls below
+    # min(K, ref_total)
+    refset = {tuple(r) for r in ref}
+    return (all(tuple(r) in refset for r in answers)
+            and answers.shape[0] >= min(budget, ref.shape[0]))
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for dest, item in UNPORTED_FLAGS.items():
+        if getattr(args, dest) is not None:
+            ap.exit(2, f"[serve] --{dest.replace('_', '-')} is not ported to "
+                       f"repro_torch yet: see ROADMAP.md {item}\n")
+
+    tracer = Tracer() if args.trace_out else NULL_TRACER
+    t0 = time.time()
+    graph, dqueries = load_dataset(args.dataset, args.scale, args.seed)
+    print(f"[serve] graph: {graph.n_nodes} nodes, {graph.n_edges} edges")
+    if args.emit_workload:
+        emit_workload(args, dqueries)
+        return 0
+
+    session = GraphSession(graph, k=args.k, scheme=args.scheme,
+                           engine=args.engine, heuristic=args.heuristic,
+                           config=EngineConfig(cap=args.cap),
+                           cache_parts=args.cache_parts,
+                           processors=args.processors,
+                           prefetch=not args.no_prefetch,
+                           seed=args.seed, tracer=tracer, device=args.device)
+    q = partition_quality(graph, session.pg.assignment, session.k)
+    print(f"[serve] session: k={session.k} scheme={session.scheme} "
+          f"engine={args.engine} device={session.device} cut={q['cut']} "
+          f"({q['cut_frac']:.1%}) sizes={q['sizes']} "
+          f"total_cc={total_connected_components(session.pg)} "
+          f"cache_parts={args.cache_parts or 'unbounded'} "
+          f"[{time.time()-t0:.1f}s]")
+
+    throughput = None
+    if args.workload:
+        with open(args.workload) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        wqueries = [DisjunctiveQuery.from_json_dict(d) for d in lines]
+        budgets = [d.get("max_answers", args.max_answers) for d in lines]
+        print(f"[serve] workload: {len(wqueries)} queries from "
+              f"{args.workload} via the shared scheduler "
+              f"({args.shared_heuristic})")
+        report = session.submit_many(wqueries, max_answers=budgets,
+                                     heuristic=args.shared_heuristic,
+                                     fairness_gamma=args.fairness_gamma)
+        throughput = _throughput(report, args.fairness_gamma)
+        served = zip(wqueries, report.results, budgets)
+    else:
+        served = ((dq, session.submit(dq, max_answers=args.max_answers),
+                   args.max_answers) for dq in dqueries)
+
+    records = []
+    mismatches = 0
+    for dq, res, budget in served:
+        answers = res.answers
+        n_loads = res.n_loads
+        l_ideal = max(s.l_ideal for s in res.stats)
+        iters = max(s.iterations for s in res.stats)
+        ls = res.load_stats
+        print(f"[serve] {dq.name}: answers={answers.shape[0]:5d} "
+              f"loads={n_loads} (cold={ls.cold_loads} warm={ls.warm_loads} "
+              f"pf_hits={ls.prefetch_hits}) L_ideal={l_ideal} iters={iters} "
+              f"latency={res.latency_s*1000:.0f} ms "
+              f"load_seq={[s.loads for s in res.stats]}")
+        rec = {"query": dq.name, "answers": int(answers.shape[0]),
+               "loads": n_loads, "l_ideal": l_ideal, "iterations": iters,
+               "latency_s": res.latency_s,
+               "cold_loads": ls.cold_loads, "warm_loads": ls.warm_loads,
+               "prefetch_hits": ls.prefetch_hits,
+               "disk_reads": ls.disk_reads,
+               "read_ahead_hits": ls.read_ahead_hits,
+               "generation": res.generation}
+        if args.verify:
+            ref = match_disjunctive(graph, dq, q_pad=answers.shape[1])
+            match = _verified(answers, ref, budget)
+            rec["oracle_match"] = bool(match)
+            mismatches += int(not match)
+            print(f"        oracle: {ref.shape[0]} answers "
+                  f"{'MATCH' if match else 'MISMATCH'}")
+        records.append(rec)
+
+    if throughput is not None:
+        print(f"[serve] throughput: {throughput['n_queries']} queries in "
+              f"{throughput['wall_s']:.2f}s -> {throughput['qps']:.1f} q/s, "
+              f"{throughput['workload_loads']} workload loads "
+              f"({throughput['loads_per_query']:.2f}/query, "
+              f"cold={throughput['cold_loads']} "
+              f"warm={throughput['warm_loads']}), "
+              f"p50={throughput['p50_latency_s']*1000:.0f} ms "
+              f"p95={throughput['p95_latency_s']*1000:.0f} ms "
+              f"p99={throughput['p99_latency_s']*1000:.0f} ms")
+
+    cache = session.load_stats.to_dict()
+    print(f"[serve] session cache: {cache['cold_loads']} cold / "
+          f"{cache['warm_loads']} warm loads "
+          f"(hit rate {cache['hit_rate']:.1%}), "
+          f"{cache['evictions']} evictions, "
+          f"{cache['prefetch_issued']} prefetches "
+          f"({cache['prefetch_hits']} hit), "
+          f"{cache['bytes_cold']} cold bytes")
+
+    if args.trace_out:
+        write_chrome_trace(tracer, args.trace_out)
+        print(f"[serve] wrote Chrome trace ({len(tracer.spans)} spans, "
+              f"{len(tracer.decisions)} decisions) to {args.trace_out}")
+    if args.json or args.profile_json:
+        profile = session.workload_profile()
+        if args.json:
+            # the reference's schema_version 3 keys; "profile" (resource
+            # profiling) stays disabled until the profiler is ported
+            rep = {"schema_version": 3,
+                   "queries": records,
+                   "cache": cache,
+                   "observability": observability_snapshot(tracer),
+                   "profile": {"enabled": False},
+                   "workload_profile": profile}
+            if throughput is not None:
+                rep["throughput"] = throughput
+            with open(args.json, "w") as f:
+                json.dump(rep, f, indent=2)
+        if args.profile_json:
+            with open(args.profile_json, "w") as f:
+                json.dump(profile, f, indent=2)
+    if mismatches:   # --verify is a gate: fail on MISMATCH
+        sys.exit(f"[serve] {mismatches} quer{'y' if mismatches == 1 else 'ies'} "
+                 f"MISMATCHED the oracle")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,12 +33,12 @@ CASES = [((4, 4, 4, 8), False), ((16, 7, 6, 32), False),
 def test_cuda_fused_frontier_matches_plain():
     """The frontier step: every output bit-equal to its plain version,
     done/keep/out disjoint and covering ok -- over the test sweep, an empty
-    frontier and the main path's EB/W/Q, at one lane and at two lanes over
-    two stacked partitions."""
+    frontier and the main path's EB/W/Q, at one lane and at two and four
+    lanes (MapReduceMP's) over as many stacked partitions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(0)
-    for L in (1, 2):
+    for L in (1, 2, 4):
         for (EB, W, Q, Np), empty in CASES:
             inv, args = chip_smoke.step_case(rng, L, EB, W, Q, Np, P=L,
                                              V=1000 + 2 * Np, empty=empty)
@@ -136,3 +136,21 @@ def test_cuda_frontier_expand_across_the_warp_width(EB, W, Q, Np):
     torch.cuda.synchronize()
     rec = chip_smoke.compare_expand(got, fe.frontier_expand_plain(*args), args)
     assert rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0, rec
+
+
+@pytest.mark.cuda
+def test_cuda_mapreduce_matches_cpu():
+    """MapReduceMP (four lanes of the card, one frontier-step launch per
+    iteration) against the same engine on the CPU: identical answers,
+    iterations and yield counters, exhaustive, under K=5 and gated to
+    m_limit=2 under MAX-YIELD."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.data.generators import subgen_like_graph, subgen_queries
+    from repro_torch.kernels import build
+    g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=0)
+    qs = subgen_queries(g)
+    build.LAUNCHES.clear()
+    card = chip_smoke.mapreduce_small(g, qs, "cuda")
+    assert build.LAUNCHES[ff.NAME] == sum(r[3] for r in card)
+    assert chip_smoke.same_mapreduce(card, chip_smoke.mapreduce_small(g, qs, "cpu"))

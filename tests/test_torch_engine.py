@@ -246,8 +246,10 @@ def test_session_profile_counters_match_reference(both):
 
 def test_session_rejects_unported_engines_and_devices(both):
     tpg = both[3]
-    with pytest.raises(NotImplementedError):
-        tc.GraphSession(pg=tpg, engine="mapreduce", device="cpu")
+    mr = tc.GraphSession(pg=tpg, engine="mapreduce", heuristic="min-sn", device="cpu")
+    assert isinstance(mr.engine, tc.MapReduceMPEngine)
+    assert (mr.engine.P, mr.engine.heuristic) == (tpg.k, "min-sn")
+    assert mr.engine.store is mr.store and mr.engine.device == mr.device
     sess = tc.GraphSession(pg=tpg, engine="traditional", device="cpu")
     assert isinstance(sess.engine, tc.TraditionalMPEngine) and sess.engine.p == 2
     with pytest.raises(ValueError):
@@ -622,6 +624,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"src/repro_torch/core/mapreduce_mp.py",
+            "src/repro_torch/launch/serve.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
