@@ -55,7 +55,10 @@ Phases, each printing one JSON line:
                equal to the per-query results
   cli          ``python -m repro_torch.launch.serve`` in-process at
                ``--scale 20`` with ``--verify``, for the mapreduce and opat
-               engines: every query MATCH, return code 0
+               engines; then opat with ``--save-graph`` and
+               ``--profile-json``, ``--graph-dir`` with
+               ``--host-cache-parts 1`` on opat and mapreduce, and
+               ``--repartition-from``: every query MATCH, return code 0
   profile      Q5 on the OPAT, TraditionalMP and MapReduceMP sessions: 12
                rounds of warm runs on the host clock, rotating which engine
                goes first (each latency's spread, the rounds each engine
@@ -64,9 +67,27 @@ Phases, each printing one JSON line:
                kernel name, host time by op, host kernel launches per
                evaluator loop; and the peak device memory of an
                unprofiled warm run (every session's resident data in it)
+  ooc          out of core at full scale: the path's session saved as a
+               graph directory; one cold partition load split into disk
+               read, checksum, pin and host-to-device copy; a host tier of
+               one partition evicting a bundle under its in-flight side-
+               stream copy, and a read-ahead pinned on its worker thread,
+               both bit-equal to the shard; GraphSession.open(cache_parts=1,
+               host_cache_parts=2) on OPAT, TraditionalMP (processors=2)
+               and MapReduceMP, the path's runs and Q5 again, each checked
+               against the path phase's oracle answers, with disk reads,
+               read-ahead hits (OPAT), validate_run_residency on every OPAT
+               run, step launches equal to the loop counts and the host
+               tier's peak bytes within two partitions; cold and warm Q5
+               opened (unbounded tiers) against in RAM; peak device memory
+  repartition  GraphSession.repartition on the path phase's OPAT session
+               with the profile it served: cut before and after, host
+               seconds, device memory before and after the rebind, then Q4
+               and Q5 again against the oracle
 
 Each serving phase sets the launch counts to 0 just before it and reads
-them just after; it fails if a kernel of its path never launched.  Then a
+them just after; it fails if a kernel of its path never launched.  The
+graph directories live under build/ and are removed at the end.  Then a
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero and prints no result.  The full record is also
@@ -75,10 +96,14 @@ written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
+import os
 import resource
+import shutil
 import subprocess
+import tempfile
 import sys
 import time
 import types
@@ -91,9 +116,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM peak outside the tensor cores
 RECORD: dict = {}
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw) -> None:
+    """Record and print one phase's line, stamped with the seconds since
+    the script started (``at_s``)."""
+    kw["at_s"] = time.perf_counter() - T0
     RECORD[phase] = kw
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -659,7 +688,7 @@ def same_mapreduce(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def phase_small(seed: int) -> None:
+def phase_small(seed: int, workdir: Path) -> None:
     from repro_torch.core import EngineConfig, GraphSession
     from repro_torch.data.generators import subgen_like_graph, subgen_queries
     g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=seed)
@@ -691,6 +720,15 @@ def phase_small(seed: int) -> None:
              "n_answers": int(ans.shape[0]), "n_iterations": it,
              "completed_from": comp, "spawned_from": spawn}
             for run, name, ans, it, comp, spawn in mr["cuda"]]
+    # the same graph saved and served out of core, on the card and the CPU
+    gdir = workdir / "small-graph"
+    GraphSession(g, device="cpu").save(str(gdir))
+    ooc = {dev: opened_small(gdir, dev) for dev in ("cuda", "cpu")}
+    check(same_opened(ooc["cuda"], ooc["cpu"]), "opened opat: card and CPU runs differ")
+    out += [{"engine": "opat_opened", "query": name, "n_answers": int(ans.shape[0]),
+             "loads": loads, "iterations": it, "disk_reads": ls["disk_reads"],
+             "read_ahead_hits": ls["read_ahead_hits"]}
+            for name, ans, loads, it, ls in ooc["cuda"]]
     emit("small", nodes=g.n_nodes, edges=g.n_edges, queries=out)
 
 
@@ -1022,31 +1060,49 @@ def phase_mapreduce(pg, oracle) -> tuple:
     return launches, sess
 
 
-def phase_cli() -> None:
-    """The port's serving CLI in this process, as a user runs it."""
+def phase_cli(workdir: Path) -> None:
+    """The port's serving CLI in this process, as a user runs it: in RAM on
+    two engines, then a save, out-of-core serving from it on two engines,
+    and a repartition from a saved profile."""
     import contextlib
     import io
     from repro_torch.kernels import build
     from repro_torch.kernels.fused_frontier import NAME
     from repro_torch.launch import serve as cli
 
+    gdir, profile = workdir / "cli-graph", workdir / "cli-profile.json"
+    base = ["--dataset", "synthetic", "--scale", "20", "--verify"]
+    runs = [("mapreduce", ["--engine", "mapreduce"]), ("opat", ["--engine", "opat"]),
+            ("opat_save", ["--engine", "opat", "--save-graph", str(gdir),
+                           "--profile-json", str(profile)]),
+            ("opat_graph_dir", ["--engine", "opat", "--graph-dir", str(gdir),
+                                "--host-cache-parts", "1"]),
+            ("mapreduce_graph_dir", ["--engine", "mapreduce", "--graph-dir", str(gdir),
+                                     "--host-cache-parts", "1"]),
+            ("opat_repartition", ["--engine", "opat", "--repartition-from",
+                                  str(profile)])]
     out = {}
-    for engine in ("mapreduce", "opat"):
+    for name, argv in runs:
         text = io.StringIO()
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(text):
-            rc = cli.main(["--dataset", "synthetic", "--scale", "20",
-                           "--engine", engine, "--verify"])
+            rc = cli.main(base + argv)
         lines = text.getvalue().splitlines()
         verdicts = [ln.split()[-1] for ln in lines if "oracle:" in ln]
         check(rc == 0 and len(verdicts) == 3 and set(verdicts) == {"MATCH"},
-              f"cli --engine {engine}: rc {rc}, verdicts {verdicts}: {lines[-8:]}")
-        check(build.LAUNCHES[NAME] > 0, f"cli --engine {engine} launched no kernel")
-        out[engine] = {"rc": rc, "verdicts": verdicts,
-                       "seconds": time.perf_counter() - t0,
-                       "fused_frontier_launches": build.LAUNCHES[NAME],
-                       "output": lines}
+              f"cli {name}: rc {rc}, verdicts {verdicts}: {lines[-8:]}")
+        check(build.LAUNCHES[NAME] > 0, f"cli {name} launched no kernel")
+        if "--graph-dir" in argv:
+            check(any(ln.startswith("[serve] disk tier:") for ln in lines),
+                  f"cli {name}: no disk tier line")
+        if "--repartition-from" in argv:
+            check(any("repartitioned from" in ln for ln in lines),
+                  f"cli {name}: no repartition line")
+        out[name] = {"rc": rc, "argv": argv, "verdicts": verdicts,
+                     "seconds": time.perf_counter() - t0,
+                     "fused_frontier_launches": build.LAUNCHES[NAME],
+                     "output": lines}
     emit("cli", scale=20, **out)
 
 
@@ -1157,6 +1213,282 @@ def phase_profile(sessions, dq) -> None:
          **{name: profile_query(sess, dq, name) for name, sess in sessions.items()})
 
 
+# ---------------------------------------------------------------------------
+# out of core: the disk tier under the store, and repartitioning
+# ---------------------------------------------------------------------------
+
+def same_entry(entry, shard) -> bool:
+    """A device StoreEntry equals a shard's (part, g2l) numpy bundle byte
+    for byte (NaN payloads included)."""
+    part, g2l = shard
+    for k, v in part.items():
+        got = entry.part[k]
+        if isinstance(got, int):
+            if got != int(v):
+                return False
+        elif got.cpu().numpy().tobytes() != np.ascontiguousarray(v).tobytes():
+            return False
+    return entry.g2l.cpu().numpy().tobytes() == np.ascontiguousarray(g2l).tobytes()
+
+
+def opened_store(gdir, host_parts: int, dev: str = "cuda"):
+    from repro_torch.core import PartitionStore
+    from repro_torch.storage import DiskCatalog, OutOfCorePartitionedGraph
+    cat = DiskCatalog(str(gdir))
+    return cat, PartitionStore(OutOfCorePartitionedGraph(cat), backing=cat,
+                               host_cache_parts=host_parts, device=dev)
+
+
+def evict_under_copy(gdir, a: int, b: int, sleep_cycles: int) -> dict:
+    """A host tier of one partition: ``prefetch(a)`` copies a's pinned
+    bundle on the store's side stream, queued behind a spin kernel;
+    ``get(b)`` at once evicts a's bundle (its pinned memory freed while the
+    copy has not run) and reads and pins b's; ``get(a)`` must still equal
+    a's shard, and b's entry b's."""
+    cat, store = opened_store(gdir, 1)
+    store.host_tier.get(a)
+    with torch.cuda.stream(store._copy_stream):
+        torch.cuda._sleep(sleep_cycles)
+    issued = store.prefetch(a)
+    eb = store.get(b)
+    in_flight = not store._cache[a].ready.query()
+    evicted = not store.host_tier.resident(a)
+    ea = store.get(a)
+    torch.cuda.synchronize()
+    return {"prefetch_issued": issued, "a_evicted": evicted,
+            "copy_in_flight_at_eviction": in_flight,
+            "a_equal": same_entry(ea, cat.read_part(a)),
+            "b_equal": same_entry(eb, cat.read_part(b)),
+            "prefetch_hits": store.stats.prefetch_hits}
+
+
+def read_ahead_pinned(gdir, pid: int) -> dict:
+    """``prefetch(pid)`` of a partition not in host RAM issues a read-ahead
+    whose worker thread reads, verifies and pins the shard; the ``get``
+    that joins it copies on the current stream, bit-equal to the shard."""
+    cat, store = opened_store(gdir, 2)
+    issued = store.prefetch(pid)
+    slot = store.host_tier._cache[pid]
+    slot.thread.join()
+    b = slot.bundle
+    pinned = all(t.is_pinned() for t in (*[v for v in b.part.values()
+                                             if isinstance(v, torch.Tensor)], b.g2l))
+    entry = store.get(pid)
+    torch.cuda.synchronize()
+    return {"read_ahead_issued": issued, "worker": slot.thread.name,
+            "pinned_on_worker": pinned, "equal": same_entry(entry, cat.read_part(pid)),
+            "read_ahead_hits": store.stats.read_ahead_hits,
+            "device_copy_on_prefetch": store.stats.prefetch_issued}
+
+
+def opened_small(gdir, dev: str) -> list:
+    """An opened OPAT session (device and host tiers of one partition) on
+    the subgen queries and Q4 under K=5: per run (query, answers, loads,
+    iterations, LoadStats), and every run's residency validated."""
+    from repro_torch.core import EngineConfig, GraphSession, validate_run_residency
+    from repro_torch.data.generators import subgen_queries
+    sess = GraphSession.open(str(gdir), engine="opat", cache_parts=1,
+                             host_cache_parts=1, config=EngineConfig(cap=16384),
+                             device=dev)
+    qs = subgen_queries(sess.graph)
+    out = []
+    for dq, budget in [(dq, None) for dq in qs] + [(qs[0], 5)]:
+        res = sess.submit(dq, max_answers=budget)
+        st = res.reports[0].stats
+        check(validate_run_residency(st) is not None, f"{dq.name}: no residency")
+        out.append((dq.name, res.answers, st.loads, st.iterations,
+                    res.load_stats.to_dict()))
+    return out
+
+
+def same_opened(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x[0] == y[0] and np.array_equal(x[1], y[1]) and x[2:] == y[2:]
+        for x, y in zip(a, b))
+
+
+def cold_load_split(gdir, pid: int) -> dict:
+    """One partition's cold load, step by step as the store's disk tier
+    takes it: the shard's pages dropped from the page cache (fsync, then
+    POSIX_FADV_DONTNEED), the read (np.load), the sha256 of every array
+    against the manifest, the pin into page-locked tensors, and the copy to
+    the card (CUDA events).  The read is timed again with the pages hot."""
+    from repro_torch.storage import DiskCatalog, array_checksum
+    from repro_torch.storage.host_cache import host_bundle
+    cat = DiskCatalog(str(gdir), verify_checksums=False)
+    path = cat.shard_path(pid)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    t0 = time.perf_counter()
+    part, g2l = cat.read_part(pid)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = cat.part_meta(pid)["checksums"]
+    ok = all(array_checksum(a) == want[k] for k, a in {**part, "g2l": g2l}.items())
+    t_sum = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = host_bundle(part, g2l, pin=True)
+    t_pin = time.perf_counter() - t0
+    tensors = [v for v in bundle.part.values() if isinstance(v, torch.Tensor)] + [bundle.g2l]
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    dev = [t.to("cuda", non_blocking=True) for t in tensors]
+    e1.record()
+    torch.cuda.synchronize()
+    copy_ms = e0.elapsed_time(e1)
+    check(ok and all(torch.equal(d.cpu().view(torch.uint8), t.view(torch.uint8))
+                     for d, t in zip(dev, tensors)), "cold load: checksum or copy differs")
+    t0 = time.perf_counter()
+    cat.read_part(pid)
+    t_hot = time.perf_counter() - t0
+    return {"pid": pid, "file_bytes": os.path.getsize(path), "bundle_bytes": bundle.nbytes,
+            "read_s": t_read, "read_hot_s": t_hot, "checksum_s": t_sum, "pin_s": t_pin,
+            "copy_ms": copy_ms, "copy_gb_s": bundle.nbytes / copy_ms / 1e6,
+            "total_s": t_read + t_sum + t_pin + copy_ms / 1e3}
+
+
+def cold_warm(sess, dq) -> dict:
+    """Q5 twice on a fresh session: its first (cold) and second latency."""
+    served = serve(sess, [(dq, None), (dq, None)])
+    return {"cold_s": served[0][3], "warm_s": served[1][3],
+            "cold_loads": served[0][2].load_stats.to_dict(),
+            "warm_loads": served[1][2].load_stats.to_dict()}
+
+
+def phase_ooc(pg, sess, oracle, workdir: Path) -> int:
+    """The path's graph served out of core on all three engines."""
+    from repro_torch.core import EngineConfig, GraphSession, validate_run_residency
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    gdir = workdir / "ooc-graph"
+    t0 = time.perf_counter()
+    manifest = sess.save(str(gdir))
+    t_save = time.perf_counter() - t0
+    part_bytes = [p["nbytes"] for p in manifest["partitions"]]
+    split = cold_load_split(gdir, 0)
+    evict = evict_under_copy(gdir, 0, 1, sleep_cycles=3_000_000_000)
+    check(evict["prefetch_issued"] and evict["a_evicted"] and evict["a_equal"]
+          and evict["b_equal"] and evict["prefetch_hits"] == 1,
+          f"evict under an in-flight copy: {evict}")
+    ahead = read_ahead_pinned(gdir, 2)
+    check(ahead["read_ahead_issued"] and ahead["pinned_on_worker"] and ahead["equal"]
+          and ahead["read_ahead_hits"] == 1 and ahead["device_copy_on_prefetch"] == 0,
+          f"read-ahead pinned on its worker: {ahead}")
+    gc.collect()
+
+    dqs, runs = path_runs(pg)
+    runs = runs + [(dqs[1], None)]
+    cfg = EngineConfig(cap=16384)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    engines, launches = {}, 0
+    for engine in ("opat", "traditional", "mapreduce"):
+        t0 = time.perf_counter()
+        osess = GraphSession.open(str(gdir), engine=engine, processors=2,
+                                  heuristic="max-sn", cache_parts=1,
+                                  host_cache_parts=2, config=cfg, device="cuda")
+        t_open = time.perf_counter() - t0
+        check(osess.out_of_core and osess.generation == manifest["generation"],
+              f"{engine}: not opened out of core")
+        n0 = build.LAUNCHES[NAME]
+        served = serve(osess, runs)
+        n = build.LAUNCHES[NAME] - n0
+        loops = engine_loops(osess.engine)
+        queries = []
+        for dq, budget, res, lat in served:
+            check(verify(res, oracle[dq.name], budget),
+                  f"ooc {engine} {dq.name} (budget {budget}) disagrees with the oracle")
+            if engine == "opat":
+                validate_run_residency(res.reports[0].stats)
+            rec = query_record(dq, budget, res, lat, oracle[dq.name])
+            rec.update(disk_reads=res.load_stats.disk_reads,
+                       read_ahead_hits=res.load_stats.read_ahead_hits,
+                       bytes_disk=res.load_stats.bytes_disk,
+                       host_evictions=res.load_stats.host_evictions)
+            queries.append(rec)
+        st = osess.load_stats
+        peak_host = osess.store.host_tier.peak_nbytes
+        check(n > 0 and n == loops,
+              f"ooc {engine}: fused_frontier launches {n} != evaluator loops {loops}")
+        check(st.disk_reads > 0, f"ooc {engine}: no disk read")
+        check(engine != "opat" or st.read_ahead_hits > 0, "ooc opat: no read-ahead hit")
+        check(peak_host <= 2 * max(part_bytes),
+              f"ooc {engine}: host tier held {peak_host} B > two partitions")
+        engines[engine] = {"open_s": t_open, "fused_frontier_launches": n,
+                           "evaluator_loops": loops, "cache": st.to_dict(),
+                           "host_tier_peak_bytes": peak_host, "queries": queries}
+        launches += n
+        osess.store.close()
+        del osess, served
+        gc.collect()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    # cold and warm Q5: opened with unbounded tiers, against in RAM
+    from repro_torch.core import GraphSession as Session
+    build.LAUNCHES.clear()
+    q5 = dqs[1]
+    fresh = {"in_ram": Session(pg=pg, engine="opat", config=cfg, device="cuda"),
+             "opened": Session.open(str(gdir), engine="opat", config=cfg, device="cuda")}
+    latency = {name: cold_warm(s, q5) for name, s in fresh.items()}
+    launches += build.LAUNCHES[NAME]
+    for s in fresh.values():
+        s.store.close()
+    del fresh
+    gc.collect()
+    emit("ooc", graph_dir_bytes=sum(f.stat().st_size for f in gdir.iterdir()),
+         partition_bytes=part_bytes, save_s=t_save, cold_load_split=split,
+         evict_under_copy=evict, read_ahead_pinned=ahead, engines=engines,
+         q5_cold_warm=latency, resident_before_bytes=resident,
+         max_memory_allocated=peak, fused_frontier_launches=launches)
+    return launches
+
+
+def phase_repartition(pg, sess, oracle) -> int:
+    """Repartition the path phase's OPAT session with the profile it has
+    served, then Q4 and Q5 again on the new layout."""
+    from repro_torch.core import partition_quality
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    profile = sess.workload_profile()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    info = sess.repartition(profile)
+    t_host = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    q = partition_quality(sess.graph, sess.pg.assignment, sess.k)
+    dqs, _ = path_runs(sess.pg)
+    build.LAUNCHES.clear()
+    sess.engine.inner_iters = 0
+    served = serve(sess, [(dqs[0], None), (dqs[1], None)])
+    n = build.LAUNCHES[NAME]
+    queries = []
+    for dq, budget, res, lat in served:
+        check(verify(res, oracle[dq.name], budget),
+              f"repartitioned {dq.name} disagrees with the oracle")
+        queries.append(query_record(dq, budget, res, lat, oracle[dq.name]))
+    check(n > 0 and n == sess.engine.inner_iters,
+          f"repartition: launches {n} != loops {sess.engine.inner_iters}")
+    emit("repartition", profile_queries=profile["queries_served"], summary=info,
+         sizes=q["sizes"], host_s=t_host, memory_allocated_before=before,
+         memory_allocated_after_rebind=after, fused_frontier_launches=n,
+         queries=queries)
+    return n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=200.0,
@@ -1184,22 +1516,30 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          kernels={n: {k: v for k, v in d.items() if k != "log"} for n, d in info.items()})
 
-    pg = phase_graph(args.scale, args.seed)
-    timing = phase_kernels(args.seed, pg)
-    phase_small(args.seed)
-    launches, sess, oracle, served = phase_path(pg)
-    sni = phase_sni(pg, sess)
-    tsess, tserved = phase_traditional(pg, oracle)
-    sessions = {"opat": sess, "traditional": tsess}
-    phase_shared(sessions, oracle, {"opat": served, "traditional": tserved})
-    mlaunches, msess = phase_mapreduce(pg, oracle)
-    phase_cli()
-    phase_profile({**sessions, "mapreduce": msess}, served[1][0])
+    (ROOT / "build").mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-", dir=ROOT / "build"))
+    try:
+        pg = phase_graph(args.scale, args.seed)
+        timing = phase_kernels(args.seed, pg)
+        phase_small(args.seed, workdir)
+        launches, sess, oracle, served = phase_path(pg)
+        sni = phase_sni(pg, sess)
+        tsess, tserved = phase_traditional(pg, oracle)
+        sessions = {"opat": sess, "traditional": tsess}
+        phase_shared(sessions, oracle, {"opat": served, "traditional": tserved})
+        mlaunches, msess = phase_mapreduce(pg, oracle)
+        phase_cli(workdir)
+        phase_profile({**sessions, "mapreduce": msess}, served[1][0])
+        olaunches = phase_ooc(pg, sess, oracle, workdir)
+        rlaunches = phase_repartition(pg, sess, oracle)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     # the step's launches on each engine's serving path (path, traditional,
-    # mapreduce), each counted from 0 in its own phase
+    # mapreduce, the three engines out of core, the repartitioned OPAT
+    # session), each counted from 0 in its own phase
     step_launches = (launches + RECORD["traditional"]["fused_frontier_launches"]
-                     + mlaunches)
+                     + mlaunches + olaunches + rlaunches)
     sources = {
         "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", step_launches),
         "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",

@@ -13,10 +13,18 @@ Public API of this slice:
                                          of one device
   QueryScheduler / ScheduleReport      — shared-load multi-query serving
   PartitionStore / LoadStats           — device residency: LRU cache,
-                                         pins, side-stream prefetch
-  GraphSession / QueryResult           — in-RAM serving session (OPAT,
+                                         pins, side-stream prefetch; with
+                                         a DiskCatalog backing a three-tier
+                                         disk->host->device cache
+                                         (storage/, GraphSession.save/.open)
+  GraphSession / QueryResult           — serving session (OPAT,
                                          TraditionalMP, MapReduceMP;
-                                         submit_many, workload profile)
+                                         submit_many, workload profile,
+                                         out of core, repartition)
+  repartition / RepartitionConfig      — workload-aware repartitioning: a
+                                         saved profile reweights the graph
+                                         and the partitioner re-runs as
+                                         scheme "waw" (core/repartition.py)
   oracle.match_query                   — whole-graph ground truth
 """
 from .catalog import Catalog, build_catalog
@@ -28,13 +36,16 @@ from .heuristics import (ALL_HEURISTICS, MAX_SN, MAX_YIELD, MAX_YIELD_SHARED,
                          MIN_SN, RANDOM_SN, SHARED_HEURISTICS, rank_partitions,
                          rank_partitions_shared)
 from .mapreduce_mp import MapReduceMPEngine, MapReduceMPResult
-from .metrics import RunStats, l_ideal_for_plan
+from .metrics import RunStats, l_ideal_for_plan, validate_run_residency
 from .opat import OPATEngine, OPATResult, absorb_eval_outputs
 from .oracle import match_disjunctive, match_query
 from .partition import SCHEMES, PartitionScheme, partition_graph, partition_quality
 from .plan import Plan, PlanArrays, PlanStep, generate_plan
 from .query import (DisjunctiveQuery, Query, QueryEdge, QueryNode,
                     make_path_query, make_star_query)
+from .repartition import (WAW_SCHEME, RepartitionConfig, answer_span_matrix,
+                          load_profile, repartition, repartition_assignment,
+                          reweight_edges)
 from .runner import QueryRunner, RunReport, RunRequest, truncate_answers
 from .scheduler import QueryScheduler, ScheduleReport, batch_bucket
 from .session import GraphSession, QueryResult
@@ -50,12 +61,15 @@ __all__ = [
     "ALL_HEURISTICS", "MAX_SN", "MAX_YIELD", "MAX_YIELD_SHARED", "MIN_SN",
     "RANDOM_SN", "SHARED_HEURISTICS", "rank_partitions",
     "rank_partitions_shared", "RunStats", "l_ideal_for_plan",
+    "validate_run_residency",
     "OPATEngine", "OPATResult", "absorb_eval_outputs",
     "match_disjunctive", "match_query",
     "SCHEMES", "PartitionScheme", "partition_graph", "partition_quality",
     "Plan", "PlanArrays", "PlanStep", "generate_plan",
     "DisjunctiveQuery", "Query", "QueryEdge", "QueryNode",
     "make_path_query", "make_star_query",
+    "WAW_SCHEME", "RepartitionConfig", "answer_span_matrix", "load_profile",
+    "repartition", "repartition_assignment", "reweight_edges",
     "QueryRunner", "RunReport", "RunRequest", "truncate_answers",
     "QueryScheduler", "ScheduleReport", "batch_bucket",
     "TraditionalMPEngine", "TraditionalMPResult",

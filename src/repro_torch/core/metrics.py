@@ -79,6 +79,70 @@ class RunStats:
         return min(1.0, self.l_ideal / self.n_loads)
 
 
+def validate_run_residency(stats: RunStats,
+                           per_partition_loads: bool = True
+                           ) -> Optional[dict]:
+    """Consistency invariant over a run's residency counters: every load
+    in ``loads`` was served exactly once by one residency class, so
+    ``cold_loads + demand_warm + prefetch_hits == n_loads`` (the store
+    counts a prefetch hit as a *kind* of warm load, so ``demand_warm`` is
+    ``warm_loads - prefetch_hits``).
+
+    Returns ``None`` when the run carries no residency counters
+    (hand-built ``RunStats``); otherwise the disjoint breakdown dict from
+    ``obs.metrics.validate_residency``.  Raises ``ValueError`` on
+    inconsistent accounting — a store double-count or a load path that
+    skipped the counters.
+
+    ``per_partition_loads=False`` skips the ``n_loads`` equality and only
+    checks the counters' internal consistency: TraditionalMP's store load
+    unit is the stacked top-p bundle (one get per iteration, p entries in
+    ``loads``) and MapReduceMP keeps every partition resident
+    (``loads == []``), so for those engines the equality doesn't apply.
+
+    When the run also carries byte counters (the memory accounting),
+    they are cross-checked against the load counts: a residency class
+    with loads must have moved bytes and vice versa (cold_loads > 0 iff
+    bytes_cold > 0, disk_reads > 0 iff bytes_disk > 0, ...) — partitions
+    are padded arrays, so a zero-byte load means a counter path was
+    skipped.  Byte fields left ``None`` are not checked.
+    """
+    if stats.cold_loads is None or stats.warm_loads is None \
+            or stats.prefetch_hits is None:
+        return None
+    from ..obs.metrics import validate_residency
+    if per_partition_loads:
+        out = validate_residency(stats.cold_loads, stats.warm_loads,
+                                 stats.prefetch_hits, stats.n_loads)
+    else:
+        out = validate_residency(stats.cold_loads, stats.warm_loads,
+                                 stats.prefetch_hits,
+                                 stats.cold_loads + stats.warm_loads)
+    byte_checks = (
+        ("cold_loads", stats.cold_loads, "bytes_cold", stats.bytes_cold),
+        ("disk_reads", stats.disk_reads, "bytes_disk", stats.bytes_disk),
+    )
+    for cname, count, bname, nbytes in byte_checks:
+        if count is None or nbytes is None:
+            continue
+        if int(nbytes) < 0:
+            raise ValueError(f"negative byte counter: {bname}={nbytes}")
+        if (int(count) > 0) != (int(nbytes) > 0):
+            raise ValueError(
+                f"{cname}={count} but {bname}={nbytes}: a residency "
+                f"class with loads must have moved bytes (and vice "
+                f"versa) — a byte-accounting path was skipped")
+        out[bname] = int(nbytes)
+    for bname, nbytes in (("bytes_prefetched", stats.bytes_prefetched),
+                          ("bytes_host", stats.bytes_host)):
+        if nbytes is None:
+            continue
+        if int(nbytes) < 0:
+            raise ValueError(f"negative byte counter: {bname}={nbytes}")
+        out[bname] = int(nbytes)
+    return out
+
+
 def l_ideal_for_plan(pg: PartitionedGraph, plan: Plan) -> int:
     """#required partitions: any partition holding a node that matches any
     query-node predicate (paper Sec. 1 / 5.3)."""

@@ -46,9 +46,10 @@ MapReduceMP has no host partition loop to share: its jobs drain one
 query at a time (``_run_sequential``), with answers, budgets and
 per-query ``LoadStats`` deltas identical to sequential ``submit``.
 
-The JAX package's generation pin (mutable on-disk graphs) and profiler
-hooks are not ported: in-RAM sessions have no generations.  Nor is the
-SLO front end's per-query urgency, which comes with the front end.
+Results carry the session's generation (the opened directory's manifest
+generation; None in RAM).  The JAX package's generation pin (mutable
+on-disk graphs) and profiler hooks are not ported.  Nor is the SLO front
+end's per-query urgency, which comes with the front end.
 """
 from __future__ import annotations
 
@@ -522,6 +523,7 @@ class QueryScheduler:
     def _collect_results(self, t0: float) -> List[QueryResult]:
         """Build the finished queries' results (admit order) and prune
         their state."""
+        gen = self.session.generation
         results: List[QueryResult] = []
         done: List[int] = []
         for rec in self._admitted.values():
@@ -556,6 +558,7 @@ class QueryScheduler:
                             bytes_host=delta.bytes_host),
                         engine=self.session.engine_name,
                         extra={"state": j.state})
+                rep.stats.generation = gen
                 reports.append(rep)
                 a = rep.answers
                 answers = a if answers is None else np.unique(
@@ -563,12 +566,12 @@ class QueryScheduler:
             results.append(QueryResult(
                 name=rec.name, answers=answers, reports=reports,
                 latency_s=max(0.0, rec.finished_at - t0),
-                load_stats=rec.load_stats, qid=rec.qid))
+                load_stats=rec.load_stats, qid=rec.qid, generation=gen))
             if self.tracer.enabled and rec.finished_perf is not None:
                 # one root span per retired query, admission → retirement
                 self.tracer.add_span(
                     "query", rec.admitted_perf, rec.finished_perf,
-                    qid=rec.qid, query=rec.name,
+                    qid=rec.qid, query=rec.name, generation=gen,
                     n_answers=int(answers.shape[0]),
                     n_loads=sum(len(r.stats.loads) for r in reports))
         for qid in done:

@@ -20,10 +20,19 @@ serves a batch through the shared-load ``QueryScheduler``
 (core/scheduler.py), whose ``ScheduleReport`` holds one ``QueryResult``
 per query.
 
-This session is in RAM and serves the OPAT, TraditionalMP and
-MapReduceMP engines, and keeps the per-partition workload profile
-(``workload_profile`` / ``save_profile``); ``open``/``save``, mutation,
-repartitioning and the SLO front end come with later slices.
+The session serves the OPAT, TraditionalMP and MapReduceMP engines and
+keeps the per-partition workload profile (``workload_profile`` /
+``save_profile``).  ``repartition()`` feeds that profile to
+core/repartition.py and rebinds the session to the workload-aware layout.
+
+``save(path)`` / ``open(path)`` round the partitioned graph through disk
+(storage/): a saved *graph directory* reopens as an out-of-core session
+whose partitions stream through the store's disk → pinned-host → device
+cache tiers with identical answers.  The JAX package opens a directory
+as a mutable generation view (its storage/deltas.py); here ``open`` reads
+the manifest's generation as it stands, so a directory with no pending
+deltas serves the same bytes and counters.  Mutation and the SLO front
+end come with later slices.
 """
 from __future__ import annotations
 
@@ -43,10 +52,11 @@ from .heuristics import MAX_SN
 from .mapreduce_mp import MapReduceMPEngine
 from .metrics import RunStats
 from .opat import OPATEngine
-from .partition import partition_graph
+from .partition import partition_graph, partition_quality
 from .plan import generate_plan
 from .query import DisjunctiveQuery, Query
-from .repartition import answer_span_matrix
+from .repartition import RepartitionConfig, answer_span_matrix
+from .repartition import repartition as repartition_pg
 from .runner import RunReport, RunRequest
 from .store import LoadStats, PartitionStore
 from .traditional_mp import TraditionalMPEngine
@@ -91,6 +101,13 @@ class GraphSession:
     (None = unbounded); ``prefetch`` enables OPAT's runner-up staging.
     Pass ``pg`` to reuse an existing ``PartitionedGraph``.  ``device=None``
     means ``"cuda"``.
+
+    Out of core: ``GraphSession.open(path)`` builds a session over a
+    ``save``d graph directory, with ``host_cache_parts`` /
+    ``host_cache_bytes`` sizing the pinned-host LRU and ``read_ahead``
+    enabling the background-thread disk staging of the heuristic's
+    runner-up (all three are ignored for in-RAM sessions, whose host tier
+    is the whole graph).
     """
 
     def __init__(self, graph: Optional[Graph] = None, *,
@@ -101,6 +118,9 @@ class GraphSession:
                  config: Optional[EngineConfig] = None,
                  cache_parts: Optional[int] = None,
                  cache_bytes: Optional[int] = None,
+                 host_cache_parts: Optional[int] = None,
+                 host_cache_bytes: Optional[int] = None,
+                 read_ahead: bool = True,
                  processors: int = 2,
                  prefetch: bool = True,
                  seed: int = 0,
@@ -122,21 +142,40 @@ class GraphSession:
         self.seed = seed
         self.config = config or EngineConfig()
         self.catalog = catalog if catalog is not None else build_catalog(self.graph)
+        # remembered so repartition() can rebuild the stack identically
         self._cache_parts = cache_parts
         self._cache_bytes = cache_bytes
+        # the disk tier (out-of-core sessions, GraphSession.open): the
+        # DiskCatalog the store's host LRU reads shards from, plus that
+        # LRU's sizing and read-ahead switch (storage/host_cache.py)
+        self._backing = getattr(pg, "backing", None)
+        self._host_cache_parts = host_cache_parts
+        self._host_cache_bytes = host_cache_bytes
+        self._read_ahead = read_ahead
         self._processors = processors
         self._prefetch = prefetch
+        self.repartitions = 0
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.store: Optional[PartitionStore] = None
         self._bind(pg)
 
     def _bind(self, pg: PartitionedGraph) -> None:
-        """Build everything that depends on the vertex assignment: the
-        store, the engine, and the per-partition profile counters."""
+        """(Re)build everything that depends on the vertex assignment: the
+        store (so no stale single-partition entry or stacked bundle of an
+        older layout can be served), the engine, and the per-partition
+        profile counters (old pids name different vertex sets)."""
+        if self.store is not None:
+            # join in-flight read-aheads and drop both cache tiers
+            self.store.close()
         self.pg = pg
         self.scheme = pg.scheme
         self.k = pg.k
         self.store = PartitionStore(pg, capacity_parts=self._cache_parts,
                                     capacity_bytes=self._cache_bytes,
+                                    backing=self._backing,
+                                    host_cache_parts=self._host_cache_parts,
+                                    host_cache_bytes=self._host_cache_bytes,
+                                    read_ahead=self._read_ahead,
                                     tracer=self.tracer, device=self.device)
         if self.engine_name == "opat":
             self.engine = OPATEngine(pg, self.config, store=self.store,
@@ -183,8 +222,9 @@ class GraphSession:
         t0 = time.time()
         reports: List[RunReport] = []
         answers: Optional[np.ndarray] = None
+        gen = self.generation
         with self.tracer.span("query", query=query.name, heuristic=h,
-                              engine=self.engine_name) as qsp:
+                              engine=self.engine_name, generation=gen) as qsp:
             for q in disjuncts:
                 plan = generate_plan(q, self.graph, self.catalog)
                 rep = self.engine.run_request(RunRequest(
@@ -196,10 +236,13 @@ class GraphSession:
             qsp.set(n_answers=int(answers.shape[0]),
                     n_loads=sum(len(r.stats.loads) for r in reports))
         latency = time.time() - t0
+        for rep in reports:
+            rep.stats.generation = gen
         self._absorb(reports, answers)
         return QueryResult(name=query.name, answers=answers, reports=reports,
                            latency_s=latency,
-                           load_stats=self.store.stats - stats0)
+                           load_stats=self.store.stats - stats0,
+                           generation=gen)
 
     def scheduler(self, heuristic: Optional[str] = None,
                   seed: Optional[int] = None,
@@ -330,17 +373,101 @@ class GraphSession:
         with open(path, "w") as f:
             json.dump(self.workload_profile(), f, indent=2)
 
+    # -- out-of-core storage (storage/) ------------------------------------
+
     @property
     def out_of_core(self) -> bool:
-        """In-RAM sessions only: partitions are never disk-resident."""
-        return False
+        """True while partitions are disk-resident (a session built by
+        ``open``; ``repartition()`` moves it back in RAM until the new
+        layout is ``save``d)."""
+        return self._backing is not None
 
     @property
     def mutable(self) -> bool:
-        """In-RAM sessions take no graph updates."""
+        """Graph updates are not ported: no session takes them."""
         return False
 
     @property
     def generation(self) -> Optional[int]:
-        """The graph generation served; in-RAM sessions have none."""
-        return None
+        """The opened directory's manifest generation (None in RAM)."""
+        return self._backing.generation if self._backing is not None else None
+
+    def save(self, path: str) -> Dict[str, Any]:
+        """Write this session's partitioned graph as a *graph directory*
+        (storage/format.py: ``manifest.json`` + one content-addressed
+        shard per partition + the whole-graph arrays); returns the
+        manifest.  Works for in-RAM and disk-opened sessions alike (the
+        latter streams shards one at a time); the manifest is written
+        last, so an interrupted save never yields an openable directory."""
+        from ..storage.format import save_partitioned_graph
+        return save_partitioned_graph(self.pg, path)
+
+    @classmethod
+    def open(cls, path: str, *,
+             engine: str = "opat",
+             heuristic: str = MAX_SN,
+             config: Optional[EngineConfig] = None,
+             cache_parts: Optional[int] = None,
+             cache_bytes: Optional[int] = None,
+             host_cache_parts: Optional[int] = None,
+             host_cache_bytes: Optional[int] = None,
+             read_ahead: bool = True,
+             processors: int = 2,
+             prefetch: bool = True,
+             seed: int = 0,
+             verify_checksums: bool = True,
+             tracer: Optional[Any] = None,
+             device: Union[None, str, torch.device] = None) -> "GraphSession":
+        """Open a ``save``d graph directory as an *out-of-core* session.
+
+        Partition shards stay on disk; the store serves them through a
+        three-tier cache — device LRU (``cache_parts``/``cache_bytes``)
+        over a pinned-host LRU (``host_cache_parts``/``host_cache_bytes``,
+        None = unbounded) over disk — and ``read_ahead`` pulls the
+        heuristic's runner-up off disk on a background thread while the
+        current partition evaluates.  Heuristic ranking and scheduler
+        admission read the manifest, so they never touch a shard.
+        Answers equal a session's over the in-RAM graph; only residency
+        (and ``LoadStats.disk_reads`` / ``read_ahead_hits``) differs.
+        """
+        from ..storage.format import open_partitioned_graph
+        pg = open_partitioned_graph(path, verify_checksums=verify_checksums)
+        return cls(pg=pg, engine=engine, heuristic=heuristic, config=config,
+                   cache_parts=cache_parts, cache_bytes=cache_bytes,
+                   host_cache_parts=host_cache_parts,
+                   host_cache_bytes=host_cache_bytes, read_ahead=read_ahead,
+                   processors=processors, prefetch=prefetch, seed=seed,
+                   tracer=tracer, device=device)
+
+    # -- the WawPart loop --------------------------------------------------
+
+    def repartition(self, profile: Optional[Any] = None, *,
+                    seed: Optional[int] = None,
+                    config: Optional[RepartitionConfig] = None) -> Dict[str, Any]:
+        """Re-layout the graph from observed traffic and rebind the session.
+
+        ``profile`` is a ``workload_profile()`` dict or a
+        ``save_profile()`` JSON path; None uses everything this session has
+        served so far.  The store and engine are rebuilt against the new
+        assignment (every cached entry of the old layout is dropped) and
+        the profile counters restart from zero.  The graph, catalog,
+        engine choice, cache capacities and k are unchanged.  Returns a
+        summary: scheme, cut before and after, imbalance after, k, and the
+        round (``GraphSession.repartitions``).
+        """
+        prof = profile if profile is not None else self.workload_profile()
+        cfg = config if config is not None else RepartitionConfig()
+        before = partition_quality(self.graph, self.pg.assignment, self.k)
+        new_pg = repartition_pg(self.pg, prof, seed=seed, config=cfg)
+        # a disk-opened session's backing names the OLD layout's shards:
+        # drop it, so the fresh store holds the new partitions in RAM (and
+        # _bind closes the old store, joining any read-ahead).  The
+        # directory on disk is untouched until save() writes the new one.
+        self._backing = None
+        self._bind(new_pg)
+        self.repartitions += 1
+        after = partition_quality(self.graph, new_pg.assignment, self.k)
+        return {"round": self.repartitions, "k": self.k,
+                "scheme": self.scheme,
+                "cut_before": before["cut"], "cut_after": after["cut"],
+                "imbalance_after": after["imbalance"]}

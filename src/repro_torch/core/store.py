@@ -17,8 +17,8 @@ Eviction is LRU with an optional capacity in partitions
 (``capacity_parts``) or bytes (``capacity_bytes``); pinned entries are
 never evicted (``pin`` / ``unpin`` / ``pinned``).
 
-On CUDA the host bundles sit in page-locked memory, built once per
-partition at its first staging.  A cold ``get`` copies on the current
+On CUDA the host tier's bundles sit in page-locked memory
+(storage/host_cache.py).  A cold ``get`` copies on the current
 stream.  ``prefetch`` copies with ``non_blocking=True`` on a side stream
 and records an event; the first ``get`` of that entry makes the current
 stream wait on the event and calls ``record_stream`` on every tensor, so
@@ -37,7 +37,18 @@ staged without a stacked host copy: each partition's page-locked host
 tensors copy straight into their slice of the device tensor.
 
 ``release(key)`` is the scheduler's retirement hook: a counted ``drop``.
-Generation views and the disk tier come with later slices.
+
+Out of core: pass ``backing=DiskCatalog`` (storage/format.py) and the
+store becomes the top of a THREE-tier cache — every device miss goes
+through a pinned-host LRU (``host_cache_parts`` / ``host_cache_bytes``,
+storage/host_cache.py), a host miss to a disk shard read (``disk_reads``);
+``prefetch(pid)`` of a partition that is not host-resident issues a
+background-thread *read-ahead* and no device copy, so the heuristic's
+runner-up overlaps the current partition's evaluation at the disk tier as
+it does at the device tier (``read_ahead_issued`` / ``read_ahead_hits``).
+Device copies are issued on the calling thread only.  Without a backing
+the host tier is the whole graph in RAM.  Generation views (mutable
+graph directories) come with a later slice.
 """
 from __future__ import annotations
 
@@ -50,7 +61,7 @@ import numpy as np
 import torch
 
 from ..obs.trace import NULL_TRACER
-from ..storage.host_cache import HostArrayTier
+from ..storage.host_cache import HostArrayTier, HostShardCache
 from .engine import resolve_device
 from .graph import PartitionedGraph
 
@@ -58,8 +69,9 @@ from .graph import PartitionedGraph
 @dataclasses.dataclass
 class LoadStats:
     """Residency counters; deltas of two snapshots describe one run.  The
-    fields match the JAX package's ``LoadStats``: the out-of-core ones
-    stay zero for this in-RAM store."""
+    fields match the JAX package's ``LoadStats``; the out-of-core ones
+    stay zero for a store with no backing, and ``delta_overlays`` until
+    generation views are ported."""
 
     hits: int = 0                # warm loads (entry already device-resident)
     misses: int = 0              # cold loads (copy on the critical path)
@@ -68,13 +80,13 @@ class LoadStats:
     prefetch_hits: int = 0       # gets served by a previously prefetched entry
     bytes_cold: int = 0          # bytes transferred by cold (demand) loads
     bytes_prefetched: int = 0    # bytes transferred off the critical path
-    released: int = 0
-    disk_reads: int = 0
-    read_ahead_issued: int = 0
-    read_ahead_hits: int = 0
-    bytes_disk: int = 0
-    bytes_host: int = 0
-    host_evictions: int = 0
+    released: int = 0            # entries release()d by the scheduler
+    disk_reads: int = 0          # shard reads, demand + read-ahead
+    read_ahead_issued: int = 0   # background-thread shard reads started
+    read_ahead_hits: int = 0     # host gets served by a read-ahead
+    bytes_disk: int = 0          # bytes read off disk (demand + read-ahead)
+    bytes_host: int = 0          # bytes served out of the host LRU tier
+    host_evictions: int = 0      # host-LRU entries dropped to fit capacity
     delta_overlays: int = 0
 
     @property
@@ -141,6 +153,10 @@ class PartitionStore:
                  capacity_parts: Optional[int] = None,
                  capacity_bytes: Optional[int] = None,
                  max_stacked_entries: Optional[int] = 8,
+                 backing: Optional[Any] = None,
+                 host_cache_parts: Optional[int] = None,
+                 host_cache_bytes: Optional[int] = None,
+                 read_ahead: bool = True,
                  tracer: Optional[Any] = None,
                  device: Union[None, str, torch.device] = None):
         if capacity_parts is not None and capacity_parts < 1:
@@ -156,12 +172,19 @@ class PartitionStore:
         self.capacity_bytes = capacity_bytes
         self.max_stacked_entries = max_stacked_entries
         self.stats = LoadStats()
+        self.backing = backing
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        self._host_tier = HostArrayTier(pg)
-        # page-locked host tensors per pid (CUDA only), built at first staging
-        self._pinned_host: Dict[int, tuple] = {}
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        # the host tier the device cache stages from: the whole graph in
+        # RAM, or a disk-backed host LRU with background read-ahead
+        if backing is not None:
+            self._host_tier: Any = HostShardCache(
+                backing, self.stats, capacity_parts=host_cache_parts,
+                capacity_bytes=host_cache_bytes, read_ahead=read_ahead,
+                pin=cuda, tracer=self.tracer)
+        else:
+            self._host_tier = HostArrayTier(pg, pin=cuda)
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
         self._cache: "OrderedDict[StoreKey, StoreEntry]" = OrderedDict()
         self._owner_dev: Optional[torch.Tensor] = None
         # pinned keys (refcounted): protected from LRU eviction while a
@@ -177,11 +200,24 @@ class PartitionStore:
             self._owner_dev = torch.from_numpy(np.asarray(self.pg.owner)).to(self.device)
         return self._owner_dev
 
+    @property
+    def part_keys(self):
+        """Key set of the evaluator input dict (shared by every entry)."""
+        return self._host_tier.part_keys
+
+    @property
+    def host_tier(self):
+        """The disk→host staging tier (storage/host_cache.py)."""
+        return self._host_tier
+
     def resident_keys(self) -> list:
         return [e.key for e in self._cache.values()]
 
     def contains(self, key: StoreKey) -> bool:
         return self._normkey(key) in self._cache
+
+    def host_nbytes(self, pid: int) -> int:
+        return self._host_tier.nbytes(int(pid))
 
     # -- loads -------------------------------------------------------------
 
@@ -199,12 +235,17 @@ class PartitionStore:
         return self._lookup(key)
 
     def prefetch(self, pid: int) -> bool:
-        """Stage ``pid`` off the critical path (a side-stream copy on
-        CUDA).  Returns True when work was issued (False: already
-        resident)."""
+        """Stage ``pid`` off the critical path: a side-stream copy on CUDA
+        when it is host-resident; with a disk backing, a partition not yet
+        in host RAM gets a background-thread *read-ahead* instead (a
+        device copy now would block this thread on the disk read).
+        Returns True when work was issued (False: already resident or in
+        flight)."""
         pid = int(pid)
         if pid in self._cache:
             return False
+        if not self._host_tier.resident(pid):
+            return self._host_tier.read_ahead(pid)
         with self.tracer.span("store.prefetch", pid=pid) as sp:
             entry = self._stage(pid, side_stream=True)
             entry.prefetched = True
@@ -260,6 +301,19 @@ class PartitionStore:
             self.stats.released += 1
         return ok
 
+    def clear(self) -> None:
+        """Drop every device entry (the host tier is untouched: cleared
+        device residency is a serving experiment, not an invalidation)."""
+        self._cache.clear()
+
+    def close(self) -> None:
+        """Release both cache tiers and join any in-flight read-ahead —
+        the teardown hook ``GraphSession`` calls before rebinding, so a
+        repartitioned session can never be served stale host entries of
+        the old layout."""
+        self._cache.clear()
+        self._host_tier.clear()
+
     # -- internals ---------------------------------------------------------
 
     @staticmethod
@@ -289,29 +343,10 @@ class PartitionStore:
             self._insert(entry)
             return entry
 
-    def _host_tensors(self, pid: int) -> tuple:
-        """(part dict, g2l, nbytes): the host bundle as CPU tensors —
-        page-locked copies on CUDA, views of the numpy arrays on CPU.
-        Scalars (pid, n_core) become Python ints."""
-        got = self._pinned_host.get(pid)
-        if got is not None:
-            return got
-        bundle = self._host_tier.get(pid)
-        cuda = self.device.type == "cuda"
-
-        def host(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return t.pin_memory() if cuda else t
-
-        part = {k: (int(v) if np.ndim(v) == 0 else host(v))
-                for k, v in bundle.part.items()}
-        out = (part, host(bundle.g2l), bundle.nbytes)
-        if cuda:
-            self._pinned_host[pid] = out
-        return out
-
     def _stage(self, pid: int, side_stream: bool) -> StoreEntry:
-        part_h, g2l_h, nbytes = self._host_tensors(pid)
+        """Pull the host bundle through the host tier (an in-RAM bundle, a
+        host-LRU hit, or a disk shard read) and copy it to the device."""
+        part_h, g2l_h, nbytes = self._host_tier.get(pid)
         if self.device.type != "cuda":
             return StoreEntry(key=pid, part=dict(part_h), g2l=g2l_h, nbytes=nbytes)
 
@@ -333,14 +368,16 @@ class PartitionStore:
         """Stack the partitions of ``key`` on the device, on the current
         stream.  On CUDA each partition's page-locked host tensors copy
         (``non_blocking``) straight into their slice of the stacked device
-        tensor, so no unpinned stacked host copy is ever made."""
-        bundles = [self._host_tensors(p) for p in key]
-        nbytes = sum(b[2] for b in bundles)
-        scalars = {k: torch.tensor([b[0][k] for b in bundles], dtype=torch.int32)
-                   for k, v in bundles[0][0].items() if isinstance(v, int)}
-        tensors = [(k, [b[0][k] for b in bundles])
-                   for k, v in bundles[0][0].items() if not isinstance(v, int)]
-        tensors.append(("g2l", [b[1] for b in bundles]))
+        tensor, so no unpinned stacked host copy is ever made.  The
+        bundles are held here until every slice's copy is issued: a host
+        tier smaller than ``key`` evicts one while the next is read."""
+        bundles = [self._host_tier.get(p) for p in key]
+        nbytes = sum(b.nbytes for b in bundles)
+        scalars = {k: torch.tensor([b.part[k] for b in bundles], dtype=torch.int32)
+                   for k, v in bundles[0].part.items() if isinstance(v, int)}
+        tensors = [(k, [b.part[k] for b in bundles])
+                   for k, v in bundles[0].part.items() if not isinstance(v, int)]
+        tensors.append(("g2l", [b.g2l for b in bundles]))
         if self.device.type != "cuda":
             stacked = {k: torch.stack(ts) for k, ts in tensors}
         else:

@@ -1,7 +1,8 @@
 """End-to-end query-serving CLI of the PyTorch port — a thin client of
 ``GraphSession`` (core/session.py).
 
-Generates a graph database and opens one in-RAM ``GraphSession``: the
+Generates a graph database and opens one in-RAM ``GraphSession`` (or,
+with ``--graph-dir``, opens a saved graph directory out of core): the
 session partitions the graph with the chosen scheme, owns the
 ``PartitionStore`` (device-resident partitions, LRU capacity via
 ``--cache-parts``, OPAT runner-up prefetch) and the engine, then serves
@@ -37,10 +38,16 @@ no device-count setting.
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset synthetic \\
         --scale 0.5 --k 4 --engine mapreduce --verify --device cpu
 
-Flags of modules not ported yet (out-of-core graph directories, mutation,
-repartitioning, the SLO front end, the metrics registry) are accepted by
-the parser and end the run with exit code 2 and the ``ROADMAP.md`` item
-that ports them.
+Out of core: ``--save-graph DIR`` writes the session's partitioned graph
+as a graph directory, and ``--graph-dir DIR`` serves from one through the
+disk → pinned-host → device tiers (``--host-cache-parts``,
+``--no-read-ahead``).  ``--repartition-from PROFILE.json`` feeds a saved
+workload profile (``--profile-json``) to ``GraphSession.repartition``
+before serving, then ``--save-graph`` saves the new layout.
+
+Flags of modules not ported yet (mutation, the SLO front end, the metrics
+registry) are accepted by the parser and end the run with exit code 2 and
+the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
@@ -64,14 +71,9 @@ from ..obs import NULL_TRACER, Tracer, observability_snapshot, write_chrome_trac
 
 # flag dest -> the ROADMAP.md item that ports what it needs
 UNPORTED_FLAGS = {
-    "graph_dir": "§1 item 3 (out-of-core sessions)",
-    "save_graph": "§1 item 3 (out-of-core sessions)",
-    "host_cache_parts": "§1 item 3 (out-of-core sessions)",
-    "no_read_ahead": "§1 item 3 (out-of-core sessions)",
     "mutate_workload": "§1 item 5 (mutation)",
     "mutate_compact_every": "§1 item 5 (mutation)",
     "mutate_seed": "§1 item 5 (mutation)",
-    "repartition_from": "§1 item 5 (repartition)",
     "slo": "§1 item 9 (the SLO front end)",
     "shed_policy": "§1 item 9 (the SLO front end)",
     "arrival_replay": "§1 item 9 (the SLO front end)",
@@ -125,6 +127,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: unbounded)")
     ap.add_argument("--no-prefetch", action="store_true",
                     help="disable OPAT's runner-up partition prefetch")
+    ap.add_argument("--graph-dir", default="", metavar="DIR",
+                    help="serve OUT OF CORE from this saved graph directory "
+                         "(GraphSession.open): --dataset/--seed then only "
+                         "name the query batch, --k/--scheme come from the "
+                         "manifest")
+    ap.add_argument("--save-graph", default="", metavar="DIR",
+                    help="after building (and optionally repartitioning) "
+                         "the session, save its partitioned graph as a graph "
+                         "directory reopenable via --graph-dir")
+    ap.add_argument("--host-cache-parts", type=int, default=None,
+                    help="with --graph-dir: pinned-host LRU capacity in "
+                         "partitions between disk and device (default: "
+                         "unbounded)")
+    ap.add_argument("--no-read-ahead", action="store_true",
+                    help="with --graph-dir: disable the background-thread "
+                         "disk read-ahead of the heuristic's runner-up")
+    ap.add_argument("--repartition-from", default="", metavar="PROFILE.json",
+                    help="before serving, feed this saved workload profile "
+                         "(a previous run's --profile-json) to "
+                         "GraphSession.repartition() and serve the 'waw' "
+                         "layout")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--verify", action="store_true",
                     help="check answers against the whole-graph oracle")
@@ -161,13 +184,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "ranking of --workload")
     # flags of modules not ported yet: parsed, then refused (see main)
     unported = ap.add_argument_group("not ported yet (exit 2)")
-    for flag, kw in (("--graph-dir", {}), ("--save-graph", {}),
-                     ("--host-cache-parts", {"type": int}),
-                     ("--no-read-ahead", {"action": "store_true"}),
-                     ("--mutate-workload", {"type": int}),
+    for flag, kw in (("--mutate-workload", {"type": int}),
                      ("--mutate-compact-every", {"type": int}),
-                     ("--mutate-seed", {"type": int}),
-                     ("--repartition-from", {}), ("--slo", {}),
+                     ("--mutate-seed", {"type": int}), ("--slo", {}),
                      ("--shed-policy", {}),
                      ("--arrival-replay", {"type": float}),
                      ("--default-slo", {}), ("--metrics-out", {})):
@@ -246,19 +265,40 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     tracer = Tracer() if args.trace_out else NULL_TRACER
     t0 = time.time()
-    graph, dqueries = load_dataset(args.dataset, args.scale, args.seed)
-    print(f"[serve] graph: {graph.n_nodes} nodes, {graph.n_edges} edges")
+    if args.graph_dir:
+        session = GraphSession.open(args.graph_dir, engine=args.engine,
+                                    heuristic=args.heuristic,
+                                    config=EngineConfig(cap=args.cap),
+                                    cache_parts=args.cache_parts,
+                                    host_cache_parts=args.host_cache_parts,
+                                    read_ahead=not args.no_read_ahead,
+                                    processors=args.processors,
+                                    prefetch=not args.no_prefetch,
+                                    seed=args.seed, tracer=tracer,
+                                    device=args.device)
+        graph = session.graph
+        dqueries = load_queries(args.dataset, graph, args.seed)
+        print(f"[serve] graph: {graph.n_nodes} nodes, {graph.n_edges} "
+              f"edges (opened out of core from {args.graph_dir}: "
+              f"{session.pg.backing.total_part_bytes()} shard bytes on "
+              f"disk, host cache "
+              f"{args.host_cache_parts or 'unbounded'} parts)")
+    else:
+        graph, dqueries = load_dataset(args.dataset, args.scale, args.seed)
+        print(f"[serve] graph: {graph.n_nodes} nodes, {graph.n_edges} edges")
     if args.emit_workload:
         emit_workload(args, dqueries)
         return 0
 
-    session = GraphSession(graph, k=args.k, scheme=args.scheme,
-                           engine=args.engine, heuristic=args.heuristic,
-                           config=EngineConfig(cap=args.cap),
-                           cache_parts=args.cache_parts,
-                           processors=args.processors,
-                           prefetch=not args.no_prefetch,
-                           seed=args.seed, tracer=tracer, device=args.device)
+    if not args.graph_dir:
+        session = GraphSession(graph, k=args.k, scheme=args.scheme,
+                               engine=args.engine, heuristic=args.heuristic,
+                               config=EngineConfig(cap=args.cap),
+                               cache_parts=args.cache_parts,
+                               processors=args.processors,
+                               prefetch=not args.no_prefetch,
+                               seed=args.seed, tracer=tracer,
+                               device=args.device)
     q = partition_quality(graph, session.pg.assignment, session.k)
     print(f"[serve] session: k={session.k} scheme={session.scheme} "
           f"engine={args.engine} device={session.device} cut={q['cut']} "
@@ -266,6 +306,22 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"total_cc={total_connected_components(session.pg)} "
           f"cache_parts={args.cache_parts or 'unbounded'} "
           f"[{time.time()-t0:.1f}s]")
+
+    if args.repartition_from:
+        info = session.repartition(args.repartition_from)
+        q = partition_quality(graph, session.pg.assignment, session.k)
+        print(f"[serve] repartitioned from {args.repartition_from}: "
+              f"scheme={session.scheme} cut {info['cut_before']} -> "
+              f"{info['cut_after']} ({q['cut_frac']:.1%}) "
+              f"sizes={q['sizes']} "
+              f"total_cc={total_connected_components(session.pg)}")
+
+    if args.save_graph:
+        manifest = session.save(args.save_graph)
+        total = sum(p["nbytes"] for p in manifest["partitions"])
+        print(f"[serve] saved graph directory {args.save_graph}: "
+              f"k={manifest['k']} scheme={manifest['scheme']} "
+              f"{total} shard bytes (reopen with --graph-dir)")
 
     throughput = None
     if args.workload:
@@ -334,6 +390,12 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"{cache['prefetch_issued']} prefetches "
           f"({cache['prefetch_hits']} hit), "
           f"{cache['bytes_cold']} cold bytes")
+    if session.out_of_core:
+        print(f"[serve] disk tier: {cache['disk_reads']} shard reads "
+              f"({cache['bytes_disk']} bytes), "
+              f"{cache['read_ahead_issued']} read-aheads "
+              f"({cache['read_ahead_hits']} hit), "
+              f"{cache['host_evictions']} host evictions")
 
     if args.trace_out:
         write_chrome_trace(tracer, args.trace_out)

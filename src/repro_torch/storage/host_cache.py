@@ -1,22 +1,56 @@
-"""The pinned-host tier under ``PartitionStore`` (core/store.py).
+"""The pinned-host tier of the three-level partition cache.
 
-``HostArrayTier`` is the in-RAM case (a session built from a live
-``PartitionedGraph``): every partition's host bundle is always resident.
-``read_ahead`` is a no-op.  The store pins these arrays in page-locked
-memory on CUDA, so its device copies can run asynchronously.
+``PartitionStore`` (core/store.py) owns device residency; this module
+owns what sits between the device and the disk:
+
+  disk (DiskCatalog shards)  →  host LRU (here)  →  device LRU (store)
+
+Two implementations share one small protocol — ``get(pid)`` returning a
+``HostBundle``, ``resident``, ``read_ahead``, ``nbytes``, ``clear``:
+
+``HostArrayTier``  — the in-RAM case (a session built from a live
+    ``PartitionedGraph``): every partition's host bundle is always
+    resident.  ``read_ahead`` is a no-op.
+
+``HostShardCache`` — the out-of-core case: an LRU of host bundles
+    (capacity in partitions or bytes) backed by a ``DiskCatalog``.
+    ``read_ahead(pid)`` starts a background thread that pulls the shard
+    off disk while the caller keeps evaluating, so the heuristic's
+    runner-up partition is in host RAM by the time its turn comes.  A
+    later ``get`` joins the thread (a ``read_ahead_hit``) instead of
+    paying a demand read on the critical path.
+
+A bundle holds CPU tensors: scalars (pid, n_core) as Python ints, arrays
+as tensors.  With ``pin=True`` (a store on CUDA) they are page-locked, so
+the store's device copies can run asynchronously: ``HostArrayTier`` pins a
+partition at its first ``get``, once; ``HostShardCache`` pins a bundle as
+it lands in the tier (on the worker thread for a read-ahead), and evicting
+it frees its pinned memory.  With ``pin=False`` the tensors share the
+numpy arrays' memory.
+
+Counters (LoadStats, core/store.py) are all kept on the *calling* thread,
+so snapshots taken by the engines and the scheduler never race a worker.
+A read-ahead reserves its LRU slot when it is issued — counting its disk
+read and bytes from the manifest, and evicting to fit, right then — and
+its worker only reads, verifies and pins into that slot.  The LRU order
+is therefore the one a read-ahead that lands at once would give, however
+long the worker takes.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import threading
+from collections import OrderedDict
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
+import torch
 
 
 class HostBundle(NamedTuple):
     """One partition's host-resident staging unit."""
 
-    part: Dict[str, np.ndarray]   # evaluator input dict
-    g2l: np.ndarray               # that partition's [V] g2l row
+    part: Dict[str, Union[int, torch.Tensor]]   # evaluator input dict
+    g2l: torch.Tensor                           # that partition's [V] g2l row
     nbytes: int
 
 
@@ -25,32 +59,219 @@ def bundle_nbytes(part: Dict[str, np.ndarray], g2l: np.ndarray) -> int:
                + np.asarray(g2l).nbytes)
 
 
-class HostArrayTier:
-    """All partitions pinned in host RAM (built once from a live pg)."""
+def host_bundle(part: Dict[str, np.ndarray], g2l: np.ndarray,
+                pin: bool) -> HostBundle:
+    """A numpy bundle as CPU tensors: page-locked copies with ``pin``,
+    views of the arrays without.  Scalars become Python ints."""
+    def host(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if pin else t
 
-    def __init__(self, pg):
+    return HostBundle(
+        part={k: (int(v) if np.ndim(v) == 0 else host(v)) for k, v in part.items()},
+        g2l=host(g2l), nbytes=bundle_nbytes(part, g2l))
+
+
+class HostArrayTier:
+    """All partitions in host RAM (a live pg), pinned at first use."""
+
+    def __init__(self, pg, pin: bool = False):
         from ..core.engine import part_to_device_dict
-        self._bundles = [
-            HostBundle(part=(d := part_to_device_dict(p)),
-                       g2l=pg.g2l[p.pid],
-                       nbytes=bundle_nbytes(d, pg.g2l[p.pid]))
-            for p in pg.parts]
+        self._pg = pg
+        self._pin = pin
+        self._numpy = [part_to_device_dict(p) for p in pg.parts]
+        self._bundles: Dict[int, HostBundle] = {}
 
     @property
     def part_keys(self):
-        return self._bundles[0].part.keys()
+        return self._numpy[0].keys()
 
     def resident(self, pid: int) -> bool:
         return True
 
     def get(self, pid: int) -> HostBundle:
-        return self._bundles[int(pid)]
+        pid = int(pid)
+        got = self._bundles.get(pid)
+        if got is None:
+            got = host_bundle(self._numpy[pid], self._pg.g2l[pid], self._pin)
+            self._bundles[pid] = got
+        return got
 
     def read_ahead(self, pid: int) -> bool:
         return False   # nothing to stage: everything is already host-resident
 
     def nbytes(self, pid: int) -> int:
-        return self._bundles[int(pid)].nbytes
+        return bundle_nbytes(self._numpy[int(pid)], self._pg.g2l[int(pid)])
 
     def clear(self) -> None:
-        pass   # pinned bundles are the graph itself; nothing to invalidate
+        pass   # the bundles are the graph itself; nothing to invalidate
+
+
+class _ReadAhead:
+    """An LRU slot reserved by ``read_ahead``; its worker thread sets
+    ``bundle`` or ``error`` and nothing else."""
+
+    __slots__ = ("thread", "bundle", "error")
+
+    def __init__(self):
+        self.thread: Optional[threading.Thread] = None
+        self.bundle: Optional[HostBundle] = None
+        self.error: Optional[BaseException] = None
+
+
+class HostShardCache:
+    """Disk-backed host LRU with background read-ahead.
+
+    ``stats`` is the owning store's ``LoadStats``; this tier increments
+    ``disk_reads`` / ``bytes_disk`` / ``read_ahead_issued`` /
+    ``read_ahead_hits`` / ``bytes_host`` / ``host_evictions`` on it, on
+    the calling thread only (see the module docstring).  With no capacity
+    the tier holds every shard it has ever read.  ``peak_nbytes`` is the
+    most bytes the tier has held at once, read-ahead slots counted at
+    their manifest size.
+    """
+
+    def __init__(self, catalog, stats,
+                 capacity_parts: Optional[int] = None,
+                 capacity_bytes: Optional[int] = None,
+                 read_ahead: bool = True,
+                 pin: bool = False,
+                 tracer=None):
+        if capacity_parts is not None and capacity_parts < 1:
+            raise ValueError(f"host capacity_parts must be >= 1, "
+                             f"got {capacity_parts}")
+        if capacity_bytes is not None and capacity_bytes < 1:
+            raise ValueError(f"host capacity_bytes must be >= 1, "
+                             f"got {capacity_bytes}")
+        self.catalog = catalog
+        self.stats = stats
+        self.capacity_parts = capacity_parts
+        self.capacity_bytes = capacity_bytes
+        self.read_ahead_enabled = read_ahead
+        self.pin = pin
+        if tracer is None:
+            from ..obs.trace import NULL_TRACER
+            tracer = NULL_TRACER
+        self.tracer = tracer
+        # pid -> a landed bundle, or the slot of a read-ahead no get has
+        # consumed yet (in flight or landed)
+        self._cache: "OrderedDict[int, Union[HostBundle, _ReadAhead]]" = OrderedDict()
+        # every worker started and not yet joined: clear() joins them all,
+        # those of evicted slots included
+        self._workers: List[threading.Thread] = []
+        self.peak_nbytes = 0
+
+    @property
+    def part_keys(self):
+        return self.catalog.part_keys
+
+    def resident(self, pid: int) -> bool:
+        """Host-resident NOW — an in-flight read-ahead does not count
+        (the store must not try to device-stage a pid whose bytes are
+        still on their way: its host get would block on the worker)."""
+        got = self._cache.get(int(pid))
+        if isinstance(got, _ReadAhead):
+            return not got.thread.is_alive() and got.error is None
+        return got is not None
+
+    def nbytes(self, pid: int) -> int:
+        return self.catalog.part_nbytes(int(pid))
+
+    def held_nbytes(self) -> int:
+        """Bytes the tier holds now (read-ahead slots at manifest size)."""
+        return sum(self.nbytes(p) if isinstance(b, _ReadAhead) else b.nbytes
+                   for p, b in self._cache.items())
+
+    def _load(self, pid: int) -> HostBundle:
+        part, g2l = self.catalog.read_part(pid)
+        return host_bundle(part, g2l, self.pin)
+
+    def get(self, pid: int) -> HostBundle:
+        pid = int(pid)
+        got = self._cache.get(pid)
+        if isinstance(got, _ReadAhead):
+            got.thread.join()
+            if got.error is not None:
+                del self._cache[pid]
+                raise got.error   # e.g. StorageFormatError from a corrupt shard
+            self._cache[pid] = got = got.bundle
+            self.stats.read_ahead_hits += 1
+        if got is not None:
+            self._cache.move_to_end(pid)
+            self.stats.bytes_host += got.nbytes
+            return got
+        # demand read: disk on the critical path
+        with self.tracer.span("store.disk_read", pid=pid) as sp:
+            self.stats.disk_reads += 1
+            bundle = self._load(pid)
+            self.stats.bytes_disk += bundle.nbytes
+            sp.set(nbytes=bundle.nbytes)
+        self._insert(pid, bundle)
+        self.stats.bytes_host += bundle.nbytes
+        return bundle
+
+    def read_ahead(self, pid: int) -> bool:
+        """Start pulling ``pid`` off disk on a background thread; returns
+        True when a read was issued (False: resident, already in flight,
+        or read-ahead disabled).  The slot is reserved in the LRU now, so
+        a read-ahead nobody ever ``get``s is still capacity-bounded; a
+        worker failure (corrupt shard, IO error) is re-raised by the next
+        ``get(pid)`` instead of being swallowed."""
+        pid = int(pid)
+        if not self.read_ahead_enabled or pid in self._cache:
+            return False
+        # nbytes comes from the manifest, so no shard I/O happens here
+        self.stats.disk_reads += 1
+        self.stats.read_ahead_issued += 1
+        self.stats.bytes_disk += self.nbytes(pid)
+        slot = _ReadAhead()
+
+        def work() -> None:
+            try:
+                # the tracer is thread-safe with one timebase, so the read
+                # shows in its own thread lane beside the main thread's
+                with self.tracer.span("store.read_ahead", pid=pid) as sp:
+                    slot.bundle = self._load(pid)
+                    sp.set(nbytes=slot.bundle.nbytes)
+            except BaseException as e:   # surfaced by the next get(pid)
+                slot.error = e
+
+        slot.thread = threading.Thread(target=work, daemon=True,
+                                       name=f"read-ahead-part-{pid}")
+        self._workers = [t for t in self._workers if t.is_alive()]
+        self._workers.append(slot.thread)
+        self._insert(pid, slot)
+        slot.thread.start()
+        return True
+
+    def clear(self) -> None:
+        """Drop every host entry and join in-flight read-aheads — the
+        invalidation hook ``repartition()`` relies on (stale shards of an
+        old layout must never be served)."""
+        for t in self._workers:
+            t.join()
+        self._workers.clear()
+        self._cache.clear()
+
+    def _insert(self, pid: int, entry) -> None:
+        self._cache[pid] = entry
+        self._cache.move_to_end(pid)
+        self._evict(keep=pid)
+        self.peak_nbytes = max(self.peak_nbytes, self.held_nbytes())
+
+    def _evict(self, keep: int) -> None:
+        def over() -> bool:
+            if self.capacity_parts is not None \
+                    and len(self._cache) > self.capacity_parts:
+                return True
+            if self.capacity_bytes is not None \
+                    and self.held_nbytes() > self.capacity_bytes:
+                return True
+            return False
+
+        while over():
+            victim = next((p for p in self._cache if p != keep), None)
+            if victim is None:
+                break   # the just-read shard alone exceeds the budget
+            del self._cache[victim]
+            self.stats.host_evictions += 1

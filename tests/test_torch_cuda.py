@@ -154,3 +154,61 @@ def test_cuda_mapreduce_matches_cpu():
     card = chip_smoke.mapreduce_small(g, qs, "cuda")
     assert build.LAUNCHES[ff.NAME] == sum(r[3] for r in card)
     assert chip_smoke.same_mapreduce(card, chip_smoke.mapreduce_small(g, qs, "cpu"))
+
+
+@pytest.fixture(scope="module")
+def small_graph_dir(tmp_path_factory):
+    """A 20,000-node synthetic graph at k=4 saved as a graph directory
+    (made only when there is a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import GraphSession
+    from repro_torch.data.generators import subgen_like_graph
+    g = subgen_like_graph(n_nodes=20_000, n_edges=60_000, n_embed=500, seed=0)
+    gdir = tmp_path_factory.mktemp("cuda-ooc") / "graph"
+    GraphSession(g, device="cpu").save(str(gdir))
+    return gdir
+
+
+@pytest.mark.cuda
+def test_cuda_host_eviction_under_an_in_flight_copy(small_graph_dir):
+    """A host tier of one partition: prefetch(a)'s side-stream copy is held
+    behind a spin kernel while get(b) evicts a's pinned bundle and pins b's;
+    both device entries equal their shards bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rec = chip_smoke.evict_under_copy(small_graph_dir, 0, 1, sleep_cycles=200_000_000)
+    assert rec["prefetch_issued"] and rec["a_evicted"], rec
+    assert rec["copy_in_flight_at_eviction"], rec
+    assert rec["a_equal"] and rec["b_equal"] and rec["prefetch_hits"] == 1, rec
+
+
+@pytest.mark.cuda
+def test_cuda_read_ahead_pinned_on_its_worker(small_graph_dir):
+    """prefetch of a partition not in host RAM: a read-ahead whose worker
+    thread pins the bundle, then one copy on the main stream at the get,
+    bit-equal to the shard; no device copy at the prefetch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rec = chip_smoke.read_ahead_pinned(small_graph_dir, 2)
+    assert rec["read_ahead_issued"] and rec["pinned_on_worker"] and rec["equal"], rec
+    assert rec["read_ahead_hits"] == 1 and rec["device_copy_on_prefetch"] == 0, rec
+    assert rec["worker"].startswith("read-ahead-part-")
+
+
+@pytest.mark.cuda
+def test_cuda_opened_opat_matches_cpu(small_graph_dir):
+    """An OPAT session opened from disk (device and host tiers of one
+    partition) on the card equals the same session on the CPU: answers,
+    loads, iterations and every LoadStats field; the step launches once
+    per evaluator loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import build
+    build.LAUNCHES.clear()
+    card = chip_smoke.opened_small(small_graph_dir, "cuda")
+    assert build.LAUNCHES[ff.NAME] > 0
+    cpu = chip_smoke.opened_small(small_graph_dir, "cpu")
+    assert chip_smoke.same_opened(card, cpu)
+    assert sum(r[4]["disk_reads"] for r in card) > 0
+    assert sum(r[4]["read_ahead_hits"] for r in card) > 0

@@ -626,7 +626,12 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 20
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/core/mapreduce_mp.py",
-            "src/repro_torch/launch/serve.py"} <= names
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/core/repartition.py",
+            "src/repro_torch/storage/__init__.py",
+            "src/repro_torch/storage/format.py",
+            "src/repro_torch/storage/host_cache.py",
+            "src/repro_torch/obs/metrics.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

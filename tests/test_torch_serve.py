@@ -1,8 +1,10 @@
 """The PyTorch port's serving CLI (``python -m repro_torch.launch.serve``)
 on the CPU: the ``--verify`` gate for every engine, the ``--json`` report
-against the JAX package's CLI, the workload round trip, and the refusal of
-flags whose modules are not ported yet."""
+against the JAX package's CLI (in RAM, and out of core for each of the
+graph-directory and repartitioning flags), the workload round trip, and
+the refusal of flags whose modules are not ported yet."""
 import json
+import os
 import sys
 
 import pytest
@@ -10,8 +12,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.launch import serve as ref_serve
+from repro.storage import HostShardCache as RefHostShardCache
 
 from repro_torch.launch import serve
+from repro_torch.storage import HostShardCache
 
 SMALL = ["--dataset", "synthetic", "--scale", "0.5", "--device", "cpu"]
 
@@ -89,3 +93,124 @@ def test_unported_flag_exits_2_naming_its_item(capsys, dest, item):
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert flag in err and f"ROADMAP.md {item}" in err
+
+
+# --json record keys both CLIs must agree on (latency is wall-clock)
+RECORD_KEYS = ("query", "answers", "loads", "l_ideal", "iterations", "cold_loads",
+               "warm_loads", "prefetch_hits", "disk_reads", "read_ahead_hits",
+               "generation")
+
+
+def _both_reports(tmp_path, monkeypatch, capsys, args, tag):
+    """Run the reference CLI and then the port's with ``args``; return
+    their --json reports."""
+    ref_out, out = tmp_path / f"{tag}-ref.json", tmp_path / f"{tag}-port.json"
+    monkeypatch.setattr(sys, "argv", ["serve", *args, "--json", str(ref_out)])
+    ref_serve.main()
+    assert serve.main(args + ["--device", "cpu", "--json", str(out)]) == 0
+    capsys.readouterr()
+    return json.loads(ref_out.read_text()), json.loads(out.read_text())
+
+
+def _assert_same_reports(got, want):
+    assert [{k: r[k] for k in RECORD_KEYS} for r in got["queries"]] == \
+        [{k: r[k] for k in RECORD_KEYS} for r in want["queries"]]
+    assert got["cache"] == want["cache"]
+
+
+@pytest.fixture(scope="module")
+def ref_graph_dir(tmp_path_factory):
+    """A graph directory written by the reference CLI's --save-graph."""
+    gdir = tmp_path_factory.mktemp("cli") / "graph"
+    argv = sys.argv
+    sys.argv = ["serve", "--dataset", "synthetic", "--scale", "0.5",
+                "--max-answers", "1", "--save-graph", str(gdir)]
+    try:
+        ref_serve.main()
+    finally:
+        sys.argv = argv
+    return str(gdir)
+
+
+OOC = ["--dataset", "synthetic", "--max-answers", "5", "--cache-parts", "1"]
+
+
+def _joined(read_ahead, workers):
+    def issue_and_join(self, *args, **kwargs):
+        issued = read_ahead(self, *args, **kwargs)
+        for t in workers(self):
+            t.join(timeout=60)
+        return issued
+    return issue_and_join
+
+
+def _ref_workers(tier):
+    with tier._lock:
+        return list(tier._pending.values())
+
+
+@pytest.mark.parametrize("flag", ["save_graph", "graph_dir", "host_cache_parts",
+                                  "no_read_ahead", "repartition_from"])
+def test_served_flag_matches_reference_cli(tmp_path, monkeypatch, capsys,
+                                           ref_graph_dir, flag):
+    """Each flag that used to exit 2 is served: the port's --json report
+    equals the reference CLI's in answers, loads and the cache block (disk
+    counters included).  --save-graph writes the reference's files; the
+    graph-directory flags open the reference's directory.  Both packages'
+    read-aheads join their worker before returning, so neither side's
+    counters follow thread timing (see tests/test_torch_storage.py)."""
+    monkeypatch.setattr(RefHostShardCache, "read_ahead",
+                        _joined(RefHostShardCache.read_ahead, _ref_workers))
+    monkeypatch.setattr(HostShardCache, "read_ahead",
+                        _joined(HostShardCache.read_ahead, lambda t: list(t._workers)))
+    if flag == "save_graph":
+        gdir = tmp_path / "saved"
+        want, got = _both_reports(
+            tmp_path, monkeypatch, capsys,
+            ["--dataset", "synthetic", "--scale", "0.5", "--max-answers", "1",
+             "--save-graph", str(gdir)], flag)
+        # the reference saved first and the port saved over it: the same
+        # content-addressed files, under the manifest's next generation
+        assert sorted(os.listdir(gdir)) == sorted(os.listdir(ref_graph_dir))
+        manifest = json.loads((gdir / "manifest.json").read_text())
+        assert manifest.pop("generation") == 1
+        first = json.loads(open(os.path.join(ref_graph_dir, "manifest.json")).read())
+        assert first.pop("generation") == 0 and manifest == first
+        assert got["workload_profile"] == want["workload_profile"]
+    elif flag == "repartition_from":
+        profile = tmp_path / "profile.json"
+        assert serve.main(SMALL + ["--max-answers", "5", "--profile-json",
+                                   str(profile)]) == 0
+        want, got = _both_reports(
+            tmp_path, monkeypatch, capsys,
+            ["--dataset", "synthetic", "--scale", "0.5", "--max-answers", "5",
+             "--repartition-from", str(profile)], flag)
+        assert got["workload_profile"]["scheme"] == "waw"
+        assert got["workload_profile"] == want["workload_profile"]
+    else:
+        extra = {"graph_dir": [],
+                 "host_cache_parts": ["--host-cache-parts", "1"],
+                 "no_read_ahead": ["--host-cache-parts", "2", "--no-read-ahead"]}[flag]
+        want, got = _both_reports(tmp_path, monkeypatch, capsys,
+                                  OOC + ["--graph-dir", ref_graph_dir] + extra, flag)
+        assert got["workload_profile"]["out_of_core"] is True
+        cache = got["cache"]
+        assert cache["disk_reads"] > 0 and cache["bytes_disk"] > 0
+        if flag == "no_read_ahead":
+            assert cache["read_ahead_issued"] == 0
+        elif flag == "host_cache_parts":
+            assert cache["host_evictions"] > 0 and cache["read_ahead_hits"] > 0
+    _assert_same_reports(got, want)
+
+
+@pytest.mark.parametrize("engine", ["opat", "traditional", "mapreduce"])
+def test_graph_dir_verify_prints_only_match(capsys, ref_graph_dir, engine):
+    """Every engine served from the reference's graph directory through a
+    one-partition host tier: every query MATCHes the oracle."""
+    assert serve.main(["--dataset", "synthetic", "--device", "cpu", "--engine", engine,
+                       "--graph-dir", ref_graph_dir, "--host-cache-parts", "1",
+                       "--verify"]) == 0
+    out = capsys.readouterr().out
+    verdicts = _verify_lines(out)
+    assert len(verdicts) == 3 and set(verdicts) == {"MATCH"}
+    assert "[serve] disk tier:" in out
