@@ -80,10 +80,35 @@ Phases, each printing one JSON line:
                run, step launches equal to the loop counts and the host
                tier's peak bytes within two partitions; cold and warm Q5
                opened (unbounded tiers) against in RAM; peak device memory
+  frontend     the SLO front end (before ooc) on the path's OPAT, the
+               traditional and the mapreduce sessions: with no classes it
+               equals submit_many; under the default classes with instant
+               replay the path's runs x 4, classes round-robin, every
+               served answer checked against the oracle under its
+               effective budget, every shed with a reason, the counters
+               summing to the arrivals; then OPAT under real-time replay
+               (48 arrivals 20 ms apart, three in four batch): per class
+               p50/p95/p99, deadline attainment, burn rate, and the cost
+               model's calibrated seconds per unit beside the reference's
+               2e-4 prior
   repartition  GraphSession.repartition on the path phase's OPAT session
                with the profile it served: cut before and after, host
                seconds, device memory before and after the rebind, then Q4
                and Q5 again against the oracle
+  mutation     the ooc phase's graph directory opened mutable (OPAT,
+               cache_parts=1, host_cache_parts=2): three bursts of updates
+               (a clone of a vertex bound in Q4's answers with its edges,
+               so an answer binds a vertex added in the session; twelve
+               updates of all four kinds; edges that widen the ELL width),
+               each followed by a query checked against the oracle over
+               its own overlay graph, and one step launch under the view
+               against its plain version; a scheduler pinned to that
+               generation while compact_hot publishes the next (its answer
+               the pinned graph's, its files kept until close()); cold Q5
+               on the stale view against after compact_all; TraditionalMP
+               and MapReduceMP on the final generation; host seconds per
+               update, overlay rebuild and compaction seconds, peak device
+               memory
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
@@ -1307,6 +1332,231 @@ def same_opened(a, b) -> bool:
         for x, y in zip(a, b))
 
 
+# ---------------------------------------------------------------------------
+# mutable graphs: generation views, the owner table per view, compaction
+# ---------------------------------------------------------------------------
+
+def edges_at(g, x: int) -> list:
+    """(u, v, label, directed) of every edge at vertex ``x``."""
+    src, dst = np.asarray(g.edge_src), np.asarray(g.edge_dst)
+    lab, dr = np.asarray(g.edge_label), np.asarray(g.edge_directed)
+    return [(int(src[i]), int(dst[i]), g.edge_vocab.str_of(int(lab[i])), bool(dr[i]))
+            for i in np.flatnonzero((src == x) | (dst == x))]
+
+
+def clone_ops(g, assignment, answers) -> list:
+    """Updates that add a clone of a vertex bound in ``answers[0]`` (its
+    label, value, partition and every edge it has): wherever the original
+    answers, so does the clone, whose gid is the graph's next one."""
+    V = int(g.n_nodes)
+    x = int(answers[0][answers[0] >= 0][-1])
+    ops = [{"op": "vertex_add", "label": g.node_vocab.str_of(int(g.node_label[x])),
+            "value": float(g.node_value[x]), "pid": int(assignment[x])}]
+    for u, v, lab, d in edges_at(g, x):
+        ops.append({"op": "edge_add", "u": V if u == x else u,
+                    "v": V if v == x else v, "label": lab, "directed": d})
+    return ops
+
+
+def widen_ops(g, ell_width: int) -> list:
+    """Edges at the highest-degree vertex until its degree is
+    ``ell_width`` (the current width) plus two, so the next view's width
+    grows past it."""
+    deg = g.degree_view()
+    hub = int(np.argmax(deg))
+    lab = g.edge_vocab.str_of(0)
+    others = [v for v in range(int(g.n_nodes)) if v != hub][:ell_width - int(deg[hub]) + 2]
+    return [{"op": "edge_add", "u": hub, "v": int(v), "label": lab} for v in others]
+
+
+def mixed_ops(g, rng, n: int) -> list:
+    """``n`` updates cycling through edge_add, edge_del, vertex_add and
+    vertex_del, drawn from ``g`` so that every one applies in order (no
+    edge touches a vertex the batch deletes)."""
+    from repro_torch.storage.deltas import DELETED_LABEL
+    del_id = g.node_vocab.get(DELETED_LABEL, -10)
+    alive = np.flatnonzero(np.asarray(g.node_label) != del_id)
+    victims = [int(v) for v in rng.choice(alive, size=n // 4 + 1, replace=False)]
+    keep = np.setdiff1d(alive, victims)
+    src, dst, elab = (np.asarray(a) for a in (g.edge_src, g.edge_dst, g.edge_label))
+    ops = []
+    for i in range(n):
+        kind = i % 4
+        if kind == 0:
+            u, v = rng.choice(keep, size=2, replace=False)
+            lab = g.edge_vocab.str_of(int(elab[int(rng.integers(0, g.n_edges))]))
+            ops.append({"op": "edge_add", "u": int(u), "v": int(v), "label": lab})
+        elif kind == 1:
+            e = int(rng.integers(0, g.n_edges))
+            ops.append({"op": "edge_del", "u": int(src[e]), "v": int(dst[e]),
+                        "label": g.edge_vocab.str_of(int(elab[e]))})
+        elif kind == 2:
+            s = int(rng.choice(keep))
+            ops.append({"op": "vertex_add", "label": g.node_vocab.str_of(int(g.node_label[s])),
+                        "value": float(g.node_value[s])})
+        else:
+            ops.append({"op": "vertex_del", "u": victims.pop()})
+    return ops
+
+
+def view_step_check(sess, gid: int, answers, EB: int = 512) -> dict:
+    """One frontier-step launch under the session's view, against the plain
+    version on the same inputs.  The bindings are Q4's answers that bind
+    ``gid`` (a vertex added in the session), each cut back to the plan
+    step that binds ``gid`` (its slots bound before that step, its
+    frontier vertex core in one partition); so the step must match the
+    edge to ``gid`` and look up the view's [V] g2l row and owner table at
+    ``gid``, past the opened V.  Rows of that partition's other answers
+    fill the batch."""
+    from repro_torch.core import generate_plan
+    from repro_torch.core.engine import _ELL_TABLES, plan_to_device
+    from repro_torch.core.plan import PlanArrays
+    from repro_torch.data.generators import subgen_queries
+    from repro_torch.kernels import fused_frontier as ff, ops
+    store, cfg, view = sess.store, sess.config, sess.current_view
+    dev = store.device
+    plan = generate_plan(subgen_queries(sess.graph)[0].disjuncts[0], sess.graph,
+                         sess.catalog)
+    src = [st.src_slot for st in plan.steps]
+    dst = [st.dst_slot for st in plan.steps]
+
+    def cut(r):
+        """(partial row, step, frontier vertex) binding r's first new slot
+        that holds gid, else its last step."""
+        hit = [t for t in range(len(dst)) if r[dst[t]] == gid]
+        t = hit[0] if hit else len(dst) - 1
+        bound = {plan.start_slot, *dst[:t]}
+        row = np.where(np.isin(np.arange(len(r)), list(bound)), r, -1)
+        return row, t, int(r[src[t]])
+
+    cuts = [cut(r) for r in answers]
+    with_gid = [c for c, r in zip(cuts, answers) if (r == gid).any()]
+    check(bool(with_gid), f"no answer binds the added vertex {gid}")
+    pid = int(view.assignment[with_gid[0][2]])
+    chosen = [c for c in with_gid if int(view.assignment[c[2]]) == pid]
+    chosen += [c for c in cuts if int(view.assignment[c[2]]) == pid
+               and not any(np.array_equal(c[0], x[0]) for x in chosen)]
+    chosen = chosen[:EB]
+    with store.viewing(view):
+        entry, owner = store.get(pid), store.owner
+    part = entry.part
+    pa = plan_to_device(PlanArrays.from_plan(plan, pad_steps=cfg.s_pad), dev)
+    n = len(chosen)
+    rows = np.full((1, n + 1, cfg.q_pad), -1, np.int32)
+    rows[0, :n, :answers.shape[1]] = np.stack([c[0] for c in chosen])
+    steps = np.zeros((1, n + 1), np.int32)
+    steps[0, :n] = [c[1] for c in chosen]
+    fg = torch.tensor([c[2] for c in chosen], device=dev).long()
+    lidx = entry.g2l[fg][None].int().contiguous()
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    sel = torch.arange(n, device=dev)[None]
+    m = torch.ones((1, n), dtype=torch.bool, device=dev)
+    inv = ops.step_invariants([part[k] for k in _ELL_TABLES], entry.g2l, owner, pa,
+                              0, int(part["n_core"]), plan.n_steps)
+    out = ff.step_outputs(1, n, part["ell_dst"].shape[1], cfg.q_pad, dev)
+    got = ff.frontier_step(inv, t(rows), t(steps), lidx, sel, m, out)
+    want = ff.frontier_step_plain(inv, t(rows), t(steps), lidx, sel, m)
+    rec = compare_step(got, want)
+    rec.update(pid=pid, gid=gid, bindings=n, bindings_reaching_gid=len(with_gid),
+               V=int(owner.shape[0]), g2l_len=int(entry.g2l.shape[0]),
+               view_nodes=int(sess.graph.n_nodes),
+               ell_width=int(part["ell_dst"].shape[1]),
+               matched_added=int((got.dg[got.ok] == gid).sum()),
+               owner_of_added=int(owner[gid]))
+    return rec
+
+
+def mutated_small(gdir, dev: str) -> dict:
+    """A copy of a small graph directory opened on ``dev`` (OPAT, device
+    and host tiers of one and two partitions): clone a vertex bound in
+    Q4's answers, widen the ELL width, serve the queries on the stale
+    view, then on the compacted one, and check the step kernel under the
+    view.  Every answer equals the oracle over the view's overlay graph."""
+    from repro_torch.core import EngineConfig, GraphSession
+    from repro_torch.core.oracle import match_disjunctive
+    from repro_torch.data.generators import subgen_queries
+    work = Path(str(gdir) + f"-mutated-{dev}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(gdir, work)
+    sess = GraphSession.open(str(work), engine="opat", cache_parts=1,
+                             host_cache_parts=2, config=EngineConfig(cap=16384),
+                             device=dev)
+    # read-aheads land at once, so the card and the CPU count the same:
+    # whether a stale bundle is still in flight at its get decides whether
+    # the get counts a delta overlay again, in both packages
+    tier = sess.store.host_tier
+    issue = tier.read_ahead
+
+    def landed(*args, **kwargs):
+        issued = issue(*args, **kwargs)
+        for t in list(tier._workers):
+            t.join()
+        return issued
+    tier.read_ahead = landed
+    V0, W0 = sess.graph.n_nodes, sess.pg.ell_width
+    qs = subgen_queries(sess.graph)
+    want = match_disjunctive(sess.graph, qs[0], q_pad=8)
+    sess.mutate(clone_ops(sess.graph, sess.pg.assignment, want)
+                + widen_ops(sess.graph, W0))
+    runs = []
+    for stage in ("stale", "compacted"):
+        for dq in qs:
+            res = sess.submit(dq)
+            check(np.array_equal(res.answers, match_disjunctive(sess.graph, dq, q_pad=8)),
+                  f"mutated {dev} {stage} {dq.name} disagrees with the oracle")
+            st = res.reports[0].stats
+            runs.append((stage, dq.name, res.answers, st.loads, st.iterations,
+                         res.load_stats.to_dict(), res.generation))
+        if stage == "stale":
+            step = view_step_check(sess, V0, match_disjunctive(sess.graph, qs[0], q_pad=8))
+            sess.compact_all()
+    shutil.rmtree(work, ignore_errors=True)
+    return {"runs": runs, "V0": V0, "W0": W0, "W": sess.pg.ell_width, "step": step}
+
+
+def same_mutated(a, b) -> bool:
+    return len(a["runs"]) == len(b["runs"]) and all(
+        x[:2] == y[:2] and np.array_equal(x[2], y[2]) and x[3:] == y[3:]
+        for x, y in zip(a["runs"], b["runs"]))
+
+
+def two_generations(gdir, dev: str) -> dict:
+    """A scheduler pinned to generation G admits Q4; the session then adds
+    a vertex that answers Q4 and compacts its partition (G+1).  Both
+    generations of that partition are then device-resident at once, and
+    each view answers as the oracle over its own graph."""
+    from repro_torch.core import EngineConfig, GraphSession
+    from repro_torch.core.oracle import match_disjunctive
+    from repro_torch.data.generators import subgen_queries
+    work = Path(str(gdir) + f"-generations-{dev}")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.copytree(gdir, work)
+    sess = GraphSession.open(str(work), engine="opat", config=EngineConfig(cap=16384),
+                             device=dev)
+    q4 = subgen_queries(sess.graph)[0]
+    sched = sess.scheduler()
+    sched.admit(q4)
+    old_graph = sched.view.graph
+    first = sess.submit(q4)                    # G resident
+    ops = clone_ops(sess.graph, sess.pg.assignment, first.answers)
+    pid = ops[0]["pid"]
+    sess.mutate(ops)
+    sess.compact(pid)
+    new = sess.submit(q4)
+    old = sched.run().results[0]
+    sched.close()
+    out = {"old_generation": old.generation, "new_generation": new.generation,
+           "resident_stagings": len(sess.store._cache_keys_for(pid)),
+           "old_equal": bool(np.array_equal(old.answers,
+                                            match_disjunctive(old_graph, q4, q_pad=8))),
+           "new_equal": bool(np.array_equal(new.answers,
+                                            match_disjunctive(sess.graph, q4, q_pad=8))),
+           "answers_differ": not np.array_equal(old.answers, new.answers),
+           "old": old.answers, "new": new.answers}
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def cold_load_split(gdir, pid: int) -> dict:
     """One partition's cold load, step by step as the store's disk tier
     takes it: the shard's pages dropped from the page cache (fsync, then
@@ -1489,6 +1739,282 @@ def phase_repartition(pg, sess, oracle) -> int:
     return n
 
 
+def frontend_requests(serving, runs, repeats: int) -> list:
+    """The path's runs ``repeats`` times over, classes round-robin over
+    interactive / batch / exhaustive, every arrival at once."""
+    classes = ("interactive", "batch", "exhaustive")
+    return [serving.Request(dq, slo_class=classes[i % 3], max_answers=budget)
+            for i, (dq, budget) in enumerate(runs * repeats)]
+
+
+def check_outcomes(rep, oracle, tag: str) -> None:
+    """Every served answer is the oracle's under its effective budget,
+    every shed carries a reason, and the counters sum to the arrivals."""
+    c = rep.counters
+    check(c["served"] + c.get("shed", 0) == c["arrived"] == len(rep.outcomes),
+          f"frontend {tag}: counters {c} do not sum to {len(rep.outcomes)}")
+    for o in rep.outcomes:
+        if o.status == "shed":
+            check(bool(o.shed_reason), f"frontend {tag}: {o.name} shed without a reason")
+        else:
+            check(verify(o.result, oracle[o.name], o.max_answers),
+                  f"frontend {tag} {o.name} (budget {o.max_answers}) disagrees "
+                  f"with the oracle")
+
+
+def phase_frontend(sessions, oracle, pg) -> int:
+    """The SLO front end on the in-RAM sessions of the path (OPAT),
+    traditional and mapreduce phases: with no classes it equals
+    submit_many; under the default classes with instant replay every
+    decision is checked against the oracle; then OPAT under real-time
+    replay with the batch class overloaded, per class latency, deadline
+    attainment and burn rate, and the cost model's rates on this card."""
+    from repro_torch import serving
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    _, runs = path_runs(pg)
+    dqs, budgets = [dq for dq, _ in runs], [b for _, b in runs]
+    out, launches = {}, 0
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    loops0 = {n: engine_loops(s.engine) for n, s in sessions.items()}
+    for name, sess in sessions.items():
+        plain = sess.frontend(slo_classes=[]).serve(
+            [serving.Request(dq, max_answers=b) for dq, b in runs])
+        many = sess.submit_many(dqs, max_answers=budgets)
+        for o, r in zip(plain.outcomes, many.results):
+            check(np.array_equal(o.result.answers, r.answers),
+                  f"frontend {name}: no-SLO {o.name} differs from submit_many")
+        check(plain.schedule.loads == many.loads,
+              f"frontend {name}: no-SLO loads differ from submit_many")
+        t0 = time.perf_counter()
+        fe = sess.frontend(replay_speed=0.0)
+        rep = fe.serve(frontend_requests(serving, runs, 4))
+        torch.cuda.synchronize()
+        check_outcomes(rep, oracle, f"{name} instant")
+        out[name] = {"no_slo_loads": many.loads, "instant": {
+            "wall_s": time.perf_counter() - t0, "counters": rep.counters,
+            "shed_by_reason": rep.shed_by_reason, "rounds": rep.rounds,
+            "outcomes": [{"query": o.name, "class": o.slo_class, "status": o.status,
+                          "degraded": o.degraded, "deferred": o.deferred,
+                          "max_answers": o.max_answers, "shed_reason": o.shed_reason,
+                          "predicted_s": o.predicted_latency_s, "latency_s": o.latency_s}
+                         for o in rep.outcomes],
+            "cost_model": fe.cost_model.snapshot()}}
+    torch.cuda.synchronize()
+    loops = sum(engine_loops(s.engine) - loops0[n] for n, s in sessions.items())
+    launches = build.LAUNCHES[NAME]
+    check(launches > 0 and launches == loops,
+          f"frontend: fused_frontier launches {launches} != evaluator loops {loops}")
+
+    # real-time replay on OPAT, warm and calibrated by the instant run:
+    # 48 arrivals 20 ms apart, three of every four in the batch class
+    sess = sessions["opat"]
+    calibrated = sess.frontend(replay_speed=0.0)
+    calibrated.serve(frontend_requests(serving, runs, 2))
+    classes = ("interactive", "batch", "batch", "batch")
+    reqs = [serving.Request(dq, slo_class=classes[i % 4], max_answers=b,
+                            arrival_s=0.02 * i)
+            for i, (dq, b) in enumerate(runs * 12)]
+    fe = sess.frontend(cost_model=calibrated.cost_model, replay_speed=1.0)
+    build.LAUNCHES.clear()
+    loops0 = engine_loops(sess.engine)
+    t0 = time.perf_counter()
+    rep = fe.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_outcomes(rep, oracle, "opat replay")
+    n = build.LAUNCHES[NAME]
+    check(n > 0 and n == engine_loops(sess.engine) - loops0,
+          f"frontend replay: launches {n} != evaluator loops")
+    launches += n
+    met = {}
+    for o in rep.served:
+        if o.deadline_met is not None:
+            met.setdefault(o.slo_class, []).append(o.deadline_met)
+    out["replay"] = {
+        "speed": 1.0, "arrivals": len(reqs), "spacing_s": 0.02, "wall_s": wall,
+        "counters": rep.counters, "shed_by_reason": rep.shed_by_reason,
+        "rounds": rep.rounds, "per_class": rep.per_class,
+        "deadline_attainment": {c: sum(v) / len(v) for c, v in met.items()},
+        "slo_burn": rep.slo_burn, "cost_model": fe.cost_model.snapshot(),
+        "reference_prior_s_per_unit": serving.CostModel(pg).default_rate_s,
+        "serving_profile": sess.workload_profile()["serving"]}
+    emit("frontend", fused_frontier_launches=launches, **out)
+    return launches
+
+
+def phase_mutation(pg, workdir: Path) -> int:
+    """The ooc phase's graph directory opened mutable (OPAT, one device and
+    two host partitions): a soak of updates in three bursts (a clone of a
+    vertex bound in Q4's answers with its edges; all four kinds of update;
+    edges that widen the ELL width), each followed by a query checked
+    against the oracle over its own overlay graph; a scheduler pinned to
+    that generation while compact_hot publishes the next, its answers the
+    pinned graph's; Q5 on the stale view against after compact_all;
+    TraditionalMP and MapReduceMP on the final generation."""
+    from repro_torch.core import EngineConfig, GraphSession
+    from repro_torch.core.oracle import match_disjunctive
+    from repro_torch.data.generators import subgen_queries
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+    from repro_torch.storage import deltas
+
+    gdir = workdir / "ooc-graph"
+    cfg = EngineConfig(cap=16384)
+    # time every overlay rebuild (build_partitions over the overlay graph)
+    rebuilds = []
+    build_partitions = deltas.build_partitions
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        got = build_partitions(*a, **kw)
+        rebuilds.append(time.perf_counter() - t0)
+        return got
+    deltas.build_partitions = timed_build
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    compare_launches = 0
+    try:
+        t0 = time.perf_counter()
+        sess = GraphSession.open(str(gdir), engine="opat", heuristic="max-sn",
+                                 cache_parts=1, host_cache_parts=2, config=cfg,
+                                 device="cuda")
+        t_open = time.perf_counter() - t0
+        V0, W0, gen0 = sess.graph.n_nodes, sess.pg.ell_width, sess.generation
+        dqs = subgen_queries(sess.graph)
+        oracle0 = match_disjunctive(sess.graph, dqs[0], q_pad=8)
+        rng = np.random.default_rng(0)
+        bursts = []
+
+        def burst(name, ops, dq):
+            t1 = time.perf_counter()
+            sess.mutate(ops)
+            t_mutate = time.perf_counter() - t1
+            served = serve(sess, [(dq, None)])[0]
+            t2 = time.perf_counter()
+            want = match_disjunctive(sess.graph, dq, q_pad=8)
+            t_oracle = time.perf_counter() - t2
+            res = served[2]
+            check(np.array_equal(res.answers, want),
+                  f"mutation {name}: {dq.name} disagrees with the oracle of its view")
+            rec = {"burst": name, "deltas": len(ops),
+                   "kinds": sorted({d["op"] for d in ops}), "mutate_s": t_mutate,
+                   "host_s_per_delta": t_mutate / len(ops), "query": dq.name,
+                   "latency_s": served[3], "n_answers": res.n_answers,
+                   "generation": res.generation, "loads": res.reports[0].stats.loads,
+                   "delta_overlays": res.load_stats.delta_overlays,
+                   "disk_reads": res.load_stats.disk_reads, "oracle_s": t_oracle,
+                   "stale_pids": sorted(sess.current_view.stale_pids),
+                   "ell_width": sess.pg.ell_width, "node_pad": sess.pg.node_pad}
+            bursts.append(rec)
+            return res, want
+
+        res, _ = burst("clone", clone_ops(sess.graph, sess.pg.assignment, oracle0), dqs[0])
+        check(bool((res.answers >= V0).any()),
+              "no oracle-checked answer binds the vertex added in the session")
+        added_rows = int((res.answers >= V0).any(axis=1).sum())
+        n0 = build.LAUNCHES[NAME]
+        step = view_step_check(sess, V0, res.answers)
+        compare_launches += build.LAUNCHES[NAME] - n0
+        check(step["mismatches"] == 0 and step["max_abs_err"] == 0
+              and step["V"] == step["view_nodes"] == step["g2l_len"] > V0
+              and step["matched_added"] > 0, f"step under the view: {step}")
+        burst("mixed", mixed_ops(sess.graph, rng, 12), dqs[2])
+        _, want_q5 = burst("widen", widen_ops(sess.graph, sess.pg.ell_width), dqs[1])
+        check(sess.pg.ell_width > W0,
+              f"ELL width {sess.pg.ell_width} did not grow past the manifest's {W0}")
+        n_deltas = sum(b["deltas"] for b in bursts)
+        kinds = set().union(*(b["kinds"] for b in bursts))
+        check(n_deltas >= 16 and len(kinds) == 4, f"soak: {n_deltas} deltas, {kinds}")
+
+        # Q5 on the stale view (its stale partitions rebuilt from the
+        # overlay), a scheduler pinned to this generation, then compact_hot
+        q5 = dqs[1]
+        want = {q5.name: want_q5,
+                dqs[0].name: match_disjunctive(sess.graph, dqs[0], q_pad=8)}
+        sess.store.close()                     # both tiers cold
+        stale = serve(sess, [(q5, None)])[0]
+        check(np.array_equal(stale[2].answers, want[q5.name]), "stale Q5 disagrees")
+        sched = sess.scheduler()
+        sched.admit(dqs[0])
+        pinned_gen, pinned_files = sched.view.generation, sched.view.files()
+        pending = int(sess._mdir.pending_counts().sum())
+        t1 = time.perf_counter()
+        hot = sess.compact_hot()
+        t_hot = time.perf_counter() - t1
+        check(hot and sess.generation > pinned_gen, f"compact_hot published nothing: {hot}")
+        check(all((gdir / f).exists() for f in pinned_files),
+              "a pinned generation's file was collected")
+        old = sched.run().results[0]
+        check(old.generation == pinned_gen and np.array_equal(old.answers, want[dqs[0].name]),
+              "the pinned scheduler's Q4 disagrees with its generation's oracle")
+        live = sess._mdir.catalog
+        superseded = pinned_files - ({p["shard"] for p in live.manifest["partitions"]}
+                                     | {live.graph_file})
+        sched.close()
+        sess._mdir.gc()
+        check(superseded and not any((gdir / f).exists() for f in superseded),
+              "superseded files survived after the pin was released")
+        t1 = time.perf_counter()
+        sess.compact_all()
+        t_all = time.perf_counter() - t1
+        sess.store.close()
+        compacted = serve(sess, [(q5, None), (q5, None)])
+        for r in compacted:
+            check(np.array_equal(r[2].answers, want[q5.name]), "compacted Q5 disagrees")
+        opat_loops = engine_loops(sess.engine)
+        final_gen = sess.generation
+        sess.store.close()
+        del sess, sched
+        gc.collect()
+
+        # TraditionalMP and MapReduceMP on the final generation
+        others = {}
+        for engine in ("traditional", "mapreduce"):
+            osess = GraphSession.open(str(gdir), engine=engine, processors=2,
+                                      heuristic="max-sn", cache_parts=1,
+                                      host_cache_parts=2, config=cfg, device="cuda")
+            check(osess.generation == final_gen, f"{engine}: generation {osess.generation}")
+            r = serve(osess, [(dqs[0], None)])[0]
+            check(np.array_equal(r[2].answers, want[dqs[0].name]), f"{engine} Q4 disagrees")
+            others[engine] = {"latency_s": r[3], "n_answers": r[2].n_answers,
+                              "loops": engine_loops(osess.engine),
+                              "disk_reads": r[2].load_stats.disk_reads}
+            osess.store.close()
+            del osess
+            gc.collect()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        deltas.build_partitions = build_partitions
+    launches = build.LAUNCHES[NAME] - compare_launches
+    loops = opat_loops + sum(o["loops"] for o in others.values())
+    check(launches > 0 and launches == loops,
+          f"mutation: fused_frontier launches {launches} != evaluator loops {loops}")
+    emit("mutation", open_s=t_open, V0=V0, ell_width0=W0, generation0=gen0,
+         bursts=bursts, deltas=n_deltas, answers_binding_added=added_rows,
+         step_under_view=step, overlay_rebuild_s=rebuilds,
+         stale_q5={"latency_s": stale[3], "loads": stale[2].reports[0].stats.loads,
+                   "delta_overlays": stale[2].load_stats.delta_overlays},
+         pinned={"generation": pinned_gen, "pending": pending,
+                 "superseded_files": sorted(superseded)},
+         compact_hot={"pids": hot, "seconds": t_hot,
+                      "s_per_partition": t_hot / len(hot)},
+         compact_all_s=t_all, final_generation=final_gen,
+         compacted_q5={"cold_s": compacted[0][3], "warm_s": compacted[1][3],
+                       "loads": compacted[0][2].reports[0].stats.loads},
+         others=others, resident_before_bytes=resident, max_memory_allocated=peak,
+         peak_over_resident_bytes=peak - resident,
+         fused_frontier_launches=launches, evaluator_loops=loops,
+         compare_launches=compare_launches)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=200.0,
@@ -1530,16 +2056,19 @@ def main() -> int:
         mlaunches, msess = phase_mapreduce(pg, oracle)
         phase_cli(workdir)
         phase_profile({**sessions, "mapreduce": msess}, served[1][0])
+        flaunches = phase_frontend({**sessions, "mapreduce": msess}, oracle, pg)
         olaunches = phase_ooc(pg, sess, oracle, workdir)
         rlaunches = phase_repartition(pg, sess, oracle)
+        ulaunches = phase_mutation(pg, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # the step's launches on each engine's serving path (path, traditional,
-    # mapreduce, the three engines out of core, the repartitioned OPAT
-    # session), each counted from 0 in its own phase
+    # mapreduce, the front end, the three engines out of core, the
+    # repartitioned OPAT session, the mutable sessions), each counted from
+    # 0 in its own phase
     step_launches = (launches + RECORD["traditional"]["fused_frontier_launches"]
-                     + mlaunches + olaunches + rlaunches)
+                     + mlaunches + flaunches + olaunches + rlaunches + ulaunches)
     sources = {
         "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", step_launches),
         "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",

@@ -46,13 +46,24 @@ MapReduceMP has no host partition loop to share: its jobs drain one
 query at a time (``_run_sequential``), with answers, budgets and
 per-query ``LoadStats`` deltas identical to sequential ``submit``.
 
-Results carry the session's generation (the opened directory's manifest
-generation; None in RAM).  The JAX package's generation pin (mutable
-on-disk graphs) and profiler hooks are not ported.  Nor is the SLO front
-end's per-query urgency, which comes with the front end.
+Deadline awareness: ``admit(..., urgency=)`` and ``set_urgency`` carry
+the SLO front end's (serving/frontend.py) per-query deadline pressure
+into the shared ranking as each observation's fourth element
+(``rank_partitions_shared``); all-zero urgencies leave the ranking
+unchanged.
+
+Generation pinning (storage/deltas.py): a scheduler takes its own pin on
+the session's current view at construction, and every round of every
+``run()`` resolves loads, SNI counts and plans against that one
+generation (``store.viewing(view)``), even while mutations land and
+compactions publish newer ones.  The pin keeps the generation's files out
+of GC until ``close()``.  Results carry the pinned generation (None in
+RAM, where there is no view).  The JAX package's profiler hooks come with
+the metrics registry.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional, Set, Union
@@ -94,6 +105,8 @@ class _Job:
     rounds_waiting: int = 0              # consecutive rounds passed over
                                          # (the fairness aging signal)
     report: Optional[RunReport] = None   # sequential drain: engine-built
+    urgency: float = 0.0                 # deadline pressure (SLO front end:
+                                         # slack-weighted; 0 = no deadline)
 
 
 @dataclasses.dataclass
@@ -165,6 +178,15 @@ class QueryScheduler:
         self.store = session.store
         self.device = session.device
         self.tracer = session.tracer
+        # the generation pin: this scheduler's own pin on the session's
+        # current view (None in RAM); plans and SNI counts come from the
+        # binding captured here, whatever the session's live view becomes
+        self.view = session.current_view
+        if self.view is not None:
+            self.view.pin()
+        self._graph = session.graph
+        self._catalog = session.catalog
+        self._closed = False
         self.heuristic = heuristic
         self.seed = session.seed if seed is None else seed
         self.release_retired = release_retired
@@ -182,9 +204,14 @@ class QueryScheduler:
     # -- admission ---------------------------------------------------------
 
     def admit(self, query: Union[Query, DisjunctiveQuery],
-              max_answers: Optional[int] = None) -> int:
+              max_answers: Optional[int] = None,
+              urgency: float = 0.0) -> int:
         """Add a query to the pending set; returns its qid.  ``max_answers``
-        is the per-disjunct answer budget K, exactly as in ``submit``."""
+        is the per-disjunct answer budget K, exactly as in ``submit``.
+        ``urgency`` is the SLO front end's deadline pressure: every
+        partition the query waits on gains ``SNI × urgency`` in the shared
+        ranking (0 changes nothing); ``set_urgency`` refreshes it."""
+        self._check_binding()
         cfg = self.session.config
         qid = self._next_qid
         self._next_qid += 1
@@ -192,7 +219,7 @@ class QueryScheduler:
                      else [query])
         jobs: List[_Job] = []
         for q in disjuncts:
-            plan = generate_plan(q, self.session.graph, self.session.catalog)
+            plan = generate_plan(q, self._graph, self._catalog)
             assert plan.n_slots <= cfg.q_pad and plan.n_steps <= cfg.s_pad
             counts = self.pg.start_label_counts(plan.start_label,
                                                 plan.start_value_op,
@@ -202,12 +229,44 @@ class QueryScheduler:
             jobs.append(_Job(
                 qid=qid, plan=plan,
                 plan_arrays=PlanArrays.from_plan(plan, pad_steps=cfg.s_pad),
-                state=st, max_answers=max_answers))
+                state=st, max_answers=max_answers, urgency=float(urgency)))
         self._admitted[qid] = _Admitted(qid=qid, name=query.name, jobs=jobs,
                                         max_answers=max_answers,
                                         admitted_perf=time.perf_counter())
         self._jobs.extend(jobs)
         return qid
+
+    def set_urgency(self, qid: int, urgency: float) -> None:
+        """Refresh a pending query's deadline pressure (all its jobs); an
+        unknown (already reported) qid is ignored."""
+        rec = self._admitted.get(qid)
+        if rec is not None:
+            for j in rec.jobs:
+                j.urgency = float(urgency)
+
+    def _check_binding(self) -> None:
+        """Refuse to serve after ``GraphSession.repartition()`` / ``fold()``
+        rebound the session (a new store and layout: the pending state
+        names the old one) or after ``close()`` dropped the pin.
+        Mutations and compactions are fine: they keep the store, and the
+        scheduler keeps serving its pinned view."""
+        if self.session.store is not self.store:
+            raise RuntimeError(
+                "the session was rebound (repartition()/fold()?) after "
+                "this scheduler was created; its pending state names the "
+                "old layout — create a fresh scheduler via "
+                "GraphSession.scheduler()/submit_many()")
+        if self._closed:
+            raise RuntimeError("this scheduler was close()d — its "
+                               "generation pin is gone; create a fresh one")
+
+    def close(self) -> None:
+        """Release the generation pin (idempotent); the next compaction's
+        GC may then reclaim a superseded generation's files."""
+        if not self._closed:
+            self._closed = True
+            if self.view is not None:
+                self.view.release()
 
     @property
     def n_pending(self) -> int:
@@ -227,17 +286,22 @@ class QueryScheduler:
         (and reported) by the next one.  ``max_rounds`` bounds this call
         to that many load rounds (whole queries on the sequential drain),
         leaving the rest pending; None drains everything."""
+        self._check_binding()
         t0 = time.time()
         stats0 = self.store.stats.copy()
         loads0, batches0 = len(self.loads), len(self.batch_sizes)
         engine = self.session.engine
         shared = isinstance(engine, (OPATEngine, TraditionalMPEngine))
-        if isinstance(engine, OPATEngine):
-            self._run_shared(max_rounds)
-        elif isinstance(engine, TraditionalMPEngine):
-            self._run_shared_tmp(max_rounds)
-        else:
-            self._run_sequential(max_rounds)
+        # every load of this call resolves against the pinned generation
+        ctx = (self.store.viewing(self.view) if self.view is not None
+               else contextlib.nullcontext())
+        with ctx:
+            if isinstance(engine, OPATEngine):
+                self._run_shared(max_rounds)
+            elif isinstance(engine, TraditionalMPEngine):
+                self._run_shared_tmp(max_rounds)
+            else:
+                self._run_sequential(max_rounds)
         return ScheduleReport(
             results=self._collect_results(t0),
             loads=self.loads[loads0:],
@@ -259,7 +323,8 @@ class QueryScheduler:
                         rates[id(j)] = j.state.completion_rates()
         scored = {p: [(j.state.sni_count(p),
                        rates[id(j)][p] if rates else 0.0,
-                       j.rounds_waiting)
+                       j.rounds_waiting,
+                       j.urgency)
                       for j in js]
                   for p, js in waiters.items()}
         return rank_partitions_shared(self.heuristic, scored, rng,
@@ -458,26 +523,35 @@ class QueryScheduler:
         ``max_rounds`` bounds the number of QUERIES served this call."""
         session = self.session
         served = 0
-        for rec in self._admitted.values():
-            if rec.finished_at is not None:
-                continue
-            if max_rounds is not None and served >= max_rounds:
-                break
-            served += 1
-            ev0 = self.store.stats.copy()
-            for j in rec.jobs:
-                jv0 = self.store.stats.copy()
-                rep = session.engine.run_request(RunRequest(
-                    plan=j.plan, heuristic=session.heuristic,
-                    max_answers=j.max_answers, seed=self.seed))
-                j.retired = True
-                j.report = rep
-                j.load_stats = j.load_stats + (self.store.stats - jv0)
-                self.loads.extend(rep.stats.loads)
-                self.batch_sizes.extend([1] * len(rep.stats.loads))
-            rec.load_stats = rec.load_stats + (self.store.stats - ev0)
-            rec.finished_at = time.time()
-            rec.finished_perf = time.perf_counter()
+        # the engine reads its pg at call time: hold it to the pinned
+        # binding for the drain, so a mutation landing mid-run cannot mix
+        # generations into the run
+        engine = session.engine
+        prev_pg = engine.pg
+        engine.pg = self.pg
+        try:
+            for rec in self._admitted.values():
+                if rec.finished_at is not None:
+                    continue
+                if max_rounds is not None and served >= max_rounds:
+                    break
+                served += 1
+                ev0 = self.store.stats.copy()
+                for j in rec.jobs:
+                    jv0 = self.store.stats.copy()
+                    rep = engine.run_request(RunRequest(
+                        plan=j.plan, heuristic=session.heuristic,
+                        max_answers=j.max_answers, seed=self.seed))
+                    j.retired = True
+                    j.report = rep
+                    j.load_stats = j.load_stats + (self.store.stats - jv0)
+                    self.loads.extend(rep.stats.loads)
+                    self.batch_sizes.extend([1] * len(rep.stats.loads))
+                rec.load_stats = rec.load_stats + (self.store.stats - ev0)
+                rec.finished_at = time.time()
+                rec.finished_perf = time.perf_counter()
+        finally:
+            engine.pg = prev_pg
 
     # -- retirement and the waiter index -----------------------------------
 
@@ -523,7 +597,7 @@ class QueryScheduler:
     def _collect_results(self, t0: float) -> List[QueryResult]:
         """Build the finished queries' results (admit order) and prune
         their state."""
-        gen = self.session.generation
+        gen = int(self.view.generation) if self.view is not None else None
         results: List[QueryResult] = []
         done: List[int] = []
         for rec in self._admitted.values():

@@ -28,14 +28,23 @@ core/repartition.py and rebinds the session to the workload-aware layout.
 ``save(path)`` / ``open(path)`` round the partitioned graph through disk
 (storage/): a saved *graph directory* reopens as an out-of-core session
 whose partitions stream through the store's disk → pinned-host → device
-cache tiers with identical answers.  The JAX package opens a directory
-as a mutable generation view (its storage/deltas.py); here ``open`` reads
-the manifest's generation as it stands, so a directory with no pending
-deltas serves the same bytes and counters.  Mutation and the SLO front
-end come with later slices.
+cache tiers with identical answers.  It opens *mutable*
+(storage/deltas.py): the session holds one pinned generation view,
+``mutate`` / ``add_edge`` / ``del_edge`` / ``add_vertex`` / ``del_vertex``
+append durable delta records and advance the view, and ``compact`` /
+``compact_all`` / ``compact_hot`` / ``fold`` publish new generations.
+Every ``submit`` and ``submit_many`` runs under one view from start to
+end, so a query pinned to generation G answers from G while newer ones
+are published.
+
+``frontend(**kw)`` builds the SLO serving front end
+(serving/frontend.py) over the session; ``record_serving`` folds its
+admission counters and per-class latencies into the workload profile's
+``"serving"`` block.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
@@ -157,6 +166,10 @@ class GraphSession:
         self.repartitions = 0
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.store: Optional[PartitionStore] = None
+        # a session built by ``open`` owns the directory's writer handle
+        # and one pinned generation view; in-RAM sessions have neither
+        self._mdir: Optional[Any] = None
+        self._view: Optional[Any] = None
         self._bind(pg)
 
     def _bind(self, pg: PartitionedGraph) -> None:
@@ -202,6 +215,13 @@ class GraphSession:
         self._span_rows = 0
         self._queries_served = 0
         self._answers_served = 0
+        # SLO serving accumulators (``record_serving``); the profile has a
+        # "serving" block only when they are non-empty
+        self._slo_counters: Dict[str, int] = {}
+        self._slo_shed_reasons: Dict[str, int] = {}
+        self._slo_latencies: Dict[str, List[float]] = {}
+        self._slo_deadline: Dict[str, List[int]] = {}
+        self._slo_burn: Dict[str, Dict[str, Any]] = {}
 
     # -- serving -----------------------------------------------------------
 
@@ -222,9 +242,14 @@ class GraphSession:
         t0 = time.time()
         reports: List[RunReport] = []
         answers: Optional[np.ndarray] = None
-        gen = self.generation
+        # the whole call runs under ONE generation view: a mutation or a
+        # compaction landing meanwhile never changes what its loads read
+        view = self._view
+        ctx = (self.store.viewing(view) if view is not None
+               else contextlib.nullcontext())
+        gen = int(view.generation) if view is not None else None
         with self.tracer.span("query", query=query.name, heuristic=h,
-                              engine=self.engine_name, generation=gen) as qsp:
+                              engine=self.engine_name, generation=gen) as qsp, ctx:
             for q in disjuncts:
                 plan = generate_plan(q, self.graph, self.catalog)
                 rep = self.engine.run_request(RunRequest(
@@ -262,6 +287,43 @@ class GraphSession:
             seed=seed, release_retired=release_retired,
             fairness_gamma=fairness_gamma)
 
+    def frontend(self, **kwargs) -> "Any":
+        """A ``ServingFrontend`` over this session (serving/frontend.py):
+        continuous-arrival serving with cost-predicted admission, deadline
+        scheduling and load shedding.  Keyword arguments pass through
+        (``slo_classes``, ``cost_model``, ``shed_policy``,
+        ``replay_speed``, ...).  With no SLO classes it delegates to
+        ``submit_many``, with identical results."""
+        from ..serving.frontend import ServingFrontend
+        return ServingFrontend(self, **kwargs)
+
+    def record_serving(self, *, counters: Dict[str, int],
+                       shed_by_reason: Dict[str, int],
+                       latencies: Dict[str, List[float]],
+                       deadline_met: Dict[str, List[bool]],
+                       slo_burn: Optional[Dict[str, Dict[str, Any]]] = None
+                       ) -> None:
+        """Fold one ``ServingFrontend.serve`` run's admission and shed
+        counters and per-class latencies into the profile's ``"serving"``
+        block; ``slo_burn`` (the burn monitor's snapshot) is kept latest
+        wins."""
+        for key, n in counters.items():
+            self._slo_counters[key] = self._slo_counters.get(key, 0) + int(n)
+        for reason, n in shed_by_reason.items():
+            self._slo_shed_reasons[reason] = \
+                self._slo_shed_reasons.get(reason, 0) + int(n)
+        for cls, vals in latencies.items():
+            self._slo_latencies.setdefault(cls, []).extend(
+                float(v) for v in vals)
+        for cls, oks in deadline_met.items():
+            met = self._slo_deadline.setdefault(cls, [0, 0])
+            for ok in oks:
+                met[0] += int(bool(ok))
+                met[1] += 1
+        if slo_burn:
+            for cls, snap in slo_burn.items():
+                self._slo_burn[cls] = dict(snap)
+
     def submit_many(self, queries: Sequence[Union[Query, DisjunctiveQuery]],
                     max_answers: Union[None, int,
                                        Sequence[Optional[int]]] = None,
@@ -291,9 +353,12 @@ class GraphSession:
         sched = self.scheduler(heuristic=heuristic, seed=seed,
                                release_retired=release_retired,
                                fairness_gamma=fairness_gamma)
-        for q, b in zip(queries, budgets):
-            sched.admit(q, max_answers=b)
-        report = sched.run()
+        try:
+            for q, b in zip(queries, budgets):
+                sched.admit(q, max_answers=b)
+            report = sched.run()
+        finally:
+            sched.close()   # drop the scheduler's generation pin
         for res in report.results:
             self._absorb(res.reports, res.answers)
         return report
@@ -334,20 +399,28 @@ class GraphSession:
         the assignment it was observed under: what ``serve --json``
         embeds and what repartitioning consumes.
         ``partition_counters_observed`` is False for MapReduceMP (yield
-        counters, but no per-partition load sequence)."""
+        counters, but no per-partition load sequence).  A mutable session
+        adds each partition's pending ``delta_count`` and the
+        ``generation``, ``pending_deltas`` and ``compactions``; one served
+        through the SLO front end adds a ``"serving"`` block."""
+        pending = (self._mdir.pending_counts()
+                   if self._mdir is not None else None)
         partitions = []
         for p in range(self.k):
             comp = int(self._completed[p])
             spawn = int(self._spawned[p])
-            partitions.append({
+            entry = {
                 "pid": p,
                 "loads": int(self._loads[p]),
                 "completed": comp,
                 "spawned": spawn,
                 # Laplace-smoothed, matching heuristics.MAX_YIELD
                 "completion_rate": (comp + 1.0) / (comp + spawn + 2.0),
-            })
-        return {
+            }
+            if pending is not None:
+                entry["delta_count"] = int(pending[p])
+            partitions.append(entry)
+        profile: Dict[str, Any] = {
             "engine": self.engine_name,
             "scheme": self.scheme,
             "k": self.k,
@@ -367,6 +440,30 @@ class GraphSession:
             "out_of_core": self.out_of_core,
             "cache": self.store.stats.to_dict(),
         }
+        if self._mdir is not None:
+            profile["generation"] = int(self._view.generation)
+            profile["pending_deltas"] = int(sum(pending))
+            profile["compactions"] = int(self._mdir.compactions)
+        if self._slo_counters or self._slo_latencies:
+            def _pct(vals: List[float], q: float) -> float:
+                return float(np.percentile(np.asarray(vals), q * 100.0)) \
+                    if vals else 0.0
+            profile["serving"] = {
+                "counters": dict(sorted(self._slo_counters.items())),
+                "shed_by_reason": dict(sorted(self._slo_shed_reasons.items())),
+                "classes": {
+                    cls: {
+                        "served": len(vals),
+                        "p50_latency_s": _pct(vals, 0.5),
+                        "p95_latency_s": _pct(vals, 0.95),
+                        "p99_latency_s": _pct(vals, 0.99),
+                        "deadline_met": self._slo_deadline.get(cls, [0, 0])[0],
+                        "deadline_total": self._slo_deadline.get(cls, [0, 0])[1],
+                    }
+                    for cls, vals in sorted(self._slo_latencies.items())
+                },
+            }
+        return profile
 
     def save_profile(self, path: str) -> None:
         """Persist ``workload_profile()`` as JSON."""
@@ -381,16 +478,6 @@ class GraphSession:
         ``open``; ``repartition()`` moves it back in RAM until the new
         layout is ``save``d)."""
         return self._backing is not None
-
-    @property
-    def mutable(self) -> bool:
-        """Graph updates are not ported: no session takes them."""
-        return False
-
-    @property
-    def generation(self) -> Optional[int]:
-        """The opened directory's manifest generation (None in RAM)."""
-        return self._backing.generation if self._backing is not None else None
 
     def save(self, path: str) -> Dict[str, Any]:
         """Write this session's partitioned graph as a *graph directory*
@@ -429,15 +516,170 @@ class GraphSession:
         admission read the manifest, so they never touch a shard.
         Answers equal a session's over the in-RAM graph; only residency
         (and ``LoadStats.disk_reads`` / ``read_ahead_hits``) differs.
+
+        The directory opens *mutable* (storage/deltas.py): the session
+        binds a pinned generation view, the updates append durable delta
+        records, and ``compact`` / ``fold`` publish new generations;
+        in-flight queries keep their pinned view, new submits take the
+        latest.
         """
-        from ..storage.format import open_partitioned_graph
-        pg = open_partitioned_graph(path, verify_checksums=verify_checksums)
-        return cls(pg=pg, engine=engine, heuristic=heuristic, config=config,
+        from ..storage.deltas import open_mutable
+        mdir = open_mutable(path, verify_checksums=verify_checksums)
+        view = mdir.snapshot()
+        sess = cls(pg=view.as_partitioned_graph(), engine=engine,
+                   heuristic=heuristic, config=config,
                    cache_parts=cache_parts, cache_bytes=cache_bytes,
                    host_cache_parts=host_cache_parts,
                    host_cache_bytes=host_cache_bytes, read_ahead=read_ahead,
                    processors=processors, prefetch=prefetch, seed=seed,
                    tracer=tracer, device=device)
+        sess._mdir = mdir
+        sess._view = view
+        # the directory's writes trace into the session's stream
+        mdir.tracer = sess.tracer
+        return sess
+
+    # -- streaming updates (storage/deltas.py) -----------------------------
+
+    @property
+    def mutable(self) -> bool:
+        """True when the session owns a writable graph directory."""
+        return self._mdir is not None
+
+    @property
+    def current_view(self):
+        """The session's pinned GenerationView (None: in-RAM session)."""
+        return self._view
+
+    @property
+    def generation(self) -> Optional[int]:
+        """The generation new submits run against (None in RAM)."""
+        return int(self._view.generation) if self._view is not None else None
+
+    def _require_mutable(self) -> "Any":
+        if self._mdir is None:
+            raise RuntimeError(
+                "streaming updates need a disk-backed session — build one "
+                "with GraphSession.open(path) over a save()d directory")
+        return self._mdir
+
+    def snapshot(self):
+        """A fresh pinned GenerationView of the latest generation and its
+        pending deltas (the caller releases it).  While it stays pinned,
+        the files its generation needs survive every compaction's GC."""
+        return self._require_mutable().snapshot()
+
+    def _refresh_view(self) -> None:
+        """Pin the latest generation and rebind the pg-level state on top
+        of the UNCHANGED store: view-qualified cache keys keep an older
+        view's entries valid for its pins, and new submits resolve
+        against the new view (its owner table, g2l rows and geometry)."""
+        mdir = self._mdir
+        old = self._view
+        self._view = mdir.snapshot()
+        if old is not None:
+            old.release()
+        pg = self._view.as_partitioned_graph()
+        self.pg = pg
+        self.graph = pg.graph
+        self.catalog = build_catalog(self.graph)
+        self.engine.pg = pg
+        self.store.pg = pg
+        self.store.backing = mdir.catalog
+        self.store.host_tier.catalog = mdir.catalog
+        self._backing = mdir.catalog
+        if self._vertex_span.shape[0] < self.graph.n_nodes:
+            self._vertex_span = np.concatenate([
+                self._vertex_span,
+                np.zeros(self.graph.n_nodes - self._vertex_span.shape[0],
+                         dtype=np.int64)])
+
+    def mutate(self, ops: Sequence[Dict[str, Any]]) -> List[Any]:
+        """Apply a batch of updates durably (each a dict ``{"op":
+        "edge_add"|"edge_del"|"vertex_add"|"vertex_del", ...}``, see
+        ``MutableGraphDirectory.apply_op``) and advance the view once.
+        Returns the appended ``DeltaRecord``s."""
+        mdir = self._require_mutable()
+        recs = [mdir.apply_op(d) for d in ops]
+        self._refresh_view()
+        return recs
+
+    def add_edge(self, u: int, v: int, label: str,
+                 directed: bool = False) -> "Any":
+        rec = self._require_mutable().add_edge(u, v, label, directed=directed)
+        self._refresh_view()
+        return rec
+
+    def del_edge(self, u: int, v: int, label: str) -> "Any":
+        rec = self._require_mutable().del_edge(u, v, label)
+        self._refresh_view()
+        return rec
+
+    def add_vertex(self, label: str, value: float = float("nan"),
+                   pid: Optional[int] = None) -> "Any":
+        rec = self._require_mutable().add_vertex(label, value=value, pid=pid)
+        self._refresh_view()
+        return rec
+
+    def del_vertex(self, gid: int) -> "Any":
+        rec = self._require_mutable().del_vertex(gid)
+        self._refresh_view()
+        return rec
+
+    def compact(self, pid: int) -> int:
+        """Fold the pending deltas into partition ``pid``'s shard, publish
+        the next generation and advance the view; returns the published
+        generation.  Queries pinned to older views keep serving them."""
+        gen = self._require_mutable().compact(int(pid))
+        self._refresh_view()
+        return gen
+
+    def compact_all(self) -> int:
+        gen = self._require_mutable().compact_all()
+        self._refresh_view()
+        return gen
+
+    def compact_hot(self, min_pending: int = 1) -> List[int]:
+        """Compact every partition with at least ``min_pending`` pending
+        delta records (the mutation soak's maintenance policy); returns
+        the pids compacted."""
+        mdir = self._require_mutable()
+        pending = mdir.pending_counts()
+        hot = [p for p in range(self.k) if int(pending[p]) >= min_pending]
+        for p in hot:
+            mdir.compact(p)
+        if hot:
+            self._refresh_view()
+        return hot
+
+    def fold(self, repartition: bool = False, *,
+             seed: Optional[int] = None,
+             config: Optional[RepartitionConfig] = None) -> Dict[str, Any]:
+        """Fold the overlay into a new full layout on disk and rebind the
+        session to it; with ``repartition=True`` the layout comes from
+        ``workload_profile()`` (core/repartition.py).  Pinned readers keep
+        their files; returns the published manifest."""
+        mdir = self._require_mutable()
+        if repartition:
+            cfg = config if config is not None else RepartitionConfig()
+            new_pg = repartition_pg(self.pg, self.workload_profile(),
+                                    seed=seed, config=cfg)
+            self.repartitions += 1
+        else:
+            new_pg = build_partitions(
+                self.graph, np.asarray(self._view.assignment, dtype=np.int64),
+                self.k, scheme=self.scheme)
+        manifest = mdir.resave(new_pg)
+        old = self._view
+        self._view = mdir.snapshot()
+        if old is not None:
+            old.release()
+        self._backing = mdir.catalog
+        # a new layout changes what each pid means: rebind the whole stack
+        self._bind(self._view.as_partitioned_graph())
+        self.graph = self.pg.graph
+        self.catalog = build_catalog(self.graph)
+        return manifest
 
     # -- the WawPart loop --------------------------------------------------
 
@@ -463,6 +705,13 @@ class GraphSession:
         # drop it, so the fresh store holds the new partitions in RAM (and
         # _bind closes the old store, joining any read-ahead).  The
         # directory on disk is untouched until save() writes the new one.
+        # A mutable session moves in RAM too: its view pin is released and
+        # further updates raise (fold(repartition=True) re-lays it out on
+        # disk instead).
+        if self._view is not None:
+            self._view.release()
+            self._view = None
+            self._mdir = None
         self._backing = None
         self._bind(new_pg)
         self.repartitions += 1

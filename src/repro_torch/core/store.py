@@ -47,13 +47,29 @@ background-thread *read-ahead* and no device copy, so the heuristic's
 runner-up overlaps the current partition's evaluation at the disk tier as
 it does at the device tier (``read_ahead_issued`` / ``read_ahead_hits``).
 Device copies are issued on the calling thread only.  Without a backing
-the host tier is the whole graph in RAM.  Generation views (mutable
-graph directories) come with a later slice.
+the host tier is the whole graph in RAM.
+
+Generation views (mutable graph directories, storage/deltas.py):
+``with store.viewing(view): ...`` resolves every load in the block, on
+the calling thread, against that pinned generation.  Cache keys in both
+tiers become the view's bundle tokens ``(pid, generation, seq, node_pad,
+ell_width, n_nodes)``, so two generations of one partition coexist (each
+counted against the capacity) and a view can never be served another's
+bundle; a host miss builds the bundle through the view's overlay loader
+(a shard read re-padded to the view's geometry, or a stale partition
+rebuilt from its pending deltas, counted as ``delta_overlays`` on the
+calling thread before the load).  ``owner`` is then the view's [V]
+table, copied to the device once per (generation, seq) and kept in an
+LRU of four, so the owner table, the g2l rows and the graph a kernel
+reads always come from one view.  Pins, ``drop``, ``release`` and
+``contains`` name the plain pid (or pid tuple) and cover every
+generation's staging of it.  With no view the keys are the plain pids.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
@@ -70,8 +86,7 @@ from .graph import PartitionedGraph
 class LoadStats:
     """Residency counters; deltas of two snapshots describe one run.  The
     fields match the JAX package's ``LoadStats``; the out-of-core ones
-    stay zero for a store with no backing, and ``delta_overlays`` until
-    generation views are ported."""
+    stay zero for a store with no backing."""
 
     hits: int = 0                # warm loads (entry already device-resident)
     misses: int = 0              # cold loads (copy on the critical path)
@@ -87,7 +102,8 @@ class LoadStats:
     bytes_disk: int = 0          # bytes read off disk (demand + read-ahead)
     bytes_host: int = 0          # bytes served out of the host LRU tier
     host_evictions: int = 0      # host-LRU entries dropped to fit capacity
-    delta_overlays: int = 0
+    delta_overlays: int = 0      # bundles rebuilt from a view's pending
+                                 # delta overlay (stale pids)
 
     @property
     def warm_loads(self) -> int:
@@ -185,20 +201,102 @@ class PartitionStore:
         else:
             self._host_tier = HostArrayTier(pg, pin=cuda)
         self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
-        self._cache: "OrderedDict[StoreKey, StoreEntry]" = OrderedDict()
+        # cache key (a plain key, or its bundle tokens under a view) ->
+        # entry; the entry's own ``key`` is always the plain key
+        self._cache: "OrderedDict[Any, StoreEntry]" = OrderedDict()
         self._owner_dev: Optional[torch.Tensor] = None
-        # pinned keys (refcounted): protected from LRU eviction while a
-        # caller evaluates against them — the double-buffer guarantee
+        # pinned plain keys (refcounted): protected from LRU eviction while
+        # a caller evaluates against them — the double-buffer guarantee
         self._pins: Dict[StoreKey, int] = {}
+        # the ambient generation view, per thread (``viewing``)
+        self._local = threading.local()
+        # the device owner table per (generation, seq): a small LRU
+        self._owner_cache: "OrderedDict[Tuple[int, int], torch.Tensor]" = OrderedDict()
+
+    # -- generation views (mutable graph directories) -----------------------
+
+    @property
+    def view(self):
+        """The calling thread's ambient GenerationView, or None."""
+        return getattr(self._local, "view", None)
+
+    @contextlib.contextmanager
+    def viewing(self, view):
+        """``with store.viewing(view): ...`` — every load in the block
+        resolves against that pinned generation (module docstring);
+        ``view=None`` restores the plain-pid behaviour for the block."""
+        prev = getattr(self._local, "view", None)
+        self._local.view = view
+        try:
+            yield self
+        finally:
+            self._local.view = prev
+
+    @property
+    def current_generation(self) -> Optional[int]:
+        """The generation the thread's loads resolve against (None: a
+        store with no backing)."""
+        v = self.view
+        if v is not None:
+            return int(v.generation)
+        return int(self.backing.generation) if self.backing is not None else None
+
+    def _vk(self, pid: int):
+        """The cache key one pid resolves to: the ambient view's bundle
+        token, or the plain pid."""
+        v = self.view
+        return int(pid) if v is None else v.bundle_token(int(pid))
+
+    def _vkey(self, key: StoreKey):
+        if isinstance(key, tuple):
+            return tuple(self._vk(p) for p in key)
+        return self._vk(key)
+
+    def _host_get(self, pid: int):
+        """Host-tier lookup of one pid under the ambient view."""
+        if self.view is None:
+            return self._host_tier.get(int(pid))
+        return self._host_tier.get(self._vk(pid), loader=self._overlay_loader(pid))
+
+    def _overlay_loader(self, pid: int):
+        """A host-miss loader bound to the ambient view: the pinned
+        generation's arrays for ``pid`` at the view's geometry (the host
+        tier pins them, on its worker for a read-ahead)."""
+        v, pid = self.view, int(pid)
+        return lambda: v.load_bundle(pid)
+
+    def _count_overlays(self, key: StoreKey) -> None:
+        """Count, on the calling thread and before the load, every stale
+        pid of ``key`` the ambient view will rebuild from its overlay."""
+        v = self.view
+        if v is None:
+            return
+        stale = v.stale_pids
+        for p in (key if isinstance(key, tuple) else (key,)):
+            if int(p) in stale and not self._host_tier.resident(self._vk(p)):
+                self.stats.delta_overlays += 1
 
     # -- global (non-partition) arrays ------------------------------------
 
     @property
     def owner(self) -> torch.Tensor:
-        """[V] owner table, copied to the device once and shared."""
-        if self._owner_dev is None:
-            self._owner_dev = torch.from_numpy(np.asarray(self.pg.owner)).to(self.device)
-        return self._owner_dev
+        """[V] owner table on the device.  With no view, ``pg.owner``
+        copied once; under a view, the view's assignment (vertex adds
+        grow V), copied once per (generation, seq)."""
+        v = self.view
+        if v is None:
+            if self._owner_dev is None:
+                self._owner_dev = torch.from_numpy(np.asarray(self.pg.owner)).to(self.device)
+            return self._owner_dev
+        ok = (int(v.generation), int(v.seq))
+        got = self._owner_cache.get(ok)
+        if got is None:
+            got = torch.from_numpy(np.asarray(v.assignment, dtype=np.int32)).to(self.device)
+            self._owner_cache[ok] = got
+            while len(self._owner_cache) > 4:
+                self._owner_cache.popitem(last=False)
+        self._owner_cache.move_to_end(ok)
+        return got
 
     @property
     def part_keys(self):
@@ -214,7 +312,8 @@ class PartitionStore:
         return [e.key for e in self._cache.values()]
 
     def contains(self, key: StoreKey) -> bool:
-        return self._normkey(key) in self._cache
+        """True when ``key`` is device-resident under any view."""
+        return bool(self._cache_keys_for(key))
 
     def host_nbytes(self, pid: int) -> int:
         return self._host_tier.nbytes(int(pid))
@@ -242,17 +341,24 @@ class PartitionStore:
         Returns True when work was issued (False: already resident or in
         flight)."""
         pid = int(pid)
-        if pid in self._cache:
+        vk = self._vk(pid)
+        if vk in self._cache:
             return False
-        if not self._host_tier.resident(pid):
-            return self._host_tier.read_ahead(pid)
+        if not self._host_tier.resident(vk):
+            v = self.view
+            if v is None:
+                return self._host_tier.read_ahead(pid)
+            issued = self._host_tier.read_ahead(vk, loader=self._overlay_loader(pid))
+            if issued and pid in v.stale_pids:
+                self.stats.delta_overlays += 1
+            return issued
         with self.tracer.span("store.prefetch", pid=pid) as sp:
             entry = self._stage(pid, side_stream=True)
             entry.prefetched = True
             self.stats.prefetch_issued += 1
             self.stats.bytes_prefetched += entry.nbytes
             sp.set(nbytes=entry.nbytes)
-            self._insert(entry)
+            self._insert(entry, vk)
         return True
 
     # -- pinning (double-buffered streaming) --------------------------------
@@ -290,8 +396,12 @@ class PartitionStore:
                 self.unpin(k)
 
     def drop(self, key: StoreKey) -> bool:
-        """Remove ``key``'s device entry (not counted as an eviction)."""
-        return self._cache.pop(self._normkey(key), None) is not None
+        """Remove every view's device entry of ``key`` (not counted as an
+        eviction)."""
+        cks = self._cache_keys_for(key)
+        for ck in cks:
+            del self._cache[ck]
+        return bool(cks)
 
     def release(self, key: StoreKey) -> bool:
         """A counted ``drop``: the scheduler's retirement hook, observable
@@ -320,11 +430,17 @@ class PartitionStore:
     def _normkey(key: StoreKey) -> StoreKey:
         return tuple(int(p) for p in key) if isinstance(key, tuple) else int(key)
 
+    def _cache_keys_for(self, key: StoreKey) -> list:
+        """Every cache key whose entry stages ``key`` (one per view)."""
+        nk = self._normkey(key)
+        return [ck for ck, e in self._cache.items() if e.key == nk]
+
     def _lookup(self, key: StoreKey) -> StoreEntry:
+        ck = self._vkey(key)
         with self.tracer.span("store.load", pid=key) as sp:
-            got = self._cache.get(key)
+            got = self._cache.get(ck)
             if got is not None:
-                self._cache.move_to_end(key)
+                self._cache.move_to_end(ck)
                 self.stats.hits += 1
                 if got.prefetched:
                     got.prefetched = False
@@ -339,14 +455,16 @@ class PartitionStore:
                      else self._stage(key, side_stream=False))
             self.stats.misses += 1
             self.stats.bytes_cold += entry.nbytes
-            sp.set(nbytes=entry.nbytes)
-            self._insert(entry)
+            sp.set(nbytes=entry.nbytes, generation=self.current_generation)
+            self._insert(entry, ck)
             return entry
 
     def _stage(self, pid: int, side_stream: bool) -> StoreEntry:
         """Pull the host bundle through the host tier (an in-RAM bundle, a
-        host-LRU hit, or a disk shard read) and copy it to the device."""
-        part_h, g2l_h, nbytes = self._host_tier.get(pid)
+        host-LRU hit, a disk shard read, or under a view the view's
+        loader) and copy it to the device."""
+        self._count_overlays(pid)
+        part_h, g2l_h, nbytes = self._host_get(pid)
         if self.device.type != "cuda":
             return StoreEntry(key=pid, part=dict(part_h), g2l=g2l_h, nbytes=nbytes)
 
@@ -371,7 +489,8 @@ class PartitionStore:
         tensor, so no unpinned stacked host copy is ever made.  The
         bundles are held here until every slice's copy is issued: a host
         tier smaller than ``key`` evicts one while the next is read."""
-        bundles = [self._host_tier.get(p) for p in key]
+        self._count_overlays(key)
+        bundles = [self._host_get(p) for p in key]
         nbytes = sum(b.nbytes for b in bundles)
         scalars = {k: torch.tensor([b.part[k] for b in bundles], dtype=torch.int32)
                    for k, v in bundles[0].part.items() if isinstance(v, int)}
@@ -405,10 +524,10 @@ class PartitionStore:
                 t.record_stream(cur)
         entry.ready = None
 
-    def _insert(self, entry: StoreEntry) -> None:
-        self._cache[entry.key] = entry
-        self._cache.move_to_end(entry.key)
-        self._evict_to_capacity(keep=entry.key)
+    def _insert(self, entry: StoreEntry, cache_key) -> None:
+        self._cache[cache_key] = entry
+        self._cache.move_to_end(cache_key)
+        self._evict_to_capacity(keep=cache_key)
 
     def _evict_to_capacity(self, keep: Optional[StoreKey]) -> None:
         """Drop least-recently-used entries until within capacity.  The
@@ -427,7 +546,7 @@ class PartitionStore:
 
         def evict(candidates) -> bool:
             victim = next((k for k in candidates
-                           if k != keep and k not in self._pins), None)
+                           if k != keep and self._cache[k].key not in self._pins), None)
             if victim is None:
                 return False
             del self._cache[victim]
@@ -438,6 +557,6 @@ class PartitionStore:
             pass
         if self.max_stacked_entries is not None:
             def stacked():
-                return [k for k in self._cache if isinstance(k, tuple)]
+                return [k for k, e in self._cache.items() if isinstance(e.key, tuple)]
             while len(stacked()) > self.max_stacked_entries and evict(stacked()):
                 pass

@@ -12,19 +12,32 @@ sequences, load ratios against L_ideal, answer counts, latency) plus the
 store's cold/warm/prefetch split; the ``--json`` report also carries the
 session's cache counters and per-partition workload profile.
 
-Two serving modes:
+Serving modes:
 
   * default — the dataset's query batch, one ``submit`` per query (the
     paper's one-at-a-time shape);
   * ``--workload file.jsonl`` — a batch of queries (one JSON query per
-    line, optional per-line ``"max_answers"``) served through
-    ``submit_many`` (core/scheduler.py): overlapping queries share
-    partition loads (OPAT, TraditionalMP; MapReduceMP drains them one
-    query at a time), and the report adds aggregate throughput.
-    ``--emit-workload file.jsonl`` writes the dataset's own queries in
-    that format and exits (``--emit-repeat`` / ``--emit-arrival-spacing-ms``
-    / ``--emit-slo-classes`` synthesize larger workloads; combined with
-    ``--workload`` it round-trips an existing file losslessly).
+    line, optional per-line ``"max_answers"``, ``"arrival_ms"``,
+    ``"slo_class"``) served through ``submit_many`` (core/scheduler.py):
+    overlapping queries share partition loads (OPAT, TraditionalMP;
+    MapReduceMP drains them one query at a time), and the report adds
+    aggregate throughput.  ``--emit-workload file.jsonl`` writes the
+    dataset's own queries in that format and exits (``--emit-repeat`` /
+    ``--emit-arrival-spacing-ms`` / ``--emit-slo-classes`` synthesize
+    larger workloads; combined with ``--workload`` it round-trips an
+    existing file losslessly);
+  * ``--slo SPEC`` — SLO serving through the ``ServingFrontend``
+    (serving/frontend.py): cost-predicted admission, deadline-aware
+    ranking, and degrade / defer / shed under ``--shed-policy``; per-line
+    arrivals replay on a scalable clock (``--arrival-replay``, 0 =
+    instant).  Served queries verify under their effective (possibly
+    degraded) budget, and a shed query without a ``shed_reason`` fails
+    the ``--verify`` gate like an oracle mismatch;
+  * ``--mutate-workload N`` (with ``--graph-dir``) — a mutation soak: N
+    random durable graph updates interleaved with the dataset's queries,
+    hot partitions compacted every ``--mutate-compact-every`` updates;
+    ``--verify`` checks each query against the oracle over the overlay
+    graph of the generation it was pinned to.
 
 ``--verify`` checks every answer set against the whole-graph oracle and
 prints ``MATCH``/``MISMATCH`` per query; any mismatch ends the run with a
@@ -45,9 +58,9 @@ disk → pinned-host → device tiers (``--host-cache-parts``,
 workload profile (``--profile-json``) to ``GraphSession.repartition``
 before serving, then ``--save-graph`` saves the new layout.
 
-Flags of modules not ported yet (mutation, the SLO front end, the metrics
-registry) are accepted by the parser and end the run with exit code 2 and
-the ``ROADMAP.md`` item that ports them.
+``--metrics-out`` (the metrics registry, not ported yet) is accepted by
+the parser and ends the run with exit code 2 and the ``ROADMAP.md`` item
+that ports it.
 """
 from __future__ import annotations
 
@@ -71,13 +84,6 @@ from ..obs import NULL_TRACER, Tracer, observability_snapshot, write_chrome_trac
 
 # flag dest -> the ROADMAP.md item that ports what it needs
 UNPORTED_FLAGS = {
-    "mutate_workload": "§1 item 5 (mutation)",
-    "mutate_compact_every": "§1 item 5 (mutation)",
-    "mutate_seed": "§1 item 5 (mutation)",
-    "slo": "§1 item 9 (the SLO front end)",
-    "shed_policy": "§1 item 9 (the SLO front end)",
-    "arrival_replay": "§1 item 9 (the SLO front end)",
-    "default_slo": "§1 item 9 (the SLO front end)",
     "metrics_out": "§1 item 10 (the metrics registry and its export)",
 }
 
@@ -103,6 +109,66 @@ def load_dataset(name: str, scale: float, seed: int):
     else:
         raise ValueError(name)
     return g, load_queries(name, g, seed)
+
+
+def _mutation_soak(session, dqueries, oracle_graph, *, n_deltas: int,
+                   compact_every: int, seed: int, max_answers):
+    """The --mutate-workload serving loop: before each query, apply a
+    burst of random durable delta records (~45% edge inserts, ~45% edge
+    deletes, ~10% vertex add/tombstone), compacting hot partitions every
+    ``compact_every`` deltas; then serve one dataset query against the
+    advanced view.  ``oracle_graph["g"]`` is re-pointed at the overlay
+    graph the submit pins, so --verify checks each answer against exactly
+    that generation.  Yields (query, result, budget)."""
+    from ..storage.deltas import DELETED_LABEL
+    rng = np.random.default_rng(seed)
+    applied = 0
+    compacted_at = 0
+    qi = 0
+    while applied < n_deltas:
+        burst = int(min(rng.integers(1, 4), n_deltas - applied))
+        for _ in range(burst):
+            g = session.graph
+            del_id = g.node_vocab.get(DELETED_LABEL, -10)
+            alive = np.flatnonzero(np.asarray(g.node_label) != del_id)
+            roll = rng.random()
+            if roll < 0.45 and alive.size >= 2:
+                u, v = rng.choice(alive, size=2, replace=False)
+                if g.n_edges:
+                    lab = g.edge_vocab.str_of(int(np.asarray(g.edge_label)[
+                        int(rng.integers(0, g.n_edges))]))
+                else:
+                    lab = "soak"
+                session.add_edge(int(u), int(v), lab)
+            elif roll < 0.90 and g.n_edges:
+                i = int(rng.integers(0, g.n_edges))
+                session.del_edge(int(np.asarray(g.edge_src)[i]),
+                                 int(np.asarray(g.edge_dst)[i]),
+                                 g.edge_vocab.str_of(
+                                     int(np.asarray(g.edge_label)[i])))
+            elif roll < 0.95 and alive.size:
+                src = int(rng.choice(alive))
+                session.add_vertex(
+                    g.node_vocab.str_of(int(np.asarray(g.node_label)[src])),
+                    value=float(np.asarray(g.node_value)[src]))
+            elif alive.size:
+                session.del_vertex(int(rng.choice(alive)))
+            applied += 1
+        if compact_every and applied - compacted_at >= compact_every:
+            pids = session.compact_hot()
+            compacted_at = applied
+            print(f"[serve] compacted partitions {pids} at delta "
+                  f"{applied} -> generation {session.generation}")
+        dq = dqueries[qi % len(dqueries)]
+        qi += 1
+        # the overlay the submit pins: the oracle sees the same vertices
+        # and edges the evaluator does
+        oracle_graph["g"] = session.graph
+        res = session.submit(dq, max_answers=max_answers)
+        yield dq, res, max_answers
+    print(f"[serve] soak done: {applied} deltas, generation "
+          f"{session.generation}, "
+          f"{int(session._mdir.pending_counts().sum())} pending")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -182,18 +248,43 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fairness-gamma", type=float, default=0.0,
                     help="aging weight (rounds-waiting x SNI) in the shared "
                          "ranking of --workload")
+    ap.add_argument("--slo", default="", metavar="SPEC",
+                    help="SLO serving: comma-separated name=deadline_seconds "
+                         "classes (e.g. 'interactive=0.5,batch=5,"
+                         "exhaustive=inf'; order is priority order, known "
+                         "names keep their strictness flags), served through "
+                         "the ServingFrontend")
+    ap.add_argument("--shed-policy", default="predictive",
+                    choices=["predictive", "deadline", "never"],
+                    help="SLO overload response: 'predictive' degrades "
+                         "(shrinks K), defers, then sheds from predicted "
+                         "backlog vs deadline; 'deadline' sheds anything "
+                         "predicted to miss; 'never' admits all")
+    ap.add_argument("--arrival-replay", type=float, default=0.0,
+                    metavar="SPEED",
+                    help="replay the workload's per-line arrival_ms: 1.0 = "
+                         "real time, 2.0 = twice as fast, 0 (default) = "
+                         "instant (every arrival due at once, deterministic)")
+    ap.add_argument("--default-slo", default="",
+                    help="SLO class of workload lines (or dataset queries) "
+                         "that carry none (default: no deadline)")
+    ap.add_argument("--mutate-workload", type=int, default=0, metavar="N",
+                    help="with --graph-dir: a mutation soak of N random "
+                         "durable graph updates interleaved with the "
+                         "dataset's queries, each query served against its "
+                         "pinned generation view")
+    ap.add_argument("--mutate-compact-every", type=int, default=0,
+                    metavar="M",
+                    help="with --mutate-workload: compact_hot after every M "
+                         "applied updates (0 = never compact)")
+    ap.add_argument("--mutate-seed", type=int, default=0,
+                    help="rng seed of the --mutate-workload update stream")
     # flags of modules not ported yet: parsed, then refused (see main)
     unported = ap.add_argument_group("not ported yet (exit 2)")
-    for flag, kw in (("--mutate-workload", {"type": int}),
-                     ("--mutate-compact-every", {"type": int}),
-                     ("--mutate-seed", {"type": int}), ("--slo", {}),
-                     ("--shed-policy", {}),
-                     ("--arrival-replay", {"type": float}),
-                     ("--default-slo", {}), ("--metrics-out", {})):
+    for flag in ("--metrics-out",):
         dest = flag[2:].replace("-", "_")
         unported.add_argument(flag, default=None,
-                              help=f"needs ROADMAP.md {UNPORTED_FLAGS[dest]}",
-                              **kw)
+                              help=f"needs ROADMAP.md {UNPORTED_FLAGS[dest]}")
     return ap
 
 
@@ -286,6 +377,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         graph, dqueries = load_dataset(args.dataset, args.scale, args.seed)
         print(f"[serve] graph: {graph.n_nodes} nodes, {graph.n_edges} edges")
+    # --verify's oracle graph: the one graph in static modes; the mutation
+    # soak re-points it at each query's pinned overlay graph
+    oracle_graph = {"g": graph}
     if args.emit_workload:
         emit_workload(args, dqueries)
         return 0
@@ -299,6 +393,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                prefetch=not args.no_prefetch,
                                seed=args.seed, tracer=tracer,
                                device=args.device)
+    gen0 = session.generation   # None in RAM
     q = partition_quality(graph, session.pg.assignment, session.k)
     print(f"[serve] session: k={session.k} scheme={session.scheme} "
           f"engine={args.engine} device={session.device} cut={q['cut']} "
@@ -324,7 +419,70 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"{total} shard bytes (reopen with --graph-dir)")
 
     throughput = None
-    if args.workload:
+    slo_report = None
+    if args.slo:
+        from ..serving import Request, parse_slo_spec, requests_from_workload
+        classes = parse_slo_spec(args.slo)
+        default_slo = args.default_slo or None
+        if default_slo and default_slo not in {c.name for c in classes}:
+            sys.exit(f"[serve] --default-slo {default_slo!r} is not in the "
+                     f"--slo spec")
+        if args.workload:
+            with open(args.workload) as f:
+                lines = [json.loads(ln) for ln in f if ln.strip()]
+            requests = requests_from_workload(
+                lines, default_slo=default_slo,
+                default_max_answers=args.max_answers)
+        else:
+            requests = [Request(dq, slo_class=default_slo,
+                                max_answers=args.max_answers)
+                        for dq in dqueries]
+        replay = (f"x{args.arrival_replay:g}" if args.arrival_replay > 0
+                  else "instant")
+        print(f"[serve] slo serving: {len(requests)} requests, classes "
+              f"[{', '.join(f'{c.name}={c.deadline_s}s' for c in classes)}]"
+              f", policy={args.shed_policy}, replay={replay}")
+        fe = session.frontend(slo_classes=classes,
+                              shed_policy=args.shed_policy,
+                              heuristic=args.shared_heuristic,
+                              fairness_gamma=args.fairness_gamma,
+                              replay_speed=args.arrival_replay)
+        slo_report = fe.serve(requests)
+        lat = [o.latency_s for o in slo_report.served]
+        throughput = {
+            "n_queries": len(slo_report.served),
+            "wall_s": slo_report.wall_s,
+            "qps": (len(slo_report.served) / slo_report.wall_s
+                    if slo_report.wall_s else 0.0),
+            "p50_latency_s": float(np.percentile(lat, 50)) if lat else 0.0,
+            "p95_latency_s": float(np.percentile(lat, 95)) if lat else 0.0,
+            "p99_latency_s": float(np.percentile(lat, 99)) if lat else 0.0,
+            "fairness_gamma": args.fairness_gamma,
+            "slo": {
+                "classes": slo_report.per_class,
+                "counters": slo_report.counters,
+                "shed_by_reason": slo_report.shed_by_reason,
+                "rounds": slo_report.rounds,
+                "shed_policy": args.shed_policy,
+                "cost_model": fe.cost_model.snapshot(),
+                "slo_burn": slo_report.slo_burn,
+            },
+        }
+        # each served outcome verifies under its effective budget (a
+        # degraded query's shrunken K is the contract it was served under)
+        served = (((req.query if isinstance(req.query, DisjunctiveQuery)
+                    else DisjunctiveQuery([req.query], name=req.query.name)),
+                   o.result, o.max_answers)
+                  for req, o in zip(requests, slo_report.outcomes)
+                  if o.status == "ok")
+        slo_extras = iter(
+            [{"status": "ok", "slo_class": o.slo_class,
+              "degraded": o.degraded, "deferred": o.deferred,
+              "deadline_s": o.deadline_s, "deadline_met": o.deadline_met,
+              "predicted_latency_s": o.predicted_latency_s,
+              "effective_max_answers": o.max_answers}
+             for o in slo_report.served])
+    elif args.workload:
         with open(args.workload) as f:
             lines = [json.loads(ln) for ln in f if ln.strip()]
         wqueries = [DisjunctiveQuery.from_json_dict(d) for d in lines]
@@ -337,12 +495,38 @@ def main(argv: Optional[List[str]] = None) -> int:
                                      fairness_gamma=args.fairness_gamma)
         throughput = _throughput(report, args.fairness_gamma)
         served = zip(wqueries, report.results, budgets)
+    elif args.mutate_workload:
+        if not args.graph_dir:
+            sys.exit("[serve] --mutate-workload needs --graph-dir (durable "
+                     "delta logs live in the graph directory)")
+        print(f"[serve] mutation soak: {args.mutate_workload} deltas "
+              f"(seed {args.mutate_seed}), compact every "
+              f"{args.mutate_compact_every or 'never'}")
+        served = _mutation_soak(session, dqueries, oracle_graph,
+                                n_deltas=args.mutate_workload,
+                                compact_every=args.mutate_compact_every,
+                                seed=args.mutate_seed,
+                                max_answers=args.max_answers)
     else:
         served = ((dq, session.submit(dq, max_answers=args.max_answers),
                    args.max_answers) for dq in dqueries)
 
     records = []
     mismatches = 0
+    if slo_report is not None:
+        for o in slo_report.shed:
+            print(f"[serve] {o.name}: SHED ({o.shed_reason}) "
+                  f"class={o.slo_class} "
+                  f"predicted={o.predicted_latency_s*1000:.0f} ms vs "
+                  f"deadline={o.deadline_s*1000:.0f} ms")
+            # a shed query must say why: a missing reason fails the gate
+            if args.verify and not o.shed_reason:
+                mismatches += 1
+            records.append({"query": o.name, "status": "shed",
+                            "slo_class": o.slo_class,
+                            "shed_reason": o.shed_reason,
+                            "predicted_latency_s": o.predicted_latency_s,
+                            "deadline_s": o.deadline_s})
     for dq, res, budget in served:
         answers = res.answers
         n_loads = res.n_loads
@@ -362,8 +546,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                "disk_reads": ls.disk_reads,
                "read_ahead_hits": ls.read_ahead_hits,
                "generation": res.generation}
+        if slo_report is not None:
+            rec.update(next(slo_extras))
         if args.verify:
-            ref = match_disjunctive(graph, dq, q_pad=answers.shape[1])
+            ref = match_disjunctive(oracle_graph["g"], dq, q_pad=answers.shape[1])
             match = _verified(answers, ref, budget)
             rec["oracle_match"] = bool(match)
             mismatches += int(not match)
@@ -371,7 +557,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"{'MATCH' if match else 'MISMATCH'}")
         records.append(rec)
 
-    if throughput is not None:
+    if throughput is not None and slo_report is not None:
+        c = throughput["slo"]["counters"]
+        print(f"[serve] slo: {c['arrived']} arrived, {c['admitted']} "
+              f"admitted, {c['served']} served "
+              f"({c['degraded']} degraded, {c['deferred']} deferred), "
+              f"{c['shed']} shed {throughput['slo']['shed_by_reason']}, "
+              f"{throughput['slo']['rounds']} scheduler rounds")
+        for cls, pc in throughput["slo"]["classes"].items():
+            print(f"[serve]   {cls}: {int(pc['served'])} served, "
+                  f"p50={pc['p50_latency_s']*1000:.0f} ms "
+                  f"p95={pc['p95_latency_s']*1000:.0f} ms "
+                  f"p99={pc['p99_latency_s']*1000:.0f} ms")
+    elif throughput is not None:
         print(f"[serve] throughput: {throughput['n_queries']} queries in "
               f"{throughput['wall_s']:.2f}s -> {throughput['qps']:.1f} q/s, "
               f"{throughput['workload_loads']} workload loads "
@@ -412,6 +610,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "observability": observability_snapshot(tracer),
                    "profile": {"enabled": False},
                    "workload_profile": profile}
+            if session.mutable:
+                rep["generations"] = {
+                    "start": gen0,
+                    "end": session.generation,
+                    "compactions": session._mdir.compactions,
+                    "pending_deltas": int(session._mdir.pending_counts().sum()),
+                }
             if throughput is not None:
                 rep["throughput"] = throughput
             with open(args.json, "w") as f:

@@ -35,12 +35,22 @@ read and bytes from the manifest, and evicting to fit, right then — and
 its worker only reads, verifies and pins into that slot.  The LRU order
 is therefore the one a read-ahead that lands at once would give, however
 long the worker takes.
+
+``HostShardCache`` keys are plain pids or a generation view's bundle
+tokens ``(pid, generation, seq, node_pad, ell_width, n_nodes)``
+(storage/deltas.py ``GenerationView.bundle_token``): two generations of
+one partition are two entries, each counted against the capacity.
+``get`` and ``read_ahead`` take an optional ``loader`` that builds the
+bundle's numpy arrays on a miss (the view's overlay loader: a shard read
+re-padded to the view's geometry, or a stale partition rebuilt from the
+delta overlay); the tier pins what it returns, on the worker thread for a
+read-ahead, exactly as it pins a plain shard read.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, List, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -153,9 +163,9 @@ class HostShardCache:
             from ..obs.trace import NULL_TRACER
             tracer = NULL_TRACER
         self.tracer = tracer
-        # pid -> a landed bundle, or the slot of a read-ahead no get has
+        # key -> a landed bundle, or the slot of a read-ahead no get has
         # consumed yet (in flight or landed)
-        self._cache: "OrderedDict[int, Union[HostBundle, _ReadAhead]]" = OrderedDict()
+        self._cache: "OrderedDict[Any, Union[HostBundle, _ReadAhead]]" = OrderedDict()
         # every worker started and not yet joined: clear() joins them all,
         # those of evicted slots included
         self._workers: List[threading.Thread] = []
@@ -165,82 +175,100 @@ class HostShardCache:
     def part_keys(self):
         return self.catalog.part_keys
 
-    def resident(self, pid: int) -> bool:
+    @staticmethod
+    def _norm(key):
+        """A plain pid as an int; a bundle token as it is."""
+        return int(key) if isinstance(key, (int, np.integer)) else tuple(key)
+
+    @staticmethod
+    def _pid_of(key) -> int:
+        return int(key if isinstance(key, (int, np.integer)) else key[0])
+
+    def resident(self, key) -> bool:
         """Host-resident NOW — an in-flight read-ahead does not count
         (the store must not try to device-stage a pid whose bytes are
         still on their way: its host get would block on the worker)."""
-        got = self._cache.get(int(pid))
+        got = self._cache.get(self._norm(key))
         if isinstance(got, _ReadAhead):
             return not got.thread.is_alive() and got.error is None
         return got is not None
 
-    def nbytes(self, pid: int) -> int:
-        return self.catalog.part_nbytes(int(pid))
+    def nbytes(self, key) -> int:
+        """The manifest's size of the key's partition."""
+        return self.catalog.part_nbytes(self._pid_of(key))
 
     def held_nbytes(self) -> int:
         """Bytes the tier holds now (read-ahead slots at manifest size)."""
-        return sum(self.nbytes(p) if isinstance(b, _ReadAhead) else b.nbytes
-                   for p, b in self._cache.items())
+        return sum(self.nbytes(k) if isinstance(b, _ReadAhead) else b.nbytes
+                   for k, b in self._cache.items())
 
-    def _load(self, pid: int) -> HostBundle:
-        part, g2l = self.catalog.read_part(pid)
+    def _load(self, key, loader: Optional[Callable[[], Tuple]]) -> HostBundle:
+        """Build the bundle: the loader's arrays, or a plain checksum-
+        verified shard read; pinned here, on whichever thread runs it."""
+        if loader is None:
+            part, g2l = self.catalog.read_part(self._pid_of(key))
+        else:
+            part, g2l = loader()
         return host_bundle(part, g2l, self.pin)
 
-    def get(self, pid: int) -> HostBundle:
-        pid = int(pid)
-        got = self._cache.get(pid)
+    def get(self, key, loader: Optional[Callable[[], Tuple]] = None) -> HostBundle:
+        """The bundle of ``key``; ``loader`` (returning ``(part dict, g2l)``
+        numpy arrays) builds it on a miss, default a plain shard read."""
+        key = self._norm(key)
+        got = self._cache.get(key)
         if isinstance(got, _ReadAhead):
             got.thread.join()
             if got.error is not None:
-                del self._cache[pid]
+                del self._cache[key]
                 raise got.error   # e.g. StorageFormatError from a corrupt shard
-            self._cache[pid] = got = got.bundle
+            self._cache[key] = got = got.bundle
             self.stats.read_ahead_hits += 1
         if got is not None:
-            self._cache.move_to_end(pid)
+            self._cache.move_to_end(key)
             self.stats.bytes_host += got.nbytes
             return got
         # demand read: disk on the critical path
-        with self.tracer.span("store.disk_read", pid=pid) as sp:
+        with self.tracer.span("store.disk_read", pid=self._pid_of(key)) as sp:
             self.stats.disk_reads += 1
-            bundle = self._load(pid)
+            bundle = self._load(key, loader)
             self.stats.bytes_disk += bundle.nbytes
             sp.set(nbytes=bundle.nbytes)
-        self._insert(pid, bundle)
+        self._insert(key, bundle)
         self.stats.bytes_host += bundle.nbytes
         return bundle
 
-    def read_ahead(self, pid: int) -> bool:
-        """Start pulling ``pid`` off disk on a background thread; returns
-        True when a read was issued (False: resident, already in flight,
-        or read-ahead disabled).  The slot is reserved in the LRU now, so
-        a read-ahead nobody ever ``get``s is still capacity-bounded; a
-        worker failure (corrupt shard, IO error) is re-raised by the next
-        ``get(pid)`` instead of being swallowed."""
-        pid = int(pid)
-        if not self.read_ahead_enabled or pid in self._cache:
+    def read_ahead(self, key, loader: Optional[Callable[[], Tuple]] = None) -> bool:
+        """Start building ``key``'s bundle on a background thread (a shard
+        read, or ``loader``); returns True when a read was issued (False:
+        resident, already in flight, or read-ahead disabled).  The slot is
+        reserved in the LRU now, so a read-ahead nobody ever ``get``s is
+        still capacity-bounded; a worker failure (corrupt shard, IO error)
+        is re-raised by the next ``get(key)`` instead of being swallowed."""
+        key = self._norm(key)
+        if not self.read_ahead_enabled or key in self._cache:
             return False
         # nbytes comes from the manifest, so no shard I/O happens here
         self.stats.disk_reads += 1
         self.stats.read_ahead_issued += 1
-        self.stats.bytes_disk += self.nbytes(pid)
+        self.stats.bytes_disk += self.nbytes(key)
         slot = _ReadAhead()
+        pid = self._pid_of(key)
 
         def work() -> None:
             try:
                 # the tracer is thread-safe with one timebase, so the read
                 # shows in its own thread lane beside the main thread's
                 with self.tracer.span("store.read_ahead", pid=pid) as sp:
-                    slot.bundle = self._load(pid)
+                    slot.bundle = self._load(key, loader)
                     sp.set(nbytes=slot.bundle.nbytes)
-            except BaseException as e:   # surfaced by the next get(pid)
+            except BaseException as e:   # surfaced by the next get(key)
                 slot.error = e
 
         slot.thread = threading.Thread(target=work, daemon=True,
                                        name=f"read-ahead-part-{pid}")
         self._workers = [t for t in self._workers if t.is_alive()]
         self._workers.append(slot.thread)
-        self._insert(pid, slot)
+        self._insert(key, slot)
         slot.thread.start()
         return True
 
@@ -253,13 +281,13 @@ class HostShardCache:
         self._workers.clear()
         self._cache.clear()
 
-    def _insert(self, pid: int, entry) -> None:
-        self._cache[pid] = entry
-        self._cache.move_to_end(pid)
-        self._evict(keep=pid)
+    def _insert(self, key, entry) -> None:
+        self._cache[key] = entry
+        self._cache.move_to_end(key)
+        self._evict(keep=key)
         self.peak_nbytes = max(self.peak_nbytes, self.held_nbytes())
 
-    def _evict(self, keep: int) -> None:
+    def _evict(self, keep) -> None:
         def over() -> bool:
             if self.capacity_parts is not None \
                     and len(self._cache) > self.capacity_parts:
@@ -270,7 +298,7 @@ class HostShardCache:
             return False
 
         while over():
-            victim = next((p for p in self._cache if p != keep), None)
+            victim = next((k for k in self._cache if k != keep), None)
             if victim is None:
                 break   # the just-read shard alone exceeds the budget
             del self._cache[victim]

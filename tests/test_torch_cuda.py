@@ -177,7 +177,7 @@ def test_cuda_host_eviction_under_an_in_flight_copy(small_graph_dir):
     both device entries equal their shards bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rec = chip_smoke.evict_under_copy(small_graph_dir, 0, 1, sleep_cycles=200_000_000)
+    rec = chip_smoke.evict_under_copy(small_graph_dir, 0, 1, sleep_cycles=3_000_000_000)
     assert rec["prefetch_issued"] and rec["a_evicted"], rec
     assert rec["copy_in_flight_at_eviction"], rec
     assert rec["a_equal"] and rec["b_equal"] and rec["prefetch_hits"] == 1, rec
@@ -212,3 +212,42 @@ def test_cuda_opened_opat_matches_cpu(small_graph_dir):
     assert chip_smoke.same_opened(card, cpu)
     assert sum(r[4]["disk_reads"] for r in card) > 0
     assert sum(r[4]["read_ahead_hits"] for r in card) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_step_under_a_view_with_added_vertices(small_graph_dir):
+    """An opened OPAT session whose view adds a vertex (a clone of one Q4
+    binds, with its edges) and widens the ELL width: on the card it equals
+    the CPU session (answers, loads, iterations, every LoadStats field,
+    stale and compacted), and one step launch under the view reads the
+    view's [V] owner table and g2l row and is bit-equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import build
+    build.LAUNCHES.clear()
+    card = chip_smoke.mutated_small(small_graph_dir, "cuda")
+    assert build.LAUNCHES[ff.NAME] > 0
+    assert chip_smoke.same_mutated(card, chip_smoke.mutated_small(small_graph_dir, "cpu"))
+    step = card["step"]
+    assert step["mismatches"] == 0 and step["max_abs_err"] == 0, step
+    assert step["V"] == step["g2l_len"] == step["view_nodes"] > card["V0"], step
+    assert step["matched_added"] > 0, step
+    assert card["W"] > card["W0"]
+    assert any((r[2] >= card["V0"]).any() for r in card["runs"])
+
+
+@pytest.mark.cuda
+def test_cuda_two_generations_of_one_partition(small_graph_dir):
+    """A scheduler pinned to generation G and the session on G+1 (a vertex
+    added and its partition compacted) hold two stagings of that partition
+    on the card at once; each view's answers are its own oracle's, and
+    equal the CPU run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    card = chip_smoke.two_generations(small_graph_dir, "cuda")
+    assert card["resident_stagings"] == 2, card
+    assert card["old_equal"] and card["new_equal"] and card["answers_differ"], card
+    assert card["new_generation"] == card["old_generation"] + 1
+    cpu = chip_smoke.two_generations(small_graph_dir, "cpu")
+    assert np.array_equal(card["old"], cpu["old"]) and np.array_equal(card["new"], cpu["new"])

@@ -631,7 +631,12 @@ def test_port_imports_neither_jax_nor_reference():
             "src/repro_torch/storage/__init__.py",
             "src/repro_torch/storage/format.py",
             "src/repro_torch/storage/host_cache.py",
-            "src/repro_torch/obs/metrics.py"} <= names
+            "src/repro_torch/obs/metrics.py",
+            "src/repro_torch/obs/profile.py",
+            "src/repro_torch/serving/__init__.py",
+            "src/repro_torch/serving/cost.py",
+            "src/repro_torch/serving/frontend.py",
+            "src/repro_torch/storage/deltas.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

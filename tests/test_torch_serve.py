@@ -1,10 +1,12 @@
 """The PyTorch port's serving CLI (``python -m repro_torch.launch.serve``)
 on the CPU: the ``--verify`` gate for every engine, the ``--json`` report
 against the JAX package's CLI (in RAM, and out of core for each of the
-graph-directory and repartitioning flags), the workload round trip, and
-the refusal of flags whose modules are not ported yet."""
+graph-directory, repartitioning, SLO and mutation flags), the workload
+round trip, the mutation soak's ``--verify``, and the refusal of flags
+whose modules are not ported yet."""
 import json
 import os
+import shutil
 import sys
 
 import pytest
@@ -112,9 +114,15 @@ def _both_reports(tmp_path, monkeypatch, capsys, args, tag):
     return json.loads(ref_out.read_text()), json.loads(out.read_text())
 
 
+# the SLO keys of a --json record, and of a shed one (no answers)
+SLO_KEYS = ("status", "slo_class", "degraded", "deferred", "deadline_s",
+            "predicted_latency_s", "effective_max_answers", "shed_reason")
+
+
 def _assert_same_reports(got, want):
-    assert [{k: r[k] for k in RECORD_KEYS} for r in got["queries"]] == \
-        [{k: r[k] for k in RECORD_KEYS} for r in want["queries"]]
+    keys = RECORD_KEYS + SLO_KEYS
+    assert [{k: r[k] for k in keys if k in r} for r in got["queries"]] == \
+        [{k: r[k] for k in keys if k in r} for r in want["queries"]]
     assert got["cache"] == want["cache"]
 
 
@@ -149,8 +157,30 @@ def _ref_workers(tier):
         return list(tier._pending.values())
 
 
+SLO_WORKLOAD = ["--emit-repeat", "2", "--emit-slo-classes",
+                "interactive,batch,exhaustive"]
+# each SLO flag's run: the decisions come from the cost model under
+# instant replay, so they must equal the reference's
+SLO_RUNS = {
+    "slo": ["--slo", "interactive=0.5,batch=5,exhaustive=inf"],
+    "shed_policy": ["--slo", "interactive=60,batch=0.0001,exhaustive=inf",
+                    "--shed-policy", "deadline"],
+    "arrival_replay": ["--slo", "interactive=0.5,batch=0.001,exhaustive=inf",
+                       "--arrival-replay", "0"],
+    "default_slo": ["--slo", "interactive=0.5,batch=0.0001", "--default-slo",
+                    "batch", "--max-answers", "1000"],
+}
+MUTATE_RUNS = {
+    "mutate_workload": ["--mutate-workload", "12"],
+    "mutate_compact_every": ["--mutate-workload", "12", "--mutate-compact-every", "5"],
+    "mutate_seed": ["--mutate-workload", "12", "--mutate-seed", "3",
+                    "--mutate-compact-every", "4", "--engine", "traditional"],
+}
+
+
 @pytest.mark.parametrize("flag", ["save_graph", "graph_dir", "host_cache_parts",
-                                  "no_read_ahead", "repartition_from"])
+                                  "no_read_ahead", "repartition_from",
+                                  *SLO_RUNS, *MUTATE_RUNS])
 def test_served_flag_matches_reference_cli(tmp_path, monkeypatch, capsys,
                                            ref_graph_dir, flag):
     """Each flag that used to exit 2 is served: the port's --json report
@@ -177,6 +207,45 @@ def test_served_flag_matches_reference_cli(tmp_path, monkeypatch, capsys,
         first = json.loads(open(os.path.join(ref_graph_dir, "manifest.json")).read())
         assert first.pop("generation") == 0 and manifest == first
         assert got["workload_profile"] == want["workload_profile"]
+    elif flag in SLO_RUNS:
+        base = ["--dataset", "synthetic", "--scale", "0.5"]
+        argv = base + SLO_RUNS[flag]
+        if flag != "default_slo":
+            workload = tmp_path / "w.jsonl"
+            assert serve.main(SMALL + ["--emit-workload", str(workload)]
+                              + SLO_WORKLOAD) == 0
+            argv += ["--workload", str(workload)]
+        want, got = _both_reports(tmp_path, monkeypatch, capsys, argv, flag)
+        slo, ref_slo = got["throughput"]["slo"], want["throughput"]["slo"]
+        for k in ("counters", "shed_by_reason", "rounds", "shed_policy"):
+            assert slo[k] == ref_slo[k], k
+        assert slo["cost_model"]["default_rate_s"] == 2e-4
+        c = slo["counters"]
+        assert c["served"] + c["shed"] == c["arrived"] == len(got["queries"])
+        assert all(r["shed_reason"] for r in got["queries"] if r["status"] == "shed")
+        if flag != "slo":
+            assert c["shed"] > 0
+        assert got["workload_profile"]["serving"]["counters"] == \
+            want["workload_profile"]["serving"]["counters"]
+    elif flag in MUTATE_RUNS:
+        ref_dir, port_dir = tmp_path / "ref-dir", tmp_path / "port-dir"
+        shutil.copytree(ref_graph_dir, ref_dir)
+        shutil.copytree(ref_graph_dir, port_dir)
+        args = ["--dataset", "synthetic", "--cache-parts", "1", "--host-cache-parts",
+                "2"] + MUTATE_RUNS[flag]
+        ref_out, out = tmp_path / "ref.json", tmp_path / "port.json"
+        monkeypatch.setattr(sys, "argv", ["serve", *args, "--graph-dir", str(ref_dir),
+                                          "--json", str(ref_out)])
+        ref_serve.main()
+        assert serve.main(args + ["--graph-dir", str(port_dir), "--device", "cpu",
+                                  "--json", str(out)]) == 0
+        capsys.readouterr()
+        want, got = json.loads(ref_out.read_text()), json.loads(out.read_text())
+        assert got["generations"] == want["generations"]
+        if "--mutate-compact-every" in args:
+            assert got["generations"]["end"] > 0
+        assert got["workload_profile"] == want["workload_profile"]
+        assert sorted(os.listdir(port_dir)) == sorted(os.listdir(ref_dir))
     elif flag == "repartition_from":
         profile = tmp_path / "profile.json"
         assert serve.main(SMALL + ["--max-answers", "5", "--profile-json",
@@ -201,6 +270,27 @@ def test_served_flag_matches_reference_cli(tmp_path, monkeypatch, capsys,
         elif flag == "host_cache_parts":
             assert cache["host_evictions"] > 0 and cache["read_ahead_hits"] > 0
     _assert_same_reports(got, want)
+
+
+@pytest.mark.parametrize("engine", ["opat", "traditional", "mapreduce"])
+def test_mutation_soak_verify_prints_only_match(tmp_path, capsys, ref_graph_dir, engine):
+    """The mutation soak: 30 updates compacted every 10, each query
+    verified against the oracle over its own pinned overlay graph."""
+    gdir = tmp_path / "soak"
+    shutil.copytree(ref_graph_dir, gdir)
+    report = tmp_path / "soak.json"
+    assert serve.main(["--dataset", "synthetic", "--device", "cpu", "--engine", engine,
+                       "--graph-dir", str(gdir), "--mutate-workload", "30",
+                       "--mutate-compact-every", "10", "--verify",
+                       "--json", str(report)]) == 0
+    out = capsys.readouterr().out
+    verdicts = _verify_lines(out)
+    assert verdicts and set(verdicts) == {"MATCH"}
+    assert "[serve] soak done: 30 deltas" in out
+    rep = json.loads(report.read_text())
+    assert rep["generations"]["start"] == 0 and rep["generations"]["end"] > 0
+    assert [r["generation"] for r in rep["queries"]] == \
+        sorted(r["generation"] for r in rep["queries"])
 
 
 @pytest.mark.parametrize("engine", ["opat", "traditional", "mapreduce"])

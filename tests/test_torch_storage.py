@@ -561,7 +561,7 @@ def test_opened_session_matches_reference_open(setup, read_aheads_land_at_once, 
     ref = RefSession.open(setup["port_dir"], config=RefConfig(cap=CAP), **kw)
     port = tc.GraphSession.open(setup["ref_dir"], config=tc.EngineConfig(cap=CAP),
                                 device="cpu", **kw)
-    assert port.out_of_core and not port.mutable and port.generation == 0
+    assert port.out_of_core and port.mutable and port.generation == 0
     assert port.pg.parts == [] and port.k == 4 and port.scheme == "kway_shem"
     for h in HEURISTICS:
         for dq, tdq in zip(setup["dqs"], setup["tdqs"]):
@@ -585,13 +585,10 @@ def test_opened_session_matches_reference_open(setup, read_aheads_land_at_once, 
         port.pg.backing.part_nbytes(p) for p in range(4))
     prof = port.workload_profile()
     assert prof["out_of_core"] is True and prof["cache"] == st.to_dict()
-    # the reference opens a mutable directory, whose profile adds the
-    # delta log's keys; the rest must agree
+    # both open a mutable directory: the profiles carry the delta log's
+    # keys, with nothing pending
     want_prof = ref.workload_profile()
-    for key in ("generation", "pending_deltas", "compactions"):
-        want_prof.pop(key)
-    for part in want_prof["partitions"]:
-        assert part.pop("delta_count") == 0
+    assert prof["pending_deltas"] == 0 and prof["compactions"] == 0
     assert prof == want_prof
 
 
