@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line:
 
-  device       the card's name and power limit (nvidia-smi); no card -> exit 2
+  device       the card's name, power limit and top SM clock (nvidia-smi)
+               and SM count, beside the resource profiler's roofline
+               peaks; no card -> exit 2
   build        nvcc builds every kernel under src/repro_torch/kernels/csrc
                (one process per source, all at once), with ptxas registers
                and spills
@@ -55,10 +57,13 @@ Phases, each printing one JSON line:
                equal to the per-query results
   cli          ``python -m repro_torch.launch.serve`` in-process at
                ``--scale 20`` with ``--verify``, for the mapreduce and opat
-               engines; then opat with ``--save-graph`` and
-               ``--profile-json``, ``--graph-dir`` with
-               ``--host-cache-parts 1`` on opat and mapreduce, and
-               ``--repartition-from``: every query MATCH, return code 0
+               engines (opat with ``--metrics-out`` and ``--trace-out``:
+               both files written, the Prometheus file parses,
+               ``tools/trace_report.py --check`` accepts the trace); then
+               opat with ``--save-graph`` and ``--profile-json``,
+               ``--graph-dir`` with ``--host-cache-parts 1`` on opat and
+               mapreduce, and ``--repartition-from``: every query MATCH,
+               return code 0
   profile      Q5 on the OPAT, TraditionalMP and MapReduceMP sessions: 12
                rounds of warm runs on the host clock, rotating which engine
                goes first (each latency's spread, the rounds each engine
@@ -67,6 +72,18 @@ Phases, each printing one JSON line:
                kernel name, host time by op, host kernel launches per
                evaluator loop; and the peak device memory of an
                unprofiled warm run (every session's resident data in it)
+  metrics      resource profiling and the metrics registry on the path's
+               graph: profiled OPAT, TraditionalMP and MapReduceMP sessions
+               (one Tracer) serve the path's runs and submit_many, with the
+               answers, loads and iterations of the unprofiled runs above;
+               every kernel.eval span carries its kernel key, predicted
+               cost, step launches and the store's live bytes, and no
+               cost_error; the span launches sum to the step's launches;
+               ``tools/trace_report.py --check`` accepts the trace and its
+               ``--cost`` table is printed; each session's peak device
+               bytes within ``torch.cuda.max_memory_allocated``; each
+               session's Prometheus file parses; warm Q5 with profiling on
+               against off, 12 rounds in turns
   ooc          out of core at full scale: the path's session saved as a
                graph directory; one cold partition load split into disk
                read, checksum, pin and host-to-device copy; a host tier of
@@ -125,6 +142,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import resource
 import shutil
 import subprocess
@@ -157,9 +175,9 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def smi_line() -> str:
+def smi_line(fields: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
 
@@ -409,42 +427,12 @@ def step_cases(Np: int) -> list:
 STEP_SETS = 256     # rotating selections for the device-time run
 
 
-def step_bytes_ops(inv, args, got) -> tuple:
-    """Bytes the step must move at these inputs -- each input read once:
-    the table rows, g2l and owner entries and binding inputs this call's
-    selection needs; each output written once -- and its elementwise
-    integer operations."""
-    wr, ws, lidx, sel, m = args
-    L, EB = sel.shape
-    W, Q, Np, V = inv.tables[0].shape[1], wr.shape[2], inv.node_pad, inv.owner.shape[0]
-    S = inv.plan_int.shape[1]
-    lanes = torch.arange(L, device=sel.device)[:, None]
-    part = inv.lane[:, 0].long()[:, None]
-    rows = lidx[lanes, sel].long().clamp(0, Np - 1) + part * Np
-    step = ws[lanes, sel].long()
-    pl = inv.plan_int[lanes, step.clamp(0, S - 1)]
-    nsrc = inv.plan_int[lanes, (step + 1).clamp(0, S - 1), 0].long()
-    use_dg = (nsrc == pl[..., 1]) & (pl[..., 6] == 0)
-    fg = wr[lanes, sel].gather(2, nsrc[..., None])[..., 0].long()
-    dg = got[1].view(L, EB, W).long()
-    dgu = use_dg[..., None].expand_as(dg)
-    owner_idx = torch.cat([dg[dgu].clamp(0, V - 1), fg.reshape(-1).clamp(0, V - 1)])
-    g2l_idx = torch.cat([(part[..., None] * V + dg)[dgu & (dg >= 0)],
-                         (part * V + fg)[fg >= 0]])
-    lookups = 4 * (torch.unique(owner_idx).numel() + torch.unique(g2l_idx).numel())
-    tables = 6 * torch.unique(rows).numel() * W * 4
-    binding = L * EB * (8 + 1 + 4 + 4 + 4 * Q) + L * (S * (8 * 4 + 4) + 3 * 4)
-    outputs = L * EB * W * (4 * 1 + 3 * 4 + 4 * Q)
-    return (tables + lookups + binding + outputs,
-            {"tables": tables, "g2l_owner": lookups, "binding": binding,
-             "outputs": outputs}, L * EB * W * (40 + 3 * Q))
-
-
 def kernel_fused_frontier(rng, Np: int) -> tuple:
     """The frontier step bit-equal to its plain version on every case; at
     the main path's shape (L = 1) timed over STEP_SETS selections of
     distinct table rows (about the 50 MB L2 in all), and over one."""
     from repro_torch.kernels import fused_frontier as ff
+    from repro_torch.kernels.ops import step_bytes_ops, step_cost
     results, worst = [], 0
     for name, (L, EB, W, Q, n), kw in step_cases(Np):
         timed = name == "paper" and L == 1
@@ -488,6 +476,11 @@ def kernel_fused_frontier(rng, Np: int) -> tuple:
                            nbytes, nops, worst, call_reps=5000)
     timing["ms_one_set"] = graph_time_ms(lambda: ff.frontier_step_cuda(inv, *args, out))
     timing["bytes_by_part"] = parts
+    # the profiler's shape-only upper bound at the same shapes
+    L, EB = sel.shape
+    timing["step_cost"] = dict(zip(("ops", "bytes"), step_cost(
+        L, EB, inv.tables[0].shape[1], wr.shape[2], inv.plan_int.shape[1],
+        inv.node_pad, inv.owner.shape[0])))
     timing["sets"] = STEP_SETS
     timing["mapreduce_four_lanes"] = lanes4
     return results, timing
@@ -1082,7 +1075,7 @@ def phase_mapreduce(pg, oracle) -> tuple:
                       "fused_frontier_launches": build.LAUNCHES[NAME],
                       "cold_loads": report.load_stats.cold_loads,
                       "warm_loads": report.load_stats.warm_loads})
-    return launches, sess
+    return launches, sess, served
 
 
 def phase_cli(workdir: Path) -> None:
@@ -1096,8 +1089,11 @@ def phase_cli(workdir: Path) -> None:
     from repro_torch.launch import serve as cli
 
     gdir, profile = workdir / "cli-graph", workdir / "cli-profile.json"
+    prom, trace = workdir / "cli-metrics.prom", workdir / "cli-trace.json"
     base = ["--dataset", "synthetic", "--scale", "20", "--verify"]
-    runs = [("mapreduce", ["--engine", "mapreduce"]), ("opat", ["--engine", "opat"]),
+    runs = [("mapreduce", ["--engine", "mapreduce"]),
+            ("opat", ["--engine", "opat", "--metrics-out", str(prom),
+                      "--trace-out", str(trace)]),
             ("opat_save", ["--engine", "opat", "--save-graph", str(gdir),
                            "--profile-json", str(profile)]),
             ("opat_graph_dir", ["--engine", "opat", "--graph-dir", str(gdir),
@@ -1124,6 +1120,13 @@ def phase_cli(workdir: Path) -> None:
         if "--repartition-from" in argv:
             check(any("repartitioned from" in ln for ln in lines),
                   f"cli {name}: no repartition line")
+        if "--metrics-out" in argv:
+            check(prom.is_file() and trace.is_file(),
+                  f"cli {name}: --metrics-out / --trace-out wrote no file")
+            check(not prom_problems(prom.read_text()), f"cli {name}: bad Prometheus file")
+            checked = trace_report(trace, "--check")
+            check(checked.returncode == 0, f"cli {name}: trace_report --check: "
+                                           f"{checked.stderr[-2000:]}")
         out[name] = {"rc": rc, "argv": argv, "verdicts": verdicts,
                      "seconds": time.perf_counter() - t0,
                      "fused_frontier_launches": build.LAUNCHES[NAME],
@@ -1236,6 +1239,178 @@ def profile_query(sess, dq, engine: str) -> dict:
 def phase_profile(sessions, dq) -> None:
     emit("profile", warm=warm_rounds(sessions, dq),
          **{name: profile_query(sess, dq, name) for name, sess in sessions.items()})
+
+
+# ---------------------------------------------------------------------------
+# metrics: the resource profiler and the metrics registry on the path
+# ---------------------------------------------------------------------------
+
+PROM_SAMPLE = re.compile(r"[A-Za-z_:][A-Za-z0-9_:]*(\{[^{}]*\})? \S+")
+COST_ATTRS = ("kernel_key", "cost_flops", "cost_bytes", "cost_t_bound_us",
+              "cost_dominant", "launches", "device_live_bytes")
+
+
+def prom_problems(text: str) -> list:
+    """The lines of a Prometheus text file, comments aside, that do not
+    parse as ``name{labels} value``."""
+    bad = []
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        try:
+            float(ln.rsplit(" ", 1)[1])
+        except (ValueError, IndexError):
+            bad.append(ln)
+            continue
+        if not PROM_SAMPLE.fullmatch(ln):
+            bad.append(ln)
+    return bad
+
+
+def trace_report(path: Path, flag: str) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, str(ROOT / "tools" / "trace_report.py"),
+                           str(path), flag], capture_output=True, text=True,
+                          timeout=300)
+
+
+def same_run(a, b) -> bool:
+    """Two runs of one query: equal answers, loads and iterations."""
+    return (np.array_equal(a.answers, b.answers)
+            and [s.loads for s in a.stats] == [s.loads for s in b.stats]
+            and [s.iterations for s in a.stats] == [s.iterations for s in b.stats])
+
+
+def cost_by_key(spans) -> dict:
+    """Per kernel key, over its kernel.eval spans: calls, step launches,
+    summed wall time and summed predicted bound, and their ratio (the
+    step's roofline share of the calls' wall time), all calls and the
+    calls after each key's first."""
+    out: dict = {}
+    for sp in spans:
+        a = sp.attrs
+        r = out.setdefault(a["kernel_key"], {
+            "calls": 0, "launches": 0, "wall_us": 0.0, "bound_us": 0.0,
+            "steady_calls": 0, "steady_wall_us": 0.0, "steady_bound_us": 0.0,
+            "dominant": a["cost_dominant"]})
+        wall = (sp.t1 - sp.t0) * 1e6
+        r["calls"] += 1
+        r["launches"] += a["launches"]
+        r["wall_us"] += wall
+        r["bound_us"] += a["cost_t_bound_us"]
+        if not a.get("first_call"):
+            r["steady_calls"] += 1
+            r["steady_wall_us"] += wall
+            r["steady_bound_us"] += a["cost_t_bound_us"]
+    for r in out.values():
+        r["roofline_share"] = r["bound_us"] / r["wall_us"]
+        r["steady_roofline_share"] = (r["steady_bound_us"] / r["steady_wall_us"]
+                                      if r["steady_calls"] else None)
+    return out
+
+
+def phase_metrics(pg, sessions, served, workdir: Path) -> int:
+    """Profiling changes no result, costs every span, and exports: one
+    Tracer over profiled OPAT, TraditionalMP and MapReduceMP sessions on
+    the path's graph, each serving the path's runs and then submit_many,
+    held to the unprofiled sessions of the earlier phases; every
+    kernel.eval span costed; the trace accepted by tools/trace_report.py
+    (its --cost table printed); peak device bytes against the allocator's;
+    each session's Prometheus file parsed; warm Q5 with profiling on
+    against off.  Returns the step's launches in the profiled runs."""
+    from repro_torch.core import GraphSession
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+    from repro_torch.obs import (MetricsRegistry, Tracer, ingest_schedule,
+                                 ingest_session, resource_profile_snapshot,
+                                 to_prometheus_text, write_chrome_trace)
+
+    tracer = Tracer()
+    prof = {name: GraphSession(pg=pg, engine=name, heuristic="max-sn", processors=2,
+                               config=s.config, catalog=s.catalog, device="cuda",
+                               tracer=tracer)
+            for name, s in sessions.items()}
+    _, runs = path_runs(pg)
+    budgets = [b for _, b in runs]
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    reports = {}
+    for name, sess in prof.items():
+        for (dq, budget, res, _), (_, _, want, _) in zip(serve(sess, runs), served[name]):
+            check(same_run(res, want),
+                  f"profiled {name} {dq.name} (budget {budget}) differs from unprofiled")
+        report = sess.submit_many([dq for dq, _ in runs], max_answers=budgets)
+        for res, (dq, budget, want, _) in zip(report.results, served[name]):
+            check(budget is not None or np.array_equal(res.answers, want.answers),
+                  f"profiled {name} submit_many {dq.name} differs from its submit")
+        if name in RECORD["shared"]:
+            shared = RECORD["shared"][name]
+            check(report.loads == shared["loads"]
+                  and report.batch_sizes == shared["batch_sizes"],
+                  f"profiled {name} submit_many loads differ from the shared phase")
+        reports[name] = report
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES[NAME]
+    allocator_peak = torch.cuda.max_memory_allocated()
+
+    loops = sum(engine_loops(s.engine) for s in prof.values())
+    stamped = sum(sp.attrs.get("launches", 0) for sp in tracer.spans
+                  if sp.name == "kernel.eval")
+    check(stamped == loops, f"metrics: the spans stamp {stamped} step launches, "
+                            f"the evaluators ran {loops} loops")
+    check(launches == loops > 0,
+          f"metrics: fused_frontier launches {launches} != evaluator loops {loops}")
+    peaks = {name: s.profiler.peak_device_bytes for name, s in prof.items()}
+    check(all(0 < p <= allocator_peak for p in peaks.values()),
+          f"peak device bytes {peaks} against max_memory_allocated {allocator_peak}")
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    prom = {}
+    for name, sess in prof.items():
+        reg = MetricsRegistry()
+        ingest_session(reg, sess)
+        ingest_schedule(reg, reports[name].loads, reports[name].batch_sizes)
+        text = to_prometheus_text(reg)
+        (out_dir / f"metrics_{name}.prom").write_text(text)
+        bad = prom_problems(text)
+        check(not bad, f"{name}: Prometheus lines that do not parse: {bad[:5]}")
+        prom[name] = {"lines": len(text.splitlines()),
+                      "samples": sum(not ln.startswith("#") for ln in text.splitlines())}
+
+    # warm Q5 on OPAT, profiling off (the path's session) against on, in
+    # turns: off, on, on, off, ...
+    q5 = runs[1]
+    lat = {"off": [], "on": []}
+    for r in range(12):
+        for which in (("off", "on") if r % 2 == 0 else ("on", "off")):
+            sess = sessions["opat"] if which == "off" else prof["opat"]
+            lat[which] += [t for *_, t in serve(sess, [q5])]
+    overhead = {k: {"median_s": float(np.median(v)), "latency_s": v} for k, v in lat.items()}
+    overhead["on_over_off"] = overhead["on"]["median_s"] / overhead["off"]["median_s"]
+
+    spans = [sp for sp in tracer.spans if sp.name == "kernel.eval"]
+    for sp in spans:
+        missing = [k for k in COST_ATTRS if k not in sp.attrs]
+        check(not missing and "cost_error" not in sp.attrs,
+              f"kernel.eval span not costed: missing {missing}, {sp.attrs}")
+    trace_path = workdir / "metrics_trace.json"
+    write_chrome_trace(tracer, str(trace_path))
+    checked = trace_report(trace_path, "--check")
+    check(checked.returncode == 0,
+          f"trace_report --check failed: {checked.stdout} {checked.stderr[-2000:]}")
+    table = trace_report(trace_path, "--cost")
+    check(table.returncode == 0 and "attribution failed" not in table.stdout,
+          f"trace_report --cost: {table.stdout} {table.stderr[-2000:]}")
+    print(table.stdout, end="", flush=True)
+    emit("metrics", fused_frontier_launches=launches, kernel_eval_spans=len(spans),
+         spans=len(tracer.spans), cost_by_key=cost_by_key(spans),
+         trace_report_check=checked.stdout.strip(),
+         trace_report_cost=table.stdout.splitlines(),
+         peak_device_bytes=peaks, max_memory_allocated=allocator_peak,
+         memory_allocated=torch.cuda.memory_allocated(),
+         profile={name: resource_profile_snapshot(s) for name, s in prof.items()},
+         prometheus=prom, warm_q5_profiling=overhead)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2034,8 +2209,17 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
+    # the card's SM count and top SM clock beside the peaks the resource
+    # profiler's roofline assumes (obs/profile.py)
+    from repro_torch.obs import profile
+    props = torch.cuda.get_device_properties(0)
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         sms=props.multi_processor_count, capability=[props.major, props.minor],
+         clocks_max_sm=smi_line("clocks.max.sm"),
+         roofline={"sms": profile.H100_SMS, "max_sm_clock_hz": profile.H100_MAX_SM_CLOCK_HZ,
+                   "int32_ops_per_s": profile.H100_INT32_OPS_PER_S,
+                   "hbm_bytes_per_s": profile.H100_HBM_BYTES_PER_S})
 
     t0 = time.perf_counter()
     info = build.build_all()
@@ -2053,9 +2237,12 @@ def main() -> int:
         tsess, tserved = phase_traditional(pg, oracle)
         sessions = {"opat": sess, "traditional": tsess}
         phase_shared(sessions, oracle, {"opat": served, "traditional": tserved})
-        mlaunches, msess = phase_mapreduce(pg, oracle)
+        mlaunches, msess, mserved = phase_mapreduce(pg, oracle)
         phase_cli(workdir)
         phase_profile({**sessions, "mapreduce": msess}, served[1][0])
+        plaunches = phase_metrics(pg, {**sessions, "mapreduce": msess},
+                                  {"opat": served, "traditional": tserved,
+                                   "mapreduce": mserved}, workdir)
         flaunches = phase_frontend({**sessions, "mapreduce": msess}, oracle, pg)
         olaunches = phase_ooc(pg, sess, oracle, workdir)
         rlaunches = phase_repartition(pg, sess, oracle)
@@ -2064,11 +2251,12 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # the step's launches on each engine's serving path (path, traditional,
-    # mapreduce, the front end, the three engines out of core, the
-    # repartitioned OPAT session, the mutable sessions), each counted from
-    # 0 in its own phase
+    # mapreduce, the profiled sessions, the front end, the three engines
+    # out of core, the repartitioned OPAT session, the mutable sessions),
+    # each counted from 0 in its own phase
     step_launches = (launches + RECORD["traditional"]["fused_frontier_launches"]
-                     + mlaunches + flaunches + olaunches + rlaunches + ulaunches)
+                     + mlaunches + plaunches + flaunches + olaunches + rlaunches
+                     + ulaunches)
     sources = {
         "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", step_launches),
         "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",

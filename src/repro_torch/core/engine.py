@@ -405,6 +405,17 @@ def make_batched_evaluator(cfg: EngineConfig):
     return evaluate
 
 
+def step_shape(cfg: EngineConfig, part: Dict[str, torch.Tensor],
+               owner: torch.Tensor, lanes: int) -> Tuple[int, ...]:
+    """The frontier step's shapes (L, EB, W, Q, S, node_pad, V) in an
+    evaluator call of ``lanes`` lanes over ``part`` (one partition's
+    [Np, W] tables or a stacked [P, Np, W] bundle): what
+    ``ResourceProfiler.attribute_kernel`` costs."""
+    Np, W = part["ell_dst"].shape[-2:]
+    return (int(lanes), min(cfg.expand_block, cfg.cap + Np), int(W), cfg.q_pad,
+            cfg.s_pad, int(Np), int(owner.shape[0]))
+
+
 def stack_entry_part(part: Dict[str, Union[int, torch.Tensor]]
                      ) -> Dict[str, torch.Tensor]:
     """A single-partition evaluator dict as a stacked P=1 bundle (views;

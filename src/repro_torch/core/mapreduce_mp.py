@@ -56,8 +56,10 @@ from torch.profiler import record_function
 
 from ..kernels import ops as kops
 from ..kernels import ref as kref
+from ..obs.profile import NULL_PROFILER
 from ..obs.trace import NULL_TRACER
-from .engine import _ELL_TABLES, _PLAN_TENSOR_FIELDS, EngineConfig, plan_to_device
+from .engine import (_ELL_TABLES, _PLAN_TENSOR_FIELDS, EngineConfig, plan_to_device,
+                     step_shape)
 from .graph import WILDCARD, PartitionedGraph
 from .heuristics import MAX_SN, MAX_YIELD, MIN_SN, RANDOM_SN
 from .metrics import RunStats, l_ideal_for_plan
@@ -125,7 +127,8 @@ class MapReduceMPEngine:
                  max_outer_iters: int = 4096,
                  store: Optional[PartitionStore] = None,
                  tracer: Optional[Any] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 profiler: Optional[Any] = None):
         self.pg = pg
         self.cfg = cfg or EngineConfig()
         self.P = pg.k
@@ -135,10 +138,13 @@ class MapReduceMPEngine:
         self.heuristic = heuristic
         self.max_outer_iters = max_outer_iters
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
         self.store = (store if store is not None
-                      else PartitionStore(pg, tracer=self.tracer, device=device))
+                      else PartitionStore(pg, tracer=self.tracer, device=device,
+                                          profiler=self.profiler))
         self.device = self.store.device
         self.batched_iters = 0
+        self._eval_called = False
 
     # -- the virtual-mesh program ---------------------------------------------
 
@@ -352,7 +358,13 @@ class MapReduceMPEngine:
                                                             _NO_BUDGET)
         load0 = self.store.stats.copy()
         entry = self.store.get_stacked(tuple(range(self.P)))
-        with self.tracer.span("kernel.eval", engine="mapreduce", n_parts=self.P):
+        with self.tracer.span("kernel.eval", engine="mapreduce", n_parts=self.P) as ksp:
+            if not self._eval_called:
+                self._eval_called = True
+                ksp.set(first_call=True)
+                self.profiler.attribute_kernel(
+                    ("mapreduce", "eval"),
+                    *step_shape(cfg, entry.part, self.store.owner, self.P))
             faa, faa_n, overflow, n_iter, comp, spawn = self._run_lanes(
                 entry.part, entry.g2l, self.store.owner, pa, plan.n_steps,
                 seed, budget)
@@ -361,6 +373,9 @@ class MapReduceMPEngine:
             flags = overflow.cpu().numpy()
             faa_n = faa_n.cpu().numpy()
             faa = faa.cpu().numpy()
+            # one step launch per iteration, for all P lanes
+            self.profiler.stamp_kernel(ksp, ("mapreduce", "eval"), n_iter)
+            self.profiler.sample_device(ksp, self.store)
         if flags.any():
             raise RuntimeError("MapReduceMP buffer overflow; raise cap/quota")
         rows = [faa[p, : faa_n[p]] for p in range(self.P) if faa_n[p]]

@@ -29,9 +29,11 @@ from typing import Any, List, Optional, Union
 import numpy as np
 import torch
 
+from ..obs.profile import NULL_PROFILER
 from ..obs.trace import NULL_TRACER
 from .engine import (EngineConfig, EvalResult, make_batched_evaluator,
-                     make_partition_evaluator, plan_to_device, stack_entry_part)
+                     make_partition_evaluator, plan_to_device, stack_entry_part,
+                     step_shape)
 from .graph import PartitionedGraph
 from .heuristics import MAX_YIELD, rank_partitions
 from .metrics import RunStats, l_ideal_for_plan
@@ -99,20 +101,24 @@ class OPATEngine:
                  store: Optional[PartitionStore] = None,
                  prefetch: bool = True,
                  tracer: Optional[Any] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 profiler: Optional[Any] = None):
         self.pg = pg
         self.cfg = cfg or EngineConfig()
         assert pg.node_pad > 0, "build_partitions(uniform_pad=True) required"
         self._eval = make_partition_evaluator(pg.node_pad, pg.ell_width,
                                               self.cfg)
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
         self.store = (store if store is not None
-                      else PartitionStore(pg, tracer=self.tracer, device=device))
+                      else PartitionStore(pg, tracer=self.tracer, device=device,
+                                          profiler=self.profiler))
         self.device = self.store.device
         self.prefetch = prefetch
         self.inner_iters = 0
         self.batched_iters = 0
         self._beval = None
+        self._eval_called = False
 
     def batched_evaluator(self):
         """The plan-batched partition evaluator: one loaded partition
@@ -163,7 +169,15 @@ class OPATEngine:
                 in_step[: chunk.n] = chunk.step
                 in_valid[: chunk.n] = True
             with self.tracer.span("kernel.eval", pid=pid, engine="opat",
-                                  rows=int(chunk.n)):
+                                  rows=int(chunk.n)) as ksp:
+                if not self._eval_called:
+                    # a key's first call (the process's first also builds
+                    # or loads the CUDA step kernel)
+                    self._eval_called = True
+                    ksp.set(first_call=True)
+                    self.profiler.attribute_kernel(
+                        ("opat", "eval"),
+                        *step_shape(cfg, entry.part, self.store.owner, 1))
                 res = self._eval(entry.part, entry.g2l, self.store.owner,
                                  plan_arrays, n_steps,
                                  torch.from_numpy(in_rows).to(dev),
@@ -175,6 +189,8 @@ class OPATEngine:
                     int(v) for v in torch.stack([
                         res.overflow.int(), res.comp_n, res.out_n,
                         res.n_iters]).tolist())
+                self.profiler.stamp_kernel(ksp, ("opat", "eval"), n_iters)
+                self.profiler.sample_device(ksp, self.store)
             self.inner_iters += n_iters
             if overflow:
                 raise RuntimeError(

@@ -35,7 +35,10 @@ Each job routes its evaluator outputs through the same
 ``absorb_eval_outputs`` as the one-query-at-a-time loops, so exhaustive
 answers are identical to sequential ``GraphSession.submit``.  The JAX
 package pads the batch to a power-of-two bucket (``batch_bucket``) only to
-keep its jit cache small; here exactly B lanes evaluate.
+keep its jit cache small; here exactly B lanes evaluate, and the bucket
+only names the kernel key the resource profiler costs a call under
+(``("scheduler.opat", bucket)``, ``("scheduler.tmp", bucket)``), so both
+packages report the same keys.
 
 ``LoadStats`` attribution is *round-scoped*: ``ScheduleReport.load_stats``
 is the store's exact delta over one ``run()``, and each
@@ -58,8 +61,10 @@ the session's current view at construction, and every round of every
 generation (``store.viewing(view)``), even while mutations land and
 compactions publish newer ones.  The pin keeps the generation's files out
 of GC until ``close()``.  Results carry the pinned generation (None in
-RAM, where there is no view).  The JAX package's profiler hooks come with
-the metrics registry.
+RAM, where there is no view).
+
+Profiling: each ``kernel.eval`` span is costed by the session's profiler
+(obs/profile.py) under the JAX package's kernel keys.
 """
 from __future__ import annotations
 
@@ -70,7 +75,7 @@ from typing import Dict, List, Optional, Set, Union
 
 import numpy as np
 
-from .engine import plan_to_device
+from .engine import plan_to_device, step_shape
 from .heuristics import MAX_YIELD_SHARED, SHARED_HEURISTICS, rank_partitions_shared
 from .metrics import RunStats, l_ideal_for_plan
 from .opat import OPATEngine, absorb_eval_outputs, lane_outputs
@@ -85,7 +90,7 @@ from .traditional_mp import TraditionalMPEngine, lane_inputs
 
 def batch_bucket(n: int) -> int:
     """Round a batch size up to the next power of two (the JAX package's
-    padded batch shapes; kept for comparison with it)."""
+    padded batch shapes; here the profiler's kernel-key bucket)."""
     assert n >= 1
     return 1 << (n - 1).bit_length()
 
@@ -178,6 +183,7 @@ class QueryScheduler:
         self.store = session.store
         self.device = session.device
         self.tracer = session.tracer
+        self.profiler = session.profiler
         # the generation pin: this scheduler's own pin on the session's
         # current view (None in RAM); plans and SNI counts come from the
         # binding captured here, whatever the session's live view becomes
@@ -200,6 +206,9 @@ class QueryScheduler:
         self._touched: Set[int] = set()   # pids the shared loop ever loaded
         self.loads: List[int] = []
         self.batch_sizes: List[int] = []
+        # kernel keys this scheduler has called (a key's first call is
+        # marked ``first_call`` on its span)
+        self._called_keys: Set[tuple] = set()
 
     # -- admission ---------------------------------------------------------
 
@@ -456,13 +465,19 @@ class QueryScheduler:
                                   qids=sorted({j.qid for j in batch})):
                 entry = self.store.get_stacked(tuple(exec_set))
                 event = self.store.stats - ev0
+                key = ("scheduler.tmp", batch_bucket(len(batch)))
                 with self.tracer.span("kernel.eval", pids=chosen,
-                                      batch=len(batch), lanes=len(inputs)):
+                                      batch=len(batch), lanes=len(inputs)) as ksp:
+                    # costed at the bucket's most lanes: p for each job
+                    self._first_call(ksp, key, entry, key[1] * p)
+                    loops0 = engine.batched_iters
                     plans, n_steps = self._stacked_plans(batch)
                     res = seval(entry, plans, n_steps, lane_part, lane_job,
                                 *lane_inputs(inputs, cfg.cap, cfg.q_pad,
                                              self.device), seeds)
                     outs = lane_outputs(res)
+                    self.profiler.stamp_kernel(ksp, key, engine.batched_iters - loops0)
+                    self.profiler.sample_device(ksp, self.store)
             for i, b, (overflow, *rest) in zip(lane_part, lane_job, outs):
                 j = batch[b]
                 if overflow:
@@ -484,12 +499,24 @@ class QueryScheduler:
             self._end_round(batch, event)
             rounds += 1
 
+    def _first_call(self, span, key: tuple, entry, lanes: int) -> None:
+        """Mark the first call of ``key`` on its span and cost the key's
+        step launch at ``lanes`` lanes over ``entry``'s geometry."""
+        if key in self._called_keys:
+            return
+        self._called_keys.add(key)
+        span.set(first_call=True)
+        self.profiler.attribute_kernel(
+            key, *step_shape(self.session.config, entry.part, self.store.owner, lanes))
+
     def _eval_batch(self, beval, entry, pid: int, batch: List[_Job]) -> None:
         """One call advances every waiting job's plan against the loaded
         partition (chunked when an IMA exceeds the row capacity; later
         chunks are inert for jobs already drained)."""
         cfg = self.session.config
+        engine = self.session.engine
         B = len(batch)
+        key = ("scheduler.opat", batch_bucket(B))
         plans, n_steps = self._stacked_plans(batch)
         imas: List[BindingBatch] = []
         seed_flags: List[bool] = []
@@ -504,11 +531,16 @@ class QueryScheduler:
             chunks = [BindingBatch(rows=bb.rows[lo:lo + cfg.cap],
                                    step=bb.step[lo:lo + cfg.cap]) for bb in imas]
             sf = [s and ci == 0 for s in seed_flags]
-            with self.tracer.span("kernel.eval", pid=pid, batch=B):
+            with self.tracer.span("kernel.eval", pid=pid, batch=B) as ksp:
+                # costed at the bucket's most lanes: one for each job
+                self._first_call(ksp, key, entry, key[1])
+                loops0 = engine.batched_iters
                 res = beval(entry.part, entry.g2l, self.store.owner, plans,
                             n_steps, *lane_inputs(chunks, cfg.cap, cfg.q_pad,
                                                   self.device), sf)
                 outs = lane_outputs(res)
+                self.profiler.stamp_kernel(ksp, key, engine.batched_iters - loops0)
+                self.profiler.sample_device(ksp, self.store)
             for j, (overflow, *rest) in zip(batch, outs):
                 if overflow:
                     raise RuntimeError(

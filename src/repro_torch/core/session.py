@@ -53,6 +53,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..obs.profile import NULL_PROFILER, ResourceProfiler
 from ..obs.trace import NULL_TRACER
 from .catalog import Catalog, build_catalog
 from .engine import EngineConfig, resolve_device
@@ -117,6 +118,11 @@ class GraphSession:
     enabling the background-thread disk staging of the heuristic's
     runner-up (all three are ignored for in-RAM sessions, whose host tier
     is the whole graph).
+
+    ``tracer`` (obs/trace.py) records spans across the store, engines and
+    scheduler; ``profiler`` (obs/profile.py) defaults to a
+    ``ResourceProfiler`` whenever that tracer is real, which stamps device
+    live bytes and the frontier step's predicted cost on them.
     """
 
     def __init__(self, graph: Optional[Graph] = None, *,
@@ -136,7 +142,8 @@ class GraphSession:
                  pg: Optional[PartitionedGraph] = None,
                  catalog: Optional[Catalog] = None,
                  tracer: Optional[Any] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 profiler: Optional[Any] = None):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         self.device = resolve_device(device)
@@ -165,6 +172,15 @@ class GraphSession:
         self._prefetch = prefetch
         self.repartitions = 0
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # resource profiling (obs/profile.py): on whenever a real tracer is
+        # attached, the no-op singleton otherwise; an explicit profiler
+        # (or NULL_PROFILER) decouples the two
+        if profiler is not None:
+            self.profiler = profiler
+        elif self.tracer.enabled:
+            self.profiler = ResourceProfiler(self.tracer)
+        else:
+            self.profiler = NULL_PROFILER
         self.store: Optional[PartitionStore] = None
         # a session built by ``open`` owns the directory's writer handle
         # and one pinned generation view; in-RAM sessions have neither
@@ -189,16 +205,20 @@ class GraphSession:
                                     host_cache_parts=self._host_cache_parts,
                                     host_cache_bytes=self._host_cache_bytes,
                                     read_ahead=self._read_ahead,
-                                    tracer=self.tracer, device=self.device)
+                                    tracer=self.tracer, device=self.device,
+                                    profiler=self.profiler)
         if self.engine_name == "opat":
             self.engine = OPATEngine(pg, self.config, store=self.store,
-                                     prefetch=self._prefetch, tracer=self.tracer)
+                                     prefetch=self._prefetch, tracer=self.tracer,
+                                     profiler=self.profiler)
         elif self.engine_name == "traditional":
             self.engine = TraditionalMPEngine(pg, self._processors, self.config,
-                                              store=self.store, tracer=self.tracer)
+                                              store=self.store, tracer=self.tracer,
+                                              profiler=self.profiler)
         else:
             self.engine = MapReduceMPEngine(pg, self.config, heuristic=self.heuristic,
-                                            store=self.store, tracer=self.tracer)
+                                            store=self.store, tracer=self.tracer,
+                                            profiler=self.profiler)
         # MapReduceMP surfaces per-partition yield counters but has no host
         # partition loop, so no per-partition load sequence: the profile
         # says so rather than passing off zeros as load observations
@@ -504,7 +524,8 @@ class GraphSession:
              seed: int = 0,
              verify_checksums: bool = True,
              tracer: Optional[Any] = None,
-             device: Union[None, str, torch.device] = None) -> "GraphSession":
+             device: Union[None, str, torch.device] = None,
+             profiler: Optional[Any] = None) -> "GraphSession":
         """Open a ``save``d graph directory as an *out-of-core* session.
 
         Partition shards stay on disk; the store serves them through a
@@ -532,7 +553,7 @@ class GraphSession:
                    host_cache_parts=host_cache_parts,
                    host_cache_bytes=host_cache_bytes, read_ahead=read_ahead,
                    processors=processors, prefetch=prefetch, seed=seed,
-                   tracer=tracer, device=device)
+                   tracer=tracer, device=device, profiler=profiler)
         sess._mdir = mdir
         sess._view = view
         # the directory's writes trace into the session's stream

@@ -76,6 +76,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs.profile import NULL_PROFILER
 from ..obs.trace import NULL_TRACER
 from ..storage.host_cache import HostArrayTier, HostShardCache
 from .engine import resolve_device
@@ -174,7 +175,8 @@ class PartitionStore:
                  host_cache_bytes: Optional[int] = None,
                  read_ahead: bool = True,
                  tracer: Optional[Any] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 profiler: Optional[Any] = None):
         if capacity_parts is not None and capacity_parts < 1:
             raise ValueError(f"capacity_parts must be >= 1, got {capacity_parts}")
         if capacity_bytes is not None and capacity_bytes < 1:
@@ -190,6 +192,8 @@ class PartitionStore:
         self.stats = LoadStats()
         self.backing = backing
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # device live bytes sampled as load spans close (obs/profile.py)
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
         cuda = self.device.type == "cuda"
         # the host tier the device cache stages from: the whole graph in
         # RAM, or a disk-backed host LRU with background read-ahead
@@ -359,6 +363,7 @@ class PartitionStore:
             self.stats.bytes_prefetched += entry.nbytes
             sp.set(nbytes=entry.nbytes)
             self._insert(entry, vk)
+            self.profiler.sample_device(sp, self)
         return True
 
     # -- pinning (double-buffered streaming) --------------------------------
@@ -449,6 +454,7 @@ class PartitionStore:
                 else:
                     sp.set(tier="warm")
                 self._await(got)
+                self.profiler.sample_device(sp, self)
                 return got
             sp.set(tier="cold")
             entry = (self._stage_stacked(key) if isinstance(key, tuple)
@@ -457,6 +463,7 @@ class PartitionStore:
             self.stats.bytes_cold += entry.nbytes
             sp.set(nbytes=entry.nbytes, generation=self.current_generation)
             self._insert(entry, ck)
+            self.profiler.sample_device(sp, self)
             return entry
 
     def _stage(self, pid: int, side_stream: bool) -> StoreEntry:

@@ -26,8 +26,10 @@ from typing import Any, List, Optional, Union
 import numpy as np
 import torch
 
+from ..obs.profile import NULL_PROFILER
 from ..obs.trace import NULL_TRACER
-from .engine import EngineConfig, EvalResult, make_batched_evaluator, plan_to_device
+from .engine import (EngineConfig, EvalResult, make_batched_evaluator, plan_to_device,
+                     step_shape)
 from .graph import PartitionedGraph
 from .heuristics import MAX_YIELD, choose_top_p
 from .metrics import RunStats, l_ideal_for_plan
@@ -72,17 +74,21 @@ class TraditionalMPEngine:
                  cfg: Optional[EngineConfig] = None,
                  store: Optional[PartitionStore] = None,
                  tracer: Optional[Any] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 profiler: Optional[Any] = None):
         assert n_processors >= 1
         self.pg = pg
         self.p = n_processors
         self.cfg = cfg or EngineConfig()
         self._lanes = make_batched_evaluator(self.cfg)
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.profiler = profiler if profiler is not None else NULL_PROFILER
         self.store = (store if store is not None
-                      else PartitionStore(pg, tracer=self.tracer, device=device))
+                      else PartitionStore(pg, tracer=self.tracer, device=device,
+                                          profiler=self.profiler))
         self.device = self.store.device
         self.batched_iters = 0
+        self._eval_called = False
 
     def shared_evaluator(self):
         """The stacked top-p, multi-query evaluator: the lane evaluator
@@ -169,7 +175,14 @@ class TraditionalMPEngine:
                                   iteration=st.iterations):
                 entry = self.store.get_stacked(tuple(exec_set))
                 with self.tracer.span("kernel.eval", engine="traditional",
-                                      pids=list(map(int, exec_set))):
+                                      pids=list(map(int, exec_set))) as ksp:
+                    if not self._eval_called:
+                        self._eval_called = True
+                        ksp.set(first_call=True)
+                        self.profiler.attribute_kernel(
+                            ("traditional", "veval"),
+                            *step_shape(cfg, entry.part, self.store.owner, self.p))
+                    loops0 = self.batched_iters
                     in_rows, in_step, in_valid = lane_inputs(
                         [batches[i] for _, i in real], cfg.cap, cfg.q_pad,
                         self.device)
@@ -178,6 +191,9 @@ class TraditionalMPEngine:
                         [0] * len(real), in_rows, in_step, in_valid,
                         [seeds[i] for _, i in real])
                     outs = lane_outputs(res)
+                    self.profiler.stamp_kernel(ksp, ("traditional", "veval"),
+                                               self.batched_iters - loops0)
+                    self.profiler.sample_device(ksp, self.store)
             if any(o[0] for o in outs):
                 raise RuntimeError("evaluator buffer overflow; raise cap")
             for (pos, _), (_, *rest) in zip(real, outs):

@@ -16,6 +16,11 @@ the gather-based oracles with the same signatures.
 of the JAX design that the step's plain version is composed of.  A plan
 passed here has fields of shape [S] (one plan for every binding) or
 [EB, S] (a plan per binding).
+
+``step_cost`` is the step's cost from its shapes alone (an upper bound at
+full occupancy, what the resource profiler stamps on every evaluator
+span); ``step_bytes_ops`` counts what one launch's data needs.  Both use
+the per-term layout of ``step_terms``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from .label_histogram import label_histogram_kernel
 
 __all__ = ["frontier_step", "step_invariants", "step_outputs", "fused_frontier",
            "fused_frontier_ref", "frontier_expand", "frontier_expand_ref",
-           "label_histogram", "denorm_locality", "plan_at"]
+           "label_histogram", "denorm_locality", "plan_at", "step_cost",
+           "step_bytes_ops", "step_terms"]
 
 
 def plan_at(field, s):
@@ -142,6 +148,77 @@ def step_invariants(tables, g2l, owner, plan, lane_part, n_core, n_steps):
     return ff.make_step_invariants(
         [t.reshape(-1, W) for t in tables], g2l.reshape(-1), owner,
         plan_int.contiguous(), plan_val, lane.contiguous(), Np)
+
+
+def step_terms(L: int, EB: int, W: int, Q: int, S: int, n_rows: int,
+               n_lookups: int) -> dict:
+    """Bytes one step launch moves, by term, each input read once and each
+    output written once: ``n_rows`` distinct rows of the six 4-byte ELL
+    tables, ``n_lookups`` distinct 4-byte owner and g2l entries, the
+    binding inputs (sel int64, m bool, lidx, ws and a wr row per selected
+    binding; each lane's plan table and lane scalars) and the outputs (ok,
+    done, keep, outm bool; dg, dest, ns int32; an nr row per slot)."""
+    return {"tables": 6 * n_rows * W * 4,
+            "g2l_owner": 4 * n_lookups,
+            "binding": L * EB * (8 + 1 + 4 + 4 + 4 * Q) + L * (S * (8 * 4 + 4) + 3 * 4),
+            "outputs": L * EB * W * (4 * 1 + 3 * 4 + 4 * Q)}
+
+
+def step_ops(L: int, EB: int, W: int, Q: int) -> int:
+    """Elementwise integer operations of one step launch: about 40 per
+    candidate slot (the match, the routing, the lookups' address
+    arithmetic) plus 3 per slot and binding column (the injectivity test
+    and the new row)."""
+    return L * EB * W * (40 + 3 * Q)
+
+
+def step_cost(L: int, EB: int, W: int, Q: int, S: int, node_pad: int,
+              V: int) -> tuple:
+    """(operations, bytes) of one frontier-step launch from its shapes
+    alone -- L lanes of EB selected bindings over W-wide ELL rows, Q slots
+    a row, S plan steps, node_pad rows a partition, V global vertices --
+    as an upper bound at full occupancy: every selected binding reads its
+    row of the six ELL tables, every candidate and every binding's next
+    frontier vertex costs one owner and one g2l lookup, plus the binding
+    inputs and every output slot written once.  Never below
+    ``step_bytes_ops`` on inputs of these shapes."""
+    shape = tuple(int(x) for x in (L, EB, W, Q, S, node_pad, V))
+    if min(shape) < 1:
+        raise ValueError(f"step shapes must be positive, got {shape}")
+    L, EB, W, Q, S, node_pad, V = shape
+    cand = L * EB * (W + 1)
+    terms = step_terms(L, EB, W, Q, S, n_rows=min(L * EB, L * node_pad),
+                       n_lookups=min(cand, V) + min(cand, L * V))
+    return step_ops(L, EB, W, Q), sum(terms.values())
+
+
+def step_bytes_ops(inv, args, got) -> tuple:
+    """What one step launch's data needs -- the distinct table rows, g2l
+    and owner entries its selection reads, the binding inputs and the
+    outputs -- given the invariants ``inv``, the launch's (wr, ws, lidx,
+    sel, m) and its outputs ``got``.  Returns (bytes, the bytes by term,
+    operations)."""
+    wr, ws, lidx, sel, m = args
+    L, EB = sel.shape
+    W, Q, Np, V = inv.tables[0].shape[1], wr.shape[2], inv.node_pad, inv.owner.shape[0]
+    S = inv.plan_int.shape[1]
+    lanes = torch.arange(L, device=sel.device)[:, None]
+    part = inv.lane[:, 0].long()[:, None]
+    rows = lidx[lanes, sel].long().clamp(0, Np - 1) + part * Np
+    step = ws[lanes, sel].long()
+    pl = inv.plan_int[lanes, step.clamp(0, S - 1)]
+    nsrc = inv.plan_int[lanes, (step + 1).clamp(0, S - 1), 0].long()
+    use_dg = (nsrc == pl[..., 1]) & (pl[..., 6] == 0)
+    fg = wr[lanes, sel].gather(2, nsrc[..., None])[..., 0].long()
+    dg = got[1].view(L, EB, W).long()
+    dgu = use_dg[..., None].expand_as(dg)
+    owner_idx = torch.cat([dg[dgu].clamp(0, V - 1), fg.reshape(-1).clamp(0, V - 1)])
+    g2l_idx = torch.cat([(part[..., None] * V + dg)[dgu & (dg >= 0)],
+                         (part * V + fg)[fg >= 0]])
+    terms = step_terms(L, EB, W, Q, S, n_rows=torch.unique(rows).numel(),
+                       n_lookups=torch.unique(owner_idx).numel()
+                       + torch.unique(g2l_idx).numel())
+    return sum(terms.values()), terms, step_ops(L, EB, W, Q)
 
 
 def fused_frontier(rows_b, step_b, lidx_b, m,

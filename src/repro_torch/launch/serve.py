@@ -58,9 +58,11 @@ disk → pinned-host → device tiers (``--host-cache-parts``,
 workload profile (``--profile-json``) to ``GraphSession.repartition``
 before serving, then ``--save-graph`` saves the new layout.
 
-``--metrics-out`` (the metrics registry, not ported yet) is accepted by
-the parser and ends the run with exit code 2 and the ``ROADMAP.md`` item
-that ports it.
+Observability: ``--trace-out T.json`` records the run's spans (and turns
+on resource profiling: device live bytes and the frontier step's
+predicted cost on every ``kernel.eval`` span, read by
+``tools/trace_report.py --cost``), and ``--metrics-out M.prom`` writes the
+unified metrics registry (obs/metrics.py) in Prometheus text format.
 """
 from __future__ import annotations
 
@@ -80,12 +82,10 @@ from ..core.oracle import match_disjunctive
 from ..core.query import DisjunctiveQuery
 from ..data.generators import (imdb_like_graph, imdb_queries,
                                subgen_like_graph, subgen_queries)
-from ..obs import NULL_TRACER, Tracer, observability_snapshot, write_chrome_trace
-
-# flag dest -> the ROADMAP.md item that ports what it needs
-UNPORTED_FLAGS = {
-    "metrics_out": "§1 item 10 (the metrics registry and its export)",
-}
+from ..obs import (NULL_TRACER, MetricsRegistry, Tracer, ingest_schedule,
+                   ingest_session, observability_snapshot,
+                   resource_profile_snapshot, write_chrome_trace,
+                   write_prometheus)
 
 
 def load_queries(name: str, graph, seed: int):
@@ -224,7 +224,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--json", default="", help="write a JSON report here")
     ap.add_argument("--trace-out", default="", metavar="TRACE.json",
                     help="record end-to-end spans and write a Chrome "
-                         "trace-event file loadable in Perfetto")
+                         "trace-event file loadable in Perfetto; also turns "
+                         "on resource profiling (the --json \"profile\" "
+                         "block, tools/trace_report.py --cost)")
+    ap.add_argument("--metrics-out", default="", metavar="METRICS.prom",
+                    help="write the unified metrics registry "
+                         "(obs/metrics.py) in Prometheus text exposition "
+                         "format at exit")
     ap.add_argument("--profile-json", default="",
                     help="also write the workload profile alone here")
     ap.add_argument("--workload", default="", metavar="FILE.jsonl",
@@ -279,12 +285,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "applied updates (0 = never compact)")
     ap.add_argument("--mutate-seed", type=int, default=0,
                     help="rng seed of the --mutate-workload update stream")
-    # flags of modules not ported yet: parsed, then refused (see main)
-    unported = ap.add_argument_group("not ported yet (exit 2)")
-    for flag in ("--metrics-out",):
-        dest = flag[2:].replace("-", "_")
-        unported.add_argument(flag, default=None,
-                              help=f"needs ROADMAP.md {UNPORTED_FLAGS[dest]}")
     return ap
 
 
@@ -349,10 +349,6 @@ def _verified(answers: np.ndarray, ref: np.ndarray, budget) -> bool:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for dest, item in UNPORTED_FLAGS.items():
-        if getattr(args, dest) is not None:
-            ap.exit(2, f"[serve] --{dest.replace('_', '-')} is not ported to "
-                       f"repro_torch yet: see ROADMAP.md {item}\n")
 
     tracer = Tracer() if args.trace_out else NULL_TRACER
     t0 = time.time()
@@ -420,6 +416,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     throughput = None
     slo_report = None
+    sched_report = None
     if args.slo:
         from ..serving import Request, parse_slo_spec, requests_from_workload
         classes = parse_slo_spec(args.slo)
@@ -490,7 +487,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"[serve] workload: {len(wqueries)} queries from "
               f"{args.workload} via the shared scheduler "
               f"({args.shared_heuristic})")
-        report = session.submit_many(wqueries, max_answers=budgets,
+        report = sched_report = session.submit_many(wqueries, max_answers=budgets,
                                      heuristic=args.shared_heuristic,
                                      fairness_gamma=args.fairness_gamma)
         throughput = _throughput(report, args.fairness_gamma)
@@ -595,20 +592,29 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"({cache['read_ahead_hits']} hit), "
               f"{cache['host_evictions']} host evictions")
 
+    # the registry absorbs every subsystem's counters at exit, whether or
+    # not spans were recorded
+    registry = MetricsRegistry()
+    ingest_session(registry, session)
+    if sched_report is not None:
+        ingest_schedule(registry, sched_report.loads, sched_report.batch_sizes)
     if args.trace_out:
         write_chrome_trace(tracer, args.trace_out)
         print(f"[serve] wrote Chrome trace ({len(tracer.spans)} spans, "
               f"{len(tracer.decisions)} decisions) to {args.trace_out}")
+    if args.metrics_out:
+        write_prometheus(registry, args.metrics_out)
+        print(f"[serve] wrote Prometheus metrics to {args.metrics_out}")
     if args.json or args.profile_json:
         profile = session.workload_profile()
         if args.json:
-            # the reference's schema_version 3 keys; "profile" (resource
-            # profiling) stays disabled until the profiler is ported
+            # schema_version 3: the "profile" block holds the resource
+            # profiler's peaks, per-kernel predicted costs and byte flows
             rep = {"schema_version": 3,
                    "queries": records,
                    "cache": cache,
-                   "observability": observability_snapshot(tracer),
-                   "profile": {"enabled": False},
+                   "observability": observability_snapshot(tracer, registry),
+                   "profile": resource_profile_snapshot(session),
                    "workload_profile": profile}
             if session.mutable:
                 rep["generations"] = {

@@ -1,23 +1,30 @@
-"""Exporters: Chrome trace-event JSON and the report's observability block.
+"""Exporters: Chrome trace-event JSON, Prometheus text, report snapshot.
+
+Three consumers, three formats, one source of truth (a ``Tracer`` and a
+``MetricsRegistry``):
 
   Chrome trace-event JSON — load the file in Perfetto / chrome://tracing.
       Spans become "X" (complete) events laid out in one *lane* (tid) per
       subsystem — queries, scheduler rounds, store loads, kernel eval — so
       a query's decomposition reads top to bottom.  Decision records
       become "i" (instant) events carrying their full payload in
-      ``args``; span and parent ids ride in ``args`` too, so the tree can
-      be rebuilt exactly.
+      ``args``; span and parent ids ride in ``args`` too, so
+      ``tools/trace_report.py`` can rebuild the tree exactly.
+
+  Prometheus text exposition — ``# HELP``/``# TYPE`` + samples,
+      histograms with cumulative ``le`` buckets, written to a file for
+      scrape-less collection (``launch/serve.py --metrics-out``).
 
   observability snapshot — the JSON-safe dict ``launch/serve.py`` merges
-      into its report under ``"observability"`` (span totals and decision
-      counts).  The metrics registry and its Prometheus export are not
-      ported yet, so the block carries no ``"metrics"`` entry.
+      into its report under ``"observability"`` (metrics snapshot, span
+      totals and decision counts).
 """
 from __future__ import annotations
 
 import json
 from typing import Any, Dict, List, Optional
 
+from .metrics import MetricsRegistry
 from .trace import Tracer
 
 # span-name prefix → Chrome lane (tid).  Order = top-to-bottom layout.
@@ -118,11 +125,65 @@ def write_chrome_trace(tracer: Tracer, path: str) -> None:
         json.dump(to_chrome_trace(tracer), f)
 
 
-def observability_snapshot(tracer: Optional[Tracer] = None) -> Dict[str, Any]:
+def to_prometheus_text(reg: MetricsRegistry) -> str:
+    """Prometheus text exposition (0.0.4): HELP/TYPE headers once per
+    metric name, histograms with cumulative ``le`` buckets + +Inf."""
+    lines: List[str] = []
+    seen_header: set = set()
+
+    def fmt_labels(labels: Dict[str, str], extra: Optional[Dict] = None
+                   ) -> str:
+        items = dict(labels)
+        if extra:
+            items.update(extra)
+        if not items:
+            return ""
+        body = ",".join(f'{k}="{v}"' for k, v in sorted(items.items()))
+        return "{" + body + "}"
+
+    def fmt_val(v: float) -> str:
+        return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+    for m, labels in reg.collect():
+        if m.name not in seen_header:
+            seen_header.add(m.name)
+            if m.help:
+                lines.append(f"# HELP {m.name} {m.help}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+        if m.kind == "histogram":
+            acc = 0
+            for b, c in zip(m.buckets, m.counts):
+                acc += c
+                lines.append(
+                    f"{m.name}_bucket"
+                    f"{fmt_labels(labels, {'le': fmt_val(b)})} {acc}")
+            lines.append(
+                f"{m.name}_bucket{fmt_labels(labels, {'le': '+Inf'})} "
+                f"{m.count}")
+            lines.append(f"{m.name}_sum{fmt_labels(labels)} "
+                         f"{fmt_val(m.sum)}")
+            lines.append(f"{m.name}_count{fmt_labels(labels)} {m.count}")
+        else:
+            lines.append(f"{m.name}{fmt_labels(labels)} "
+                         f"{fmt_val(m.value)}")
+    return "\n".join(lines) + "\n"
+
+
+def write_prometheus(reg: MetricsRegistry, path: str) -> None:
+    with open(path, "w") as f:
+        f.write(to_prometheus_text(reg))
+
+
+def observability_snapshot(tracer: Optional[Tracer] = None,
+                           registry: Optional[MetricsRegistry] = None
+                           ) -> Dict[str, Any]:
     """The ``"observability"`` block of serve's JSON report: always
-    present, with ``enabled`` telling a parser whether span data exists."""
+    present (schema_version 2), with ``enabled`` telling a parser
+    whether span data exists or only ingested metrics."""
     enabled = bool(tracer is not None and tracer.enabled)
     block: Dict[str, Any] = {"enabled": enabled}
+    if registry is not None:
+        block["metrics"] = registry.snapshot()
     if enabled:
         decisions: Dict[str, int] = {}
         for rec in tracer.decisions:

@@ -251,3 +251,41 @@ def test_cuda_two_generations_of_one_partition(small_graph_dir):
     assert card["new_generation"] == card["old_generation"] + 1
     cpu = chip_smoke.two_generations(small_graph_dir, "cpu")
     assert np.array_equal(card["old"], cpu["old"]) and np.array_equal(card["new"], cpu["new"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["opat", "traditional", "mapreduce"])
+def test_cuda_profiled_session_costs_every_span(engine):
+    """A profiled session on the card (a Tracer attached): every
+    kernel.eval span carries its kernel key, predicted cost, step launches
+    and the store's live bytes, with no cost_error; the stamped launches
+    are the step's launches; answers equal the unprofiled CPU session's;
+    peak_device_bytes is within torch.cuda.max_memory_allocated()."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import EngineConfig, GraphSession
+    from repro_torch.data.generators import subgen_like_graph, subgen_queries
+    from repro_torch.kernels import build
+    from repro_torch.obs import Tracer
+    g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=0)
+    qs = subgen_queries(g)
+    cpu = GraphSession(g, engine=engine, config=EngineConfig(cap=16384), device="cpu")
+    card = GraphSession(g, engine=engine, config=EngineConfig(cap=16384),
+                        device="cuda", tracer=Tracer())
+    torch.cuda.reset_peak_memory_stats()
+    build.LAUNCHES.clear()
+    for dq in qs:
+        np.testing.assert_array_equal(card.submit(dq).answers, cpu.submit(dq).answers)
+    report = card.submit_many(qs)
+    torch.cuda.synchronize()
+    for res, dq in zip(report.results, qs):
+        np.testing.assert_array_equal(res.answers, cpu.submit(dq).answers)
+    spans = [s for s in card.tracer.spans if s.name == "kernel.eval"]
+    assert spans
+    for sp in spans:
+        for attr in chip_smoke.COST_ATTRS:
+            assert attr in sp.attrs, (attr, sp.attrs)
+        assert "cost_error" not in sp.attrs
+    assert sum(s.attrs["launches"] for s in spans) == build.LAUNCHES[ff.NAME] > 0
+    peak = card.profiler.peak_device_bytes
+    assert 0 < peak <= torch.cuda.max_memory_allocated()

@@ -2,8 +2,8 @@
 on the CPU: the ``--verify`` gate for every engine, the ``--json`` report
 against the JAX package's CLI (in RAM, and out of core for each of the
 graph-directory, repartitioning, SLO and mutation flags), the workload
-round trip, the mutation soak's ``--verify``, and the refusal of flags
-whose modules are not ported yet."""
+round trip, the mutation soak's ``--verify``, and ``--metrics-out`` and
+the ``--trace-out`` profile block against the JAX package's CLI."""
 import json
 import os
 import shutil
@@ -86,15 +86,64 @@ def test_workload_round_trip_and_batch_serving(tmp_path, capsys):
     assert rep["workload_profile"]["partition_counters_observed"] is False
 
 
-@pytest.mark.parametrize("dest,item", sorted(serve.UNPORTED_FLAGS.items()))
-def test_unported_flag_exits_2_naming_its_item(capsys, dest, item):
-    flag = "--" + dest.replace("_", "-")
-    value = [] if dest == "no_read_ahead" else ["1"]
-    with pytest.raises(SystemExit) as exc:
-        serve.main(SMALL + [flag, *value])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and f"ROADMAP.md {item}" in err
+def _prom_samples(path):
+    """A Prometheus file's lines, less the process's peak RSS (it differs
+    between the two packages' processes)."""
+    return [ln for ln in path.read_text().splitlines()
+            if not ln.startswith("repro_session_peak_rss_bytes")]
+
+
+@pytest.mark.parametrize("engine,extra", [("opat", []),
+                                          ("traditional", ["--workload"])])
+def test_metrics_out_matches_reference_cli(tmp_path, monkeypatch, capsys,
+                                           engine, extra):
+    """--metrics-out writes the reference CLI's Prometheus file, line for
+    line (profiled with --trace-out; with --workload the scheduler's load
+    counter and batch-occupancy histogram too)."""
+    args = ["--dataset", "synthetic", "--scale", "0.5", "--engine", engine,
+            "--max-answers", "5"]
+    if extra:
+        wl = tmp_path / "w.jsonl"
+        assert serve.main(SMALL + ["--emit-workload", str(wl), "--emit-repeat", "2"]) == 0
+        args += [extra[0], str(wl)]
+    outs = {}
+    for tag in ("ref", "port"):
+        outs[tag] = (tmp_path / f"{tag}.prom", tmp_path / f"{tag}.trace.json")
+        argv = args + ["--metrics-out", str(outs[tag][0]),
+                       "--trace-out", str(outs[tag][1])]
+        if tag == "ref":
+            monkeypatch.setattr(sys, "argv", ["serve", *argv])
+            ref_serve.main()
+        else:
+            assert serve.main(argv + ["--device", "cpu"]) == 0
+    capsys.readouterr()
+    got, want = _prom_samples(outs["port"][0]), _prom_samples(outs["ref"][0])
+    assert any(ln.startswith("repro_session_peak_device_bytes ") for ln in got)
+    if extra:
+        assert any(ln.startswith("repro_scheduler_batch_occupancy_bucket") for ln in got)
+    assert got == want
+
+
+def test_trace_out_enables_the_profile_block(tmp_path, monkeypatch, capsys):
+    """With --trace-out the --json report's "profile" block is enabled and
+    names the reference's kernel keys, peak device bytes and byte flows;
+    without it the block reads {"enabled": false} in both."""
+    args = ["--dataset", "synthetic", "--scale", "0.5", "--engine", "opat",
+            "--max-answers", "5"]
+    want, got = _both_reports(tmp_path, monkeypatch, capsys,
+                              args + ["--trace-out", str(tmp_path / "t.json")], "on")
+    prof, ref = got["profile"], want["profile"]
+    assert prof["enabled"] is True and ref["enabled"] is True
+    assert set(prof["kernel_costs"]) == set(ref["kernel_costs"]) == {"opat:eval"}
+    assert prof["peak_device_bytes"] == ref["peak_device_bytes"] > 0
+    assert prof["bytes"] == ref["bytes"]
+    cost = prof["kernel_costs"]["opat:eval"]
+    assert cost["dominant"] in ("memory", "compute") and cost["t_bound_us"] > 0
+    metrics = [{k: v for k, v in r["observability"]["metrics"].items()
+                if k != "repro_session_peak_rss_bytes"} for r in (got, want)]
+    assert metrics[0] == metrics[1]
+    want, got = _both_reports(tmp_path, monkeypatch, capsys, args, "off")
+    assert got["profile"] == want["profile"] == {"enabled": False}
 
 
 # --json record keys both CLIs must agree on (latency is wall-clock)
