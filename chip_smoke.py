@@ -127,6 +127,21 @@ Phases, each printing one JSON line:
                update, overlay rebuild and compaction seconds, peak device
                memory
 
+  lm           the language-model serving stack (no hand-written kernel
+               on its path; the reference computes it outside Pallas), TF32
+               off: all ten reduced configs in float32 on the card against
+               the CPU (forward, prefill, decode_step on grown caches, every
+               logit and cache leaf); Qwen2-1.5B at full width and depth in
+               float32 (B=4, 511-token prompts: prefill against forward,
+               decode at 511 against forward over 512, cache shapes and
+               dtypes kept); Qwen2-1.5B in bf16 serving 8 prompts of 2,048
+               tokens, then 32 greedy tokens (prefill seconds, decode ms per
+               token, peak memory, one step under torch.profiler: host
+               launches and the device's idle share, beside the bounds from
+               the shapes); and the nine other configs at published width
+               with depth cut (``LM_CUTS``), each prefilled and decoding 8
+               tokens; the graph kernels must not launch
+
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
 graph directories live under build/ and are removed at the end.  Then a
@@ -138,6 +153,7 @@ written to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import itertools
 import json
@@ -1165,6 +1181,25 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
 
+def device_events(events) -> list:
+    """The device's kernels, copies and sets in a Chrome trace."""
+    return [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def busy_ms(dev) -> float:
+    """Milliseconds in which at least one of the device events ran."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy_us += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return (busy_us + hi - lo) / 1e3
+
+
 def profile_query(sess, dq, engine: str) -> dict:
     """One warm query under torch.profiler: the device's busy and idle
     share of the query's wall time, device time by kernel name (read from
@@ -1189,8 +1224,7 @@ def profile_query(sess, dq, engine: str) -> dict:
     loops = engine_loops(sess.engine) - loops0
     prof.export_chrome_trace(str(out))
     events = json.loads(out.read_text())["traceEvents"]
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev = device_events(events)
     check(bool(dev), "the profiler recorded no device activity")
     by_name: dict = {}
     for e in dev:
@@ -1206,15 +1240,7 @@ def profile_query(sess, dq, engine: str) -> dict:
             r["calls"] += 1
             r["device_ms"] += sum(e["dur"] for e in dev if a["ts"] <= e["ts"]
                                   and e["ts"] + e["dur"] <= a["ts"] + a["dur"]) / 1e3
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
-    busy_us, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy_us += hi - lo
-            lo, hi = s, e
-        else:
-            hi = max(hi, e)
-    busy_us += hi - lo
+    busy_us = busy_ms(dev) * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     ours = [v for n, v in by_name.items() if "frontier_step" in n]
     averages = prof.key_averages()
@@ -2190,6 +2216,345 @@ def phase_mutation(pg, workdir: Path) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# lm: the language-model serving stack (prefill and decode), which reaches
+# no hand-written kernel: the reference computes it outside Pallas
+# ---------------------------------------------------------------------------
+
+# Card against CPU, float32 with TF32 off: cuBLAS and the CPU's BLAS sum
+# in different orders, and the reduced configs' sharp random-init
+# attention (see lm_qwen2_consistency) amplifies that through the layers
+# (9.9e-5 of the largest logit on recurrentgemma's seven layers, NVIDIA
+# H100 80GB HBM3 at 700 W), so a tensor agrees to LM_RTOL and LM_ATOL
+# times its largest magnitude; the conv states are rounded to bf16 in
+# both, so they may move one bf16 ulp (2^-8 relative).
+LM_RTOL, LM_ATOL, LM_CONV_RTOL = 1e-4, 1e-3, 2.0 ** -7
+# Qwen2-1.5B at full depth, float32 on the card: prefill against forward
+# and decode against forward differ in chunking and summation order only,
+# so with wq and wk at fan-in d (see lm_qwen2_consistency) the relations
+# hold to LM_CONSIST of the largest logit.
+LM_CONSIST = 1e-4
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+# every other published config, at its published width: (layers kept,
+# batch, prompt length).  The layers are the fewest that hold each of the
+# config's block kinds.
+LM_CUTS = {
+    "qwen1_5_110b": (2, 4, 1024),
+    "qwen3_4b": (2, 4, 1024),
+    "granite_3_2b": (2, 4, 1024),
+    "deepseek_moe_16b": (2, 4, 1024),         # the dense head layer + one MoE layer
+    "granite_moe_1b_a400m": (2, 4, 1024),
+    "musicgen_medium": (2, 4, 1024),          # frame embeddings
+    "llava_next_mistral_7b": (2, 4, 1024),    # 512 image positions
+    "xlstm_125m": (12, 4, 512),               # whole: m, m, m, s x 3
+    "recurrentgemma_9b": (3, 2, 4096),        # one period r, r, local; past the window
+}
+LM_DECODE = 8
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_err(got, want) -> float:
+    """max |got - want| over want's largest magnitude (finite entries)."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    fin = torch.isfinite(w)
+    check(torch.equal(fin, torch.isfinite(g)), "a non-finite entry moved")
+    if not fin.any():
+        return 0.0
+    scale = max(float(w[fin].abs().max()), 1e-30)
+    return float((g[fin] - w[fin]).abs().max()) / scale
+
+
+def lm_close(got, want, rtol: float, atol: float) -> bool:
+    """|got - want| <= atol * max|want| + rtol * |want|, where finite."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    fin = torch.isfinite(w)
+    if not torch.equal(fin, torch.isfinite(g)):
+        return False
+    scale = float(w[fin].abs().max()) if fin.any() else 0.0
+    return bool(((g[fin] - w[fin]).abs() <= atol * scale + rtol * w[fin].abs()).all())
+
+
+def lm_next_input(cfg, B: int, seed: int, dev):
+    """One decode input: a token, or a frame embedding for the audio family."""
+    from repro_torch.configs.registry import ShapeSpec, concrete_batch
+    return concrete_batch(cfg, ShapeSpec("next", "decode", 1, B), seed, device=dev)
+
+
+def lm_extend(cfg, batch: dict, nxt: dict) -> dict:
+    """The prompt with the decode input appended."""
+    if "frame_embeds" in nxt:
+        return {"frame_embeds": torch.cat([batch["frame_embeds"],
+                                           nxt["frame_embeds"][:, None]], dim=1)}
+    return dict(batch, tokens=torch.cat([batch["tokens"], nxt["token"][:, None]], dim=1))
+
+
+def lm_card_against_cpu(aid: str, seed: int, S: int = 64, B: int = 2) -> dict:
+    """A reduced config (float32) on the card and on the CPU from the same
+    weights and inputs: ``forward`` over the prompt extended by one
+    position, ``prefill``, and ``decode_step`` on the CPU's prefill caches
+    grown by one.  Every logit and every cache leaf agrees within LM_RTOL
+    and LM_ATOL."""
+    import copy
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.registry import ShapeSpec, concrete_batch
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving.decode import grow_caches
+    cfg = reduced(ARCHS[aid])
+    cpu = init_params(cfg, seed, device="cpu")
+    models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+    batch = concrete_batch(cfg, ShapeSpec("lm", "prefill", S, B), seed, device="cpu")
+    nxt = lm_next_input(cfg, B, seed + 1, "cpu")
+    ext = lm_extend(cfg, batch, nxt)
+    out = {}
+    for dev, model in models.items():
+        logits, aux = forward(model, cfg, {k: v.to(dev) for k, v in ext.items()})
+        last, caches = prefill(model, cfg, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = {"logits": logits, "aux": aux, "last": last, "caches": caches}
+    # decode on both from the CPU's prefill caches grown by one (a conv
+    # state one bf16 ulp apart would otherwise carry into the decode)
+    grown = grow_caches(cfg, out["cpu"]["caches"], 1)
+    for dev, model in models.items():
+        caches = [{k: v.to(dev, copy=True) for k, v in c.items()} for c in grown]
+        out[dev]["dlogits"], out[dev]["dcaches"] = decode_step(
+            model, cfg, caches, {k: v.to(dev) for k, v in nxt.items()}, S)
+    errs, bad = {}, []
+    for key in ("logits", "aux", "last", "dlogits"):
+        g, w = out["cuda"][key], out["cpu"][key]
+        errs[key] = lm_err(g, w)
+        if not lm_close(g, w, LM_RTOL, LM_ATOL):
+            bad.append(key)
+    for key in ("caches", "dcaches"):
+        worst = 0.0
+        for li, (gc_, wc) in enumerate(zip(out["cuda"][key], out["cpu"][key])):
+            for name, w in wc.items():
+                g = gc_[name]
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    bad.append(f"{key}[{li}].{name} {tuple(g.shape)} {g.dtype}")
+                    continue
+                worst = max(worst, lm_err(g, w))
+                rtol = LM_CONV_RTOL if name == "conv" else LM_RTOL
+                if not lm_close(g, w, rtol, LM_ATOL):
+                    bad.append(f"{key}[{li}].{name}")
+        errs[key] = worst
+    check(not bad, f"lm {aid}: card and CPU disagree on {bad} ({errs})")
+    del models, out
+    free_cuda()
+    return errs
+
+
+def lm_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def lm_cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches for t in c.values())
+
+
+def lm_profile_step(step, name: str) -> dict:
+    """One decode step under torch.profiler: host kernel launches, device
+    kernels, and the device's busy and idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    out = ROOT / "chiprun_out" / f"profile_lm_{name}.json"
+    out.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(out))
+    dev = device_events(json.loads(out.read_text())["traceEvents"])
+    check(bool(dev), "the profiler recorded no device activity")
+    busy = busy_ms(dev)
+    launches = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    return {"wall_ms": wall_ms, "host_kernel_launches": launches,
+            "device_kernels": sum(e.get("cat") == "kernel" for e in dev),
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms}
+
+
+def lm_relations(model, cfg, toks) -> dict:
+    """prefill's last logits against forward's last position over the
+    511-token prompts; decode_step at pos 511 on the caches grown by one
+    against forward over the 512 tokens; cache shapes and dtypes before and
+    after the decode.  Errors are over the largest forward logit."""
+    from repro_torch.models.transformer import forward
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving.decode import grow_caches
+    prompt = {"tokens": toks[:, :511]}
+    f511 = forward(model, cfg, prompt)[0][:, -1]
+    last, caches = prefill(model, cfg, prompt)
+    f512 = forward(model, cfg, {"tokens": toks})[0][:, -1]
+    caches = grow_caches(cfg, caches, 1)
+    before = [{k: (tuple(v.shape), v.dtype) for k, v in c.items()} for c in caches]
+    dl, caches = decode_step(model, cfg, caches, {"token": toks[:, 511]}, 511)
+    after = [{k: (tuple(v.shape), v.dtype) for k, v in c.items()} for c in caches]
+    check(before == after, "qwen2: the decode changed a cache's shape or dtype")
+    check(bool(torch.isfinite(dl).all() and torch.isfinite(last).all()), "qwen2: non-finite")
+    return {"prefill_vs_forward": lm_err(last, f511), "decode_vs_forward": lm_err(dl, f512),
+            "max_abs_logit": float(f512.abs().max()),
+            "argmax_equal_decode": int((dl.argmax(-1) == f512.argmax(-1)).sum())}
+
+
+def lm_qwen2_consistency(seed: int) -> dict:
+    """Qwen2-1.5B, the published config at full depth in float32, B = 4
+    prompts of 511 tokens from the token pipeline: ``lm_relations`` on
+    init_params' weights (recorded), then with every wq and wk rescaled
+    from the reference's fan-in to fan-in d (checked to LM_CONSIST).  The
+    reference's ``_dense`` draws wq [d, H, hd] with s = 1/sqrt(H), which
+    makes random-init attention nearly one-hot; float32 rounding
+    differences then grow about 2x a layer, and over 28 layers the
+    reference's own decode differs from its forward by 0.13 of the largest
+    logit (reduced width, on the CPU).  At fan-in d it is 5e-7."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(ARCHS["qwen2_1_5b"], param_dtype="float32",
+                              compute_dtype="float32")
+    model = init_params(cfg, seed, device="cuda")
+    toks = torch.from_numpy(TokenPipeline(vocab=cfg.vocab, batch=4, seq=512,
+                                          seed=seed).batch_at(0)["tokens"]).to("cuda")
+    rec = {"n_params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": lm_bytes(model), "layers": cfg.n_layers, "batch": 4,
+           "prompt": 511, "tolerance": LM_CONSIST,
+           "reference_init": lm_relations(model, cfg, toks)}
+    check(rec["n_params"] == cfg.n_params(), "qwen2: parameter count")
+    with torch.no_grad():
+        for blk in model.layers:
+            blk.wq.mul_((cfg.n_heads / cfg.d_model) ** 0.5)
+            blk.wk.mul_((cfg.n_kv_heads / cfg.d_model) ** 0.5)
+    rec["qk_fan_in_d"] = soft = lm_relations(model, cfg, toks)
+    check(soft["prefill_vs_forward"] <= LM_CONSIST, f"qwen2: prefill against forward {rec}")
+    check(soft["decode_vs_forward"] <= LM_CONSIST, f"qwen2: decode against forward {rec}")
+    del model
+    free_cuda()
+    return rec
+
+
+def lm_serve(aid: str, cfg, B: int, S: int, new: int, seed: int, *,
+             warm: bool = False, profile_name: str = "") -> dict:
+    """A config in bf16 on the card: prefill B prompts of S positions, grow
+    the caches, greedy-decode ``new`` tokens (frames for the audio
+    family); every logit finite, every token in range.  Host-clock times
+    around work that ends in a synchronize; peak device memory.  With
+    ``profile_name``, one more step under torch.profiler."""
+    from repro_torch.data.tokens import TokenPipeline, frontend_batch
+    from repro_torch.models.config import FAMILY_AUDIO
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving.decode import grow_caches
+    free_cuda()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, device="cuda")
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in frontend_batch(cfg, B, S, seed).items()}
+    if cfg.family != FAMILY_AUDIO:
+        batch["tokens"] = torch.from_numpy(TokenPipeline(
+            vocab=cfg.vocab, batch=B, seq=S, seed=seed).batch_at(0)["tokens"]).to("cuda")
+    rec = {"layers": cfg.n_layers, "batch": B, "prompt": S,
+           "decoded": new, "n_params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": lm_bytes(model), "resident_before_bytes": resident}
+    if warm:     # the first call pays cuBLAS and allocator set-up
+        w = {k: v[:, :min(S, 512)] if k == "tokens" else v for k, v in batch.items()}
+        prefill(model, cfg, w)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = prefill(model, cfg, batch)
+    torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t0
+    rec["prefill_tokens_per_s"] = B * S / rec["prefill_s"]
+    caches = grow_caches(cfg, caches, new + bool(profile_name))
+    rec["cache_bytes"] = lm_cache_bytes(caches)
+    audio = cfg.family == FAMILY_AUDIO
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nxt = lambda lg: ({"frame_embeds": torch.randn(B, cfg.frontend_dim(), generator=gen,
+                                                   device="cuda")} if audio else
+                      {"token": lg.argmax(-1).to(torch.int32)})
+    inp, finite, tokens, times = nxt(last), torch.isfinite(last).all(), [], []
+    for i in range(new):
+        t0 = time.perf_counter()
+        logits, caches = decode_step(model, cfg, caches, inp, S + i)
+        inp = nxt(logits)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(logits).all()
+        if not audio:
+            tokens.append(inp["token"])
+    check(bool(finite), f"lm {aid}: a non-finite logit")
+    if tokens:
+        t = torch.stack(tokens)
+        check(bool(((t >= 0) & (t < cfg.vocab)).all()), f"lm {aid}: a token out of range")
+        rec["first_tokens"] = t[:4, 0].tolist()
+    rec["decode_ms"] = times
+    rec["decode_ms_median"] = float(np.median(times))
+    rec["decode_ms_quartiles"] = [float(q) for q in np.percentile(times, [25, 75])]
+    rec["decode_ms_min_max"] = [min(times), max(times)]
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if profile_name:
+        step = lambda: decode_step(model, cfg, caches, inp, S + new)
+        rec["profiled_step"] = lm_profile_step(step, profile_name)
+    del model, caches, last, batch
+    free_cuda()
+    return rec
+
+
+def lm_qwen2_bounds(cfg, rec: dict) -> None:
+    """The least time the card could take for the served work, from the
+    shapes (H100 SXM peaks): a decode step reads the weights and the whole
+    cache once; the prefill's projections run on the bf16 tensor cores and
+    its attention as float32 products over the whole S x S (as the
+    reference computes it, every chunk pair), each over its own peak."""
+    B, S, L = rec["batch"], rec["prompt"], cfg.n_layers
+    H, hd = cfg.n_heads, cfg.hd
+    step_bytes = rec["param_bytes"] + rec["cache_bytes"]
+    rec["decode_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
+    rec["decode_bound_by"] = "bytes"
+    body = rec["n_params"] - cfg.vocab * cfg.d_model
+    proj_ops = 2 * body * B * S
+    attn_ops = 2 * 2 * B * H * S * S * hd * L
+    ops_s = proj_ops / BF16_OPS_PER_S + attn_ops / FP32_OPS_PER_S
+    bytes_s = (rec["param_bytes"] + rec["cache_bytes"]) / HBM_BYTES_PER_S
+    rec["prefill_ops"] = {"projections_bf16": proj_ops, "attention_f32": attn_ops}
+    rec["prefill_bound_s"] = max(ops_s, bytes_s)
+    rec["prefill_bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+
+
+def phase_lm(seed: int) -> None:
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_cuda()
+    launches0 = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    reduced_errs = {aid: lm_card_against_cpu(aid, seed) for aid in sorted(ARCHS)}
+    t_reduced = time.perf_counter() - t0
+    consistency = lm_qwen2_consistency(seed)
+    cfg = ARCHS["qwen2_1_5b"]
+    serving = lm_serve("qwen2_1_5b", cfg, 8, 2048, 32, seed, warm=True,
+                       profile_name="qwen2_1_5b")
+    serving["published_layers"] = cfg.n_layers
+    lm_qwen2_bounds(cfg, serving)
+    published = {}
+    for aid, (layers, B, S) in LM_CUTS.items():
+        cut = dataclasses.replace(ARCHS[aid], n_layers=layers)
+        published[aid] = lm_serve(aid, cut, B, S, LM_DECODE, seed)
+        published[aid]["published_layers"] = ARCHS[aid].n_layers
+    launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
+    check(not any(launched.values()), f"lm: a graph kernel launched {launched}")
+    emit("lm", tolerances={"card_vs_cpu_rtol": LM_RTOL, "card_vs_cpu_atol": LM_ATOL,
+                           "conv_rtol": LM_CONV_RTOL, "consistency": LM_CONSIST},
+         reduced_card_vs_cpu=reduced_errs, reduced_s=t_reduced,
+         qwen2_f32_consistency=consistency, qwen2_serving=serving,
+         published=published, graph_kernel_launches=launched,
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=200.0,
@@ -2249,6 +2614,8 @@ def main() -> int:
         ulaunches = phase_mutation(pg, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    del pg, sess, tsess, msess, sessions, oracle, served, tserved, mserved
+    phase_lm(args.seed)
 
     # the step's launches on each engine's serving path (path, traditional,
     # mapreduce, the profiled sessions, the front end, the three engines

@@ -6,15 +6,27 @@ fed identical graphs, partitions and plans.
   partitioned_graph_from_arrays  — a ``PartitionedGraph`` from a graph and
                                    a vertex assignment
   plan_arrays_from_numpy         — a ``PlanArrays`` from its fields
+
+and the language models' parameter and cache trees (nested dicts and
+lists of numpy arrays, the JAX package's layout: ``head_layers``, the
+``body`` stacked across periods, ``tail_layers``) into the port's model
+and cache list, which hold the layers in layer order:
+
+  lm_params_from_tree / lm_tree_from_params   — tree <-> ``Model``
+  lm_caches_from_tree / lm_tree_from_caches   — tree <-> cache list
+  split_layers / join_layers                  — the layout alone
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .core.graph import Graph, LabelVocab, PartitionedGraph, build_partitions
 from .core.plan import PlanArrays
+from .models.config import ModelConfig
+from .models.transformer import Model, stack_segments
 
 
 def _vocab(labels: Sequence[str]) -> LabelVocab:
@@ -65,3 +77,133 @@ def plan_arrays_from_numpy(*, n_slots, n_steps, start_slot, start_label,
         dst_value_op=np.asarray(dst_value_op, i32),
         dst_value=np.asarray(dst_value, f32),
         closes_cycle=np.asarray(closes_cycle, i32))
+
+
+# ---------------------------------------------------------------------------
+# Language models: parameter and cache trees
+# ---------------------------------------------------------------------------
+
+_SEGMENTS = ("head_layers", "body", "tail_layers")
+
+
+def _flatten(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        d = out
+        for k in path:
+            d = d.setdefault(k, {})
+        d[leaf] = v
+    return out
+
+
+def split_layers(cfg: ModelConfig, tree) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
+    """(top-level leaves, one flat {dotted name: leaf} dict per layer in
+    layer order): the ``body`` leaves [n_periods, ...] are unstacked into
+    layers ``first_dense_layers + i * period + j``."""
+    head, body, tail = stack_segments(cfg)
+    layers: List[Dict[str, Any]] = [{} for _ in range(cfg.n_layers)]
+    for seg, idx in (("head_layers", head), ("tail_layers", tail)):
+        for i, li in enumerate(idx):
+            layers[li] = _flatten(tree[seg][i])
+    for j, stacked in enumerate(tree.get("body", [])):
+        flat = _flatten(stacked)
+        for t, period in enumerate(body):
+            layers[period[j]] = {k: v[t] for k, v in flat.items()}
+    top = {k: v for k, v in tree.items() if k not in _SEGMENTS}
+    return top, layers
+
+
+def join_layers(cfg: ModelConfig, top: Dict[str, Any], layers: List[Dict[str, Any]],
+                stack: Callable = torch.stack):
+    """The inverse of ``split_layers``: body layers stacked with ``stack``."""
+    head, body, tail = stack_segments(cfg)
+    tree = dict(top)
+    if head:
+        tree["head_layers"] = [_nest(layers[li]) for li in head]
+    if body:
+        tree["body"] = [_nest({k: stack([layers[period[j]][k] for period in body])
+                               for k in layers[body[0][j]]})
+                        for j in range(len(body[0]))]
+    if tail:
+        tree["tail_layers"] = [_nest(layers[li]) for li in tail]
+    return tree
+
+
+def dtype_name(dtype) -> str:
+    """'float32', 'bfloat16', 'int32', ... for a numpy or a torch dtype."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """A copy of ``a`` as a tensor of the same dtype.  numpy holds a JAX
+    bf16 array as an ``ml_dtypes`` bfloat16 array, which ``torch.from_numpy``
+    rejects: it goes through float32, which is exact."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                         dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device)
+
+
+def _resolve(device):
+    from .core.engine import resolve_device
+    return resolve_device(device)
+
+
+def lm_params_from_tree(cfg: ModelConfig, tree, *, device=None) -> Model:
+    """The reference's parameter tree carried into the port's ``Model``:
+    every leaf's name, shape and dtype must match.  ``device=None`` means
+    the card (raises without one)."""
+    dev = _resolve(device)
+    top, layers = split_layers(cfg, tree)
+    flat = dict(top)
+    for i, layer in enumerate(layers):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    model = Model(cfg, dev)
+    params = dict(model.named_parameters())
+    if set(flat) != set(params):
+        raise ValueError(f"leaves differ: tree only {sorted(set(flat) - set(params))}, "
+                         f"model only {sorted(set(params) - set(flat))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = tensor_from_numpy(flat[name], dev)
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} in the tree, "
+                                 f"{tuple(p.shape)} {p.dtype} in the model")
+            p.copy_(t)
+    return model
+
+
+def lm_tree_from_params(cfg: ModelConfig, model: Model):
+    """The model's parameters in the reference's tree layout (tensors)."""
+    top, layers = {}, [{} for _ in range(cfg.n_layers)]
+    for name, p in model.named_parameters():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            layers[int(i)][rest] = p.detach()
+        else:
+            top[name] = p.detach()
+    return join_layers(cfg, top, layers)
+
+
+def lm_caches_from_tree(cfg: ModelConfig, tree, *, device=None) -> List[Dict[str, torch.Tensor]]:
+    """The reference's cache tree as the port's cache list (layer order)."""
+    dev = _resolve(device)
+    _, layers = split_layers(cfg, tree)
+    return [{k: tensor_from_numpy(v, dev) for k, v in c.items()} for c in layers]
+
+
+def lm_tree_from_caches(cfg: ModelConfig, caches: List[Dict[str, torch.Tensor]]):
+    """The port's cache list in the reference's tree layout (tensors)."""
+    return join_layers(cfg, {}, caches)

@@ -1,0 +1,312 @@
+"""Shared model layers: norms, RoPE, memory-efficient attention, FFN, MoE.
+
+The JAX package's ``models/layers.py`` in PyTorch tensor ops, with the
+same algorithms and numerics.  Attention is flash-style: a double loop
+over query and key/value chunks with an online-softmax accumulator in
+float32, so prefill holds one [Cq, Ck] score tile per head instead of an
+S^2 tensor.  Local (sliding-window) attention slices only the banded keys
+per query chunk.
+
+The MoE layer uses the static-capacity sort-based dispatch: tokens are
+sorted by expert (stably), gathered into an [E, C, d] buffer, run through
+a batched per-expert SwiGLU, and combined with their gate weights.
+
+``jnp`` promotes a product of two dtypes to the wider one and
+``torch.matmul`` raises on it, so every product of two tensors goes
+through ``matmul`` / ``einsum`` below, which promote as JAX does.  The
+training-only pieces of the reference (``flash_attention_cv``'s custom
+VJP, ``remat_qchunk``, and the expert-parallel ``moe_ffn_tp`` under
+``shard_map``) are not here.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# (shape, generator, device) -> a float32 tensor of that shape
+Init = Callable[[Sequence[int], torch.Generator, torch.device], torch.Tensor]
+
+
+class Leaves(nn.Module):
+    """A module whose parameters are the reference's leaves: each keeps its
+    name, layout and dtype (``wq`` [d, H, hd], not ``nn.Linear``'s
+    [out, in]), so carrying weights across is a copy.  Each leaf has its
+    initializer; ``reset_parameters`` draws them all from one generator."""
+
+    def __init__(self):
+        super().__init__()
+        self._inits: Dict[str, Init] = {}
+
+    def leaf(self, name: str, shape: Sequence[int], dtype: torch.dtype,
+             init: Init, device) -> None:
+        t = torch.empty(tuple(shape), dtype=dtype, device=device)
+        self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        self._inits[name] = init
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for name, init in self._inits.items():
+            t = getattr(self, name)
+            t.copy_(init(t.shape, gen, t.device))    # float32 -> leaf dtype
+
+
+def zeros(shape, gen, device):
+    return torch.zeros(tuple(shape), dtype=torch.float32, device=device)
+
+
+def const(value: float) -> Init:
+    return lambda shape, gen, device: torch.full(tuple(shape), value,
+                                                 dtype=torch.float32, device=device)
+
+
+def normal(scale: float) -> Init:
+    return lambda shape, gen, device: scale * torch.randn(
+        tuple(shape), generator=gen, dtype=torch.float32, device=device)
+
+
+def dense(scale: Optional[float] = None) -> Init:
+    """The reference's ``_dense``: N(0, s^2) with s = 1/sqrt(shape[-2])
+    (shape[-1] for a vector) unless given."""
+    def init(shape, gen, device):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        return normal(s)(shape, gen, device)
+    return init
+
+
+def promote(*ts: torch.Tensor):
+    """The tensors cast to their common dtype (``jnp``'s promotion)."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t.to(dt) for t in ts]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = promote(a, b)
+    return a @ b
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = promote(a, b)
+    return torch.einsum(eq, a, b)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """Variance reduction in f32; the elementwise apply stays in the input
+    dtype.  ``scale`` is stored as a delta from 1."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + scale).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x, positions, theta: float):
+    """x [..., S, H, hd]; positions broadcast against [..., S].  Rotates the
+    two halves of hd (not interleaved pairs), in float32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                     # [hd/2]
+    ang = positions[..., None].float() * freqs                  # [..., S, hd/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos = cos[..., None, :]                                     # over heads
+    sin = sin[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash-style attention (double-chunk loop, online softmax)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    q_chunk: int = 512, kv_chunk: int = 512,
+                    window: Optional[int] = None,
+                    causal_skip: bool = False):
+    """q [B,S,H,hd]; k,v [B,S,Hkv,hd] (GQA: H = Hkv * G).  Returns [B,S,H,hd].
+
+    ``causal_skip``: bound the inner KV loop at each query chunk's causal
+    horizon (chunks j <= qi), which skips the masked upper triangle.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    Cq = min(q_chunk, S)
+    Ck = min(kv_chunk, S)
+    assert S % Cq == 0 and S % Ck == 0, (S, Cq, Ck)
+    nq, nk = S // Cq, S // Ck
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    qs = q.reshape(B, nq, Cq, Hkv, G, hd)
+    ks = k.reshape(B, nk, Ck, Hkv, hd)
+    vs = v.reshape(B, nk, Ck, Hkv, hd)
+    q_idx = torch.arange(Cq, device=dev)
+    k_idx = torch.arange(Ck, device=dev)
+
+    outs = []
+    for qi in range(nq):
+        q_i = qs[:, qi].float()
+        # online-softmax state
+        m = torch.full((B, Cq, Hkv, G), -math.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Cq, Hkv, G), dtype=torch.float32, device=dev)
+        o = torch.zeros((B, Cq, Hkv, G, hd), dtype=torch.float32, device=dev)
+        # dynamic horizon: only kv chunks j <= qi contribute
+        horizon = qi + 1 if (causal_skip and causal and Cq == Ck) else nk
+        for j in range(horizon):
+            s = torch.einsum("bqhgd,bchd->bqhgc", q_i, ks[:, j].float()) * scale
+            gq = qi * Cq + q_idx                                 # global positions
+            gk = j * Ck + k_idx
+            mask = torch.ones((Cq, Ck), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= gq[:, None] >= gk[None, :]
+            if window is not None:
+                mask &= gq[:, None] - gk[None, :] < window
+            mask = mask[None, :, None, None, :]
+            s = torch.where(mask, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows (m_new = -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(mask, p, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bqhgc,bchd->bqhgd", p, vs[:, j].float())
+            m = m_new
+        outs.append((o / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(B, S, H, hd)
+
+
+def local_attention(q, k, v, *, window: int, q_chunk: int = 512):
+    """Banded sliding-window causal attention: each query chunk attends to a
+    slice of [window + Cq] keys, so the work is O(S * window)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    Cq = min(q_chunk, S)
+    assert S % Cq == 0
+    nq = S // Cq
+    Wk = min(window + Cq, S)        # keys visible to one q chunk
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    qs = q.reshape(B, nq, Cq, Hkv, G, hd)
+    outs = []
+    for qi in range(nq):
+        start = min(max(qi * Cq + Cq - Wk, 0), S - Wk)
+        k_w = k[:, start:start + Wk]
+        v_w = v[:, start:start + Wk]
+        s = torch.einsum("bqhgd,bchd->bqhgc", qs[:, qi].float(), k_w.float()) * scale
+        gq = qi * Cq + torch.arange(Cq, device=dev)
+        gk = start + torch.arange(Wk, device=dev)
+        mask = (gq[:, None] >= gk[None, :]) & (gq[:, None] - gk[None, :] < window)
+        s = torch.where(mask[None, :, None, None, :], s, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bqhgc,bchd->bqhgd", p, v_w.float())
+        outs.append(out.to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(B, S, H, hd)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window: Optional[int] = None):
+    """One-token attention over a padded cache.
+
+    q [B,H,hd]; caches [B,Smax,Hkv,hd]; pos (#valid positions BEFORE this
+    token; the new token's kv must already be written at pos).
+    """
+    B, H, hd = q.shape
+    Hkv = k_cache.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
+    idx = torch.arange(k_cache.shape[1], device=q.device)
+    mask = idx <= pos
+    if window is not None:
+        mask &= idx > pos - window
+    s = torch.where(mask[None, None, None, :], s, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN (SwiGLU) and MoE
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(matmul(x, w_gate)) * matmul(x, w_up)
+    return matmul(h, w_down)
+
+
+def top_k_stable(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: on ties the lowest index first."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+            capacity_factor: float = 1.25):
+    """Sort-based static-capacity MoE dispatch.
+
+    x [N, d]; router_w [d, E]; expert weights [E, d, ff] / [E, ff, d].
+    Returns ([N, d] output, aux load-balancing loss).  The capacity C
+    depends on N, and which (token, k) pairs are dropped at C follows the
+    stable sort by expert, as in the reference.
+    """
+    N, d = x.shape
+    E = router_w.shape[1]
+    dev = x.device
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)                        # [N, E]
+    gate_vals, top_e = top_k_stable(probs, top_k)                   # [N, k]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)                   # renormalize
+
+    # switch-style aux loss: E * sum_e (frac_tokens_e * mean_prob_e)
+    eflat = top_e.reshape(-1)                                    # [N*k]
+    frac = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, eflat, torch.ones(N * top_k, dtype=torch.float32, device=dev)) / (N * top_k)
+    aux = E * torch.sum(frac * probs.mean(0))
+
+    C = int(math.ceil(N * top_k / E * capacity_factor))
+    order = torch.argsort(eflat, stable=True)                    # group by expert
+    sorted_e = eflat[order]
+    grp_start = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
+    pos_in_e = torch.arange(N * top_k, device=dev) - grp_start[sorted_e]
+    keep = pos_in_e < C
+    # dropped pairs go to the trash row E*C (``mode="drop"`` in the reference)
+    slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)
+    token_of = order // top_k
+
+    xg = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+    xg[slot] = x[token_of]
+    xg = xg[:E * C].reshape(E, C, d)
+    h = F.silu(einsum("ecd,edf->ecf", xg, w_gate)) * einsum("ecd,edf->ecf", xg, w_up)
+    ye = einsum("ecf,efd->ecd", h, w_down).reshape(E * C, d)
+
+    # combine: gather each (token, k) result and weight by its gate
+    y_sorted = ye[torch.clamp(slot, 0, E * C - 1)]
+    gates_sorted = gate_vals.reshape(-1)[order]
+    w = torch.where(keep, gates_sorted, 0.0).float()
+    y = torch.zeros((N, d), dtype=torch.float32, device=dev).index_add_(
+        0, token_of, y_sorted.float() * w[:, None])
+    return y.to(x.dtype), aux
+

@@ -1,0 +1,322 @@
+"""Unified decoder-only model covering all ten assigned architectures.
+
+The JAX package's ``models/transformer.py`` in PyTorch.  The layer stack
+is a repeating ``block_pattern`` over {attn, local, rglru, mlstm, slstm}.
+The reference stacks the body's parameters across pattern periods for
+``lax.scan``; here ``Model.layers`` is one ``nn.ModuleList`` in layer
+order (the head's ``first_dense_layers``, then the body periods, then the
+tail; ``stack_segments`` names them), and ``forward`` walks it.
+
+Every block is a module whose parameters keep the reference's leaf names,
+layouts and dtypes (``wq`` [d, H, hd], ``wo`` [H, hd, d], ``e_gate``
+[E, d, f], norm scales as a delta from 1), so ``repro_torch.convert``
+carries the reference's weights across with a copy.  Parameters do not
+require grad: this is the serving half of the stack.
+
+Modality frontends (audio frames / VLM patches) are stubs: the model gets
+precomputed frame/patch embeddings; the in-model projection and the
+embedding merge are real.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from .config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MLSTM,
+                     BLOCK_RECURRENT, BLOCK_SLSTM, FAMILY_AUDIO, FAMILY_VLM,
+                     ModelConfig)
+from .layers import (Leaves, apply_rope, dense, einsum, flash_attention, gelu,
+                     local_attention, moe_ffn, rms_norm, swiglu, zeros)
+from . import rglru as rg
+from . import xlstm as xl
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Layer segments: head / body periods / tail
+# ---------------------------------------------------------------------------
+
+def stack_segments(cfg: ModelConfig) -> Tuple[List[int], List[List[int]], List[int]]:
+    """Layer indices of (head, body-periods, tail)."""
+    head = list(range(cfg.first_dense_layers))
+    rest = list(range(cfg.first_dense_layers, cfg.n_layers))
+    period = len(cfg.block_pattern) if cfg.block_pattern else 1
+    n_periods = len(rest) // period
+    body = [rest[i * period:(i + 1) * period] for i in range(n_periods)]
+    tail = rest[n_periods * period:]
+    return head, body, tail
+
+
+def layer_is_moe(cfg: ModelConfig, layer: int) -> bool:
+    return cfg.is_moe and layer >= cfg.first_dense_layers
+
+
+# ---------------------------------------------------------------------------
+# Blocks (the reference's init_* leaves)
+# ---------------------------------------------------------------------------
+
+class FFN(Leaves):
+    """SwiGLU FFN: ``w_gate``, ``w_up`` [d, ff], ``w_down`` [ff, d]."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, _dtype(cfg.param_dtype)
+        ff = cfg.dense_d_ff if (cfg.is_moe and cfg.dense_d_ff) else cfg.d_ff
+        self.leaf("w_gate", (d, ff), dt, dense(), device)
+        self.leaf("w_up", (d, ff), dt, dense(), device)
+        self.leaf("w_down", (ff, d), dt, dense(1.0 / ff ** 0.5), device)
+
+
+class MoEFFN(Leaves):
+    """Routed experts (``router`` [d, E], ``e_*``) and the optional shared
+    experts (``s_*``, one SwiGLU of width n_shared * f)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, _dtype(cfg.param_dtype)
+        E, f = cfg.n_experts, cfg.expert_d_ff
+        self.leaf("router", (d, E), torch.float32, dense(), device)
+        self.leaf("e_gate", (E, d, f), dt, dense(), device)
+        self.leaf("e_up", (E, d, f), dt, dense(), device)
+        self.leaf("e_down", (E, f, d), dt, dense(1.0 / f ** 0.5), device)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * f
+            self.leaf("s_gate", (d, fs), dt, dense(), device)
+            self.leaf("s_up", (d, fs), dt, dense(), device)
+            self.leaf("s_down", (fs, d), dt, dense(1.0 / fs ** 0.5), device)
+
+
+def make_ffn(cfg: ModelConfig, layer: int, device=None) -> Leaves:
+    return MoEFFN(cfg, device) if layer_is_moe(cfg, layer) else FFN(cfg, device)
+
+
+class AttnBlock(Leaves):
+    """Global or local attention + FFN (the reference's ``init_attn_block``;
+    the local window is ``cfg.local_window``)."""
+
+    def __init__(self, cfg: ModelConfig, layer: int, device=None):
+        super().__init__()
+        d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dt, f32 = _dtype(cfg.param_dtype), torch.float32
+        self.leaf("ln1", (d,), f32, zeros, device)
+        self.leaf("wq", (d, H, hd), dt, dense(), device)
+        self.leaf("wk", (d, Hkv, hd), dt, dense(), device)
+        self.leaf("wv", (d, Hkv, hd), dt, dense(), device)
+        self.leaf("wo", (H, hd, d), dt, dense(1.0 / (H * hd) ** 0.5), device)
+        self.leaf("ln2", (d,), f32, zeros, device)
+        if cfg.qkv_bias:
+            self.leaf("bq", (H, hd), f32, zeros, device)
+            self.leaf("bk", (Hkv, hd), f32, zeros, device)
+            self.leaf("bv", (Hkv, hd), f32, zeros, device)
+        if cfg.qk_norm:
+            self.leaf("q_norm", (hd,), f32, zeros, device)
+            self.leaf("k_norm", (hd,), f32, zeros, device)
+        self.ffn = make_ffn(cfg, layer, device)
+
+
+class RGLRUBlock(Leaves):
+    """RG-LRU leaves (``rglru.rglru_leaves``) + an always-dense FFN."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d = cfg.d_model
+        rg.rglru_leaves(self, d, cfg.lru_width or d, cfg.conv1d_width,
+                        _dtype(cfg.param_dtype), device)
+        if cfg.d_ff:
+            self.ffn = FFN(cfg, device)
+            self.leaf("ln2", (d,), torch.float32, zeros, device)
+
+
+def make_block(cfg: ModelConfig, layer: int, device=None) -> Leaves:
+    kind = cfg.block_kind(layer)
+    dt = _dtype(cfg.param_dtype)
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
+        return AttnBlock(cfg, layer, device)
+    if kind == BLOCK_RECURRENT:
+        return RGLRUBlock(cfg, device)
+    if kind == BLOCK_MLSTM:
+        return xl.MLSTMBlock(cfg.d_model, cfg.n_heads, cfg.conv1d_width, dt, device)
+    if kind == BLOCK_SLSTM:
+        return xl.SLSTMBlock(cfg.d_model, cfg.n_heads, dt, device)
+    raise ValueError(kind)
+
+
+class Model(Leaves):
+    """Embedding (``embed`` [vocab, d], or the audio family's ``in_proj``
+    [d_frame, d]), the VLM projector, ``layers`` in layer order,
+    ``final_norm`` and an untied ``lm_head`` [d, vocab]."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, _dtype(cfg.param_dtype)
+        if cfg.family == FAMILY_AUDIO:
+            # EnCodec frame embeddings arrive precomputed (stub); in-model proj
+            self.leaf("in_proj", (cfg.frontend_dim(), d), dt, dense(), device)
+        else:
+            self.leaf("embed", (cfg.vocab, d), dt, dense(0.02), device)
+        if cfg.family == FAMILY_VLM:
+            self.leaf("img_proj_w1", (cfg.frontend_dim(), d), dt, dense(), device)
+            self.leaf("img_proj_w2", (d, d), dt, dense(), device)
+        self.layers = nn.ModuleList(make_block(cfg, i, device)
+                                    for i in range(cfg.n_layers))
+        self.leaf("final_norm", (d,), torch.float32, zeros, device)
+        if not cfg.tie_embeddings:
+            self.leaf("lm_head", (d, cfg.vocab), dt, dense(0.02), device)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Model:
+    """A model with the reference's distributions and scales, drawn from one
+    ``torch.Generator`` seeded with ``seed`` on the device.  ``device=None``
+    means the card (raises without one).  The values are not the
+    reference's (it draws from ``jax.random``); parity runs on weights
+    carried across by ``repro_torch.convert``.  The reference draws
+    ``img_proj_w1`` and ``lm_head`` from one shared key; here every leaf
+    has its own draws."""
+    from ..core.engine import resolve_device
+    dev = resolve_device(device)
+    model = Model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, Leaves):
+            m.reset_parameters(gen)
+    return model
+
+
+def abstract_params(cfg: ModelConfig) -> Model:
+    """The same model on the ``meta`` device: shapes and dtypes, no storage."""
+    return Model(cfg, torch.device("meta"))
+
+
+# ---------------------------------------------------------------------------
+# Block application (shared by forward / prefill / decode)
+# ---------------------------------------------------------------------------
+
+def _qkv(p, cfg: ModelConfig, x):
+    """x [B,S,d] -> q [B,S,H,hd], k/v [B,S,Hkv,hd] with bias/qk-norm."""
+    q = einsum("bsd,dhk->bshk", x, p.wq)
+    k = einsum("bsd,dhk->bshk", x, p.wk)
+    v = einsum("bsd,dhk->bshk", x, p.wv)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(q.dtype)
+        k = k + p.bk.to(k.dtype)
+        v = v + p.bv.to(v.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return q, k, v
+
+
+def _apply_ffn(p, cfg: ModelConfig, x, layer_is_moe: bool):
+    """x [B,S,d] -> (y, aux_loss)."""
+    if layer_is_moe:
+        B, S, d = x.shape
+        y, aux = moe_ffn(x.reshape(B * S, d), p.router, p.e_gate, p.e_up,
+                         p.e_down, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor)
+        y = y.reshape(B, S, d)
+        if cfg.n_shared_experts:
+            y = y + swiglu(x, p.s_gate, p.s_up, p.s_down)
+        return y, aux
+    return swiglu(x, p.w_gate, p.w_up, p.w_down), _zero(x)
+
+
+def _zero(x) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
+                     layer_is_moe: bool, q_chunk: int = 512,
+                     kv_chunk: int = 512, causal_skip: bool = False):
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    S = x.shape[1]
+    qc = min(q_chunk, S)
+    kc = min(kv_chunk, S)
+    if local:
+        attn = local_attention(q, k, v, window=cfg.local_window, q_chunk=qc)
+    else:
+        attn = flash_attention(q, k, v, causal=True, q_chunk=qc, kv_chunk=kc,
+                               causal_skip=causal_skip)
+    x = x + einsum("bshk,hkd->bsd", attn, p.wo)
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    y, aux = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
+    return x + y, aux
+
+
+def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
+                layer_is_moe: bool, q_chunk: int = 512, kv_chunk: int = 512,
+                causal_skip: bool = False):
+    """Full-sequence application with no carried state."""
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
+        return apply_attn_block(p, cfg, x, positions,
+                                local=(kind == BLOCK_LOCAL_ATTN),
+                                layer_is_moe=layer_is_moe, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk, causal_skip=causal_skip)
+    if kind == BLOCK_RECURRENT:
+        y, _ = rg.rglru_apply(p, x)
+        if cfg.d_ff:
+            h2 = rms_norm(y, p.ln2, cfg.norm_eps)
+            f, _aux = _apply_ffn(p.ffn, cfg, h2, False)
+            y = y + f
+        return y, _zero(x)
+    if kind == BLOCK_MLSTM:
+        y, _ = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk)
+        return y, _zero(x)
+    if kind == BLOCK_SLSTM:
+        y, _ = xl.slstm_apply(p, x, n_heads=cfg.n_heads)
+        return y, _zero(x)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Full forward (scoring)
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Token/frontend embedding -> [B,S,d] activations."""
+    dt = _dtype(cfg.compute_dtype)
+    if cfg.family == FAMILY_AUDIO:
+        # precomputed EnCodec frame embeddings [B,S,d_frame] (frontend stub)
+        return batch["frame_embeds"].to(dt) @ params.in_proj.to(dt)
+    x = params.embed[batch["tokens"].long()].to(dt)
+    if cfg.family == FAMILY_VLM and "image_embeds" in batch:
+        # anyres patch embeddings [B,F,dv] (frontend stub) -> 2-layer projector
+        img = batch["image_embeds"].to(dt)
+        img = gelu(img @ params.img_proj_w1.to(dt))
+        img = img @ params.img_proj_w2.to(dt)
+        F = img.shape[1]
+        # image tokens occupy the first F positions (anyres prefix layout)
+        x = torch.cat([img, x[:, F:]], dim=1)
+    return x
+
+
+def unembed(params: Model, cfg: ModelConfig, x) -> torch.Tensor:
+    """Final norm and the (tied or untied) output head; logits in float32."""
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    w_out = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return torch.einsum("bsd,dv->bsv", x, w_out.to(x.dtype)).float()
+
+
+def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            q_chunk: int = 512, kv_chunk: int = 512,
+            causal_skip: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B,S,vocab] f32, aux_loss scalar)."""
+    x = embed_inputs(params, cfg, batch)
+    B, S, d = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    aux_total = _zero(x)
+    for li, p in enumerate(params.layers):
+        x, aux = apply_block(p, cfg, cfg.block_kind(li), x, positions,
+                             layer_is_moe=layer_is_moe(cfg, li),
+                             q_chunk=q_chunk, kv_chunk=kv_chunk,
+                             causal_skip=causal_skip)
+        aux_total = aux_total + aux
+    return unembed(params, cfg, x), aux_total

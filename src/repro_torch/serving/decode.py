@@ -1,0 +1,269 @@
+"""Serving: prefill + single-token decode against persistent caches.
+
+The JAX package's ``serving/decode.py`` in PyTorch.  Cache kinds per block:
+  attn   : full KV cache [B, Smax, Hkv, hd] (RoPE applied at write time)
+  local  : ring KV cache [B, W, Hkv, hd], W = local_window (RoPE at write)
+  rglru  : {h [B,w] f32, conv [B,cw-1,w]}
+  mlstm  : {C [B,H,hk,hv] f32, n, m, conv}
+  slstm  : {c, n, m, h [B,H,hd] f32}
+
+The caches are a list in layer order (the reference stacks the body's
+across periods for ``lax.scan``); each layer's cache is a dict with the
+reference's leaf names and dtypes.  ``decode_step`` writes the new token's
+keys and values into the KV caches in place, replaces the recurrent
+states, and returns the same list.  A write at ``pos >= Smax`` raises (the
+reference's ``dynamic_update_slice`` clamps it to ``Smax - 1``): grow the
+caches first (``grow_caches``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Tuple
+
+import torch
+
+from ..models import rglru as rg
+from ..models import xlstm as xl
+from ..models.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MLSTM, BLOCK_RECURRENT,
+                             BLOCK_SLSTM, FAMILY_AUDIO, ModelConfig)
+from ..models.layers import apply_rope, einsum, flash_attention, local_attention, rms_norm
+from ..models.transformer import (Model, _apply_ffn, _dtype, _qkv, embed_inputs,
+                                  layer_is_moe, unembed)
+
+Cache = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, s_max: int, dev) -> Cache:
+    dt = _dtype(cfg.compute_dtype)
+    f32 = torch.float32
+    Hkv, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev)
+    if kind == BLOCK_ATTN:
+        return {"k": z((batch, s_max, Hkv, hd), dt), "v": z((batch, s_max, Hkv, hd), dt)}
+    if kind == BLOCK_LOCAL_ATTN:
+        W = min(cfg.local_window, s_max)
+        return {"k": z((batch, W, Hkv, hd), dt), "v": z((batch, W, Hkv, hd), dt)}
+    if kind == BLOCK_RECURRENT:
+        w = cfg.lru_width or cfg.d_model
+        return {"h": z((batch, w), f32), "conv": z((batch, cfg.conv1d_width - 1, w), dt)}
+    if kind == BLOCK_MLSTM:
+        up = 2 * cfg.d_model
+        hdm = up // H
+        return {"C": z((batch, H, hdm, hdm), f32), "n": z((batch, H, hdm), f32),
+                "m": torch.full((batch, H), -math.inf, dtype=f32, device=dev),
+                "conv": z((batch, cfg.conv1d_width - 1, up), dt)}
+    if kind == BLOCK_SLSTM:
+        hds = cfg.d_model // H
+        return {"c": z((batch, H, hds), f32), "n": z((batch, H, hds), f32),
+                "m": torch.full((batch, H, hds), -math.inf, dtype=f32, device=dev),
+                "h": z((batch, H, hds), f32)}
+    raise ValueError(kind)
+
+
+def _caches(cfg: ModelConfig, batch: int, s_max: int, dev) -> List[Cache]:
+    return [_block_cache(cfg, cfg.block_kind(i), batch, s_max, dev)
+            for i in range(cfg.n_layers)]
+
+
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, *,
+                device=None) -> List[Cache]:
+    """Empty caches for ``batch`` sequences of up to ``s_max`` positions.
+    ``device=None`` means the card (raises without one)."""
+    from ..core.engine import resolve_device
+    return _caches(cfg, batch, s_max, resolve_device(device))
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, s_max: int) -> List[Cache]:
+    """The same caches on the ``meta`` device: shapes and dtypes only."""
+    return _caches(cfg, batch, s_max, torch.device("meta"))
+
+
+def grow_caches(cfg: ModelConfig, caches: List[Cache], extra: int) -> List[Cache]:
+    """Full-attention KV caches padded by ``extra`` zero positions (new
+    tensors; the local ring and the recurrent states are kept), so that
+    decoding can go on past the prefill's length."""
+    out = []
+    for i, c in enumerate(caches):
+        if cfg.block_kind(i) == BLOCK_ATTN:
+            c = {name: torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])],
+                                 dim=1) for name, t in c.items()}
+        out.append(c)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Single-token block application
+# ---------------------------------------------------------------------------
+
+def _attend(p, cfg: ModelConfig, x, q, kc, vc, valid, layer_is_moe):
+    """Attention of the one-token q over the cache rows ``valid``, then the
+    output projection and the FFN."""
+    B = x.shape[0]
+    Hkv, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), kc.float()) / math.sqrt(hd)
+    s = torch.where(valid[None, None, None, :], s, -math.inf)
+    pr = torch.softmax(s, dim=-1)
+    attn = torch.einsum("bhgs,bshd->bhgd", pr, vc.float())
+    attn = attn.reshape(B, 1, H, hd).to(x.dtype)
+    x = x + einsum("bshk,hkd->bsd", attn, p.wo)
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
+    return x + y
+
+
+def _rope_qkv(p, cfg: ModelConfig, x, pos: int):
+    B = x.shape[0]
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h)                       # [B,1,H,hd]/[B,1,Hkv,hd]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    return apply_rope(q, posv, cfg.rope_theta), apply_rope(k, posv, cfg.rope_theta), v
+
+
+def _decode_full_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe):
+    """x [B,1,d]; full-cache attention at absolute position ``pos``."""
+    S = cache["k"].shape[1]
+    if not 0 <= pos < S:
+        raise IndexError(f"decode at position {pos} past the KV cache's "
+                         f"{S} positions; grow the caches first")
+    q, k, v = _rope_qkv(p, cfg, x, pos)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    valid = torch.arange(S, device=x.device) <= pos
+    return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe), cache
+
+
+def _decode_local_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe):
+    """Ring-cache sliding-window attention (slot = pos mod W)."""
+    W = cache["k"].shape[1]
+    q, k, v = _rope_qkv(p, cfg, x, pos)
+    slot = pos % W
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    # absolute position stored in ring slot j
+    j = torch.arange(W, device=x.device)
+    base = pos - slot
+    abs_pos = torch.where(j <= slot, base + j, base - W + j)
+    valid = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - cfg.local_window)
+    return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe), cache
+
+
+def _decode_rglru(p, cfg: ModelConfig, x, cache):
+    y, st = rg.rglru_apply(p, x, {"h": cache["h"], "conv": cache["conv"]})
+    if cfg.d_ff:
+        h2 = rms_norm(y, p.ln2, cfg.norm_eps)
+        f, _ = _apply_ffn(p.ffn, cfg, h2, False)
+        y = y + f
+    cache.update(h=st["h"], conv=st["conv"].to(cache["conv"].dtype))
+    return y, cache
+
+
+def decode_block(p, cfg: ModelConfig, kind: str, x, cache: Cache, pos: int,
+                 layer_is_moe: bool):
+    if kind == BLOCK_ATTN:
+        return _decode_full_attn(p, cfg, x, cache, pos, layer_is_moe)
+    if kind == BLOCK_LOCAL_ATTN:
+        return _decode_local_attn(p, cfg, x, cache, pos, layer_is_moe)
+    if kind == BLOCK_RECURRENT:
+        return _decode_rglru(p, cfg, x, cache)
+    if kind == BLOCK_MLSTM:
+        y, ns = xl.mlstm_apply(p, x, cache, n_heads=cfg.n_heads)
+        cache.update(C=ns["C"], n=ns["n"], m=ns["m"],
+                     conv=ns["conv"].to(cache["conv"].dtype))
+        return y, cache
+    if kind == BLOCK_SLSTM:
+        y, ns = xl.slstm_apply(p, x, cache, n_heads=cfg.n_heads)
+        cache.update(ns)
+        return y, cache
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# decode_step: one new token against seq_len caches
+# ---------------------------------------------------------------------------
+
+def decode_step(params: Model, cfg: ModelConfig, caches: List[Cache],
+                inputs: Dict[str, torch.Tensor], pos: int
+                ) -> Tuple[torch.Tensor, List[Cache]]:
+    """inputs: {"token": [B] int32} (or {"frame_embeds": [B, d_frontend]} for
+    the audio family); ``pos`` the new token's position.  Returns (logits
+    [B, vocab] f32, the caches, updated in place)."""
+    dt = _dtype(cfg.compute_dtype)
+    pos = int(pos)
+    if cfg.family == FAMILY_AUDIO:
+        x = inputs["frame_embeds"][:, None, :].to(dt) @ params.in_proj.to(dt)
+    else:
+        x = params.embed[inputs["token"][:, None].long()].to(dt)
+    for li, p in enumerate(params.layers):
+        x, caches[li] = decode_block(p, cfg, cfg.block_kind(li), x, caches[li],
+                                     pos, layer_is_moe(cfg, li))
+    return unembed(params, cfg, x)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# prefill: full-sequence forward that also fills the caches
+# ---------------------------------------------------------------------------
+
+def _prefill_attn(p, cfg, x, positions, *, local: bool, layer_is_moe: bool,
+                  q_chunk: int):
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    S = x.shape[1]
+    qc = min(q_chunk, S)
+    if local:
+        attn = local_attention(q, k, v, window=cfg.local_window, q_chunk=qc)
+        W = min(cfg.local_window, S)
+        # the last W positions, rolled so that slot = pos mod W
+        shift = (S - W) % W
+        cache = {"k": torch.roll(k[:, S - W:], shift, dims=1),
+                 "v": torch.roll(v[:, S - W:], shift, dims=1)}
+    else:
+        attn = flash_attention(q, k, v, causal=True, q_chunk=qc, kv_chunk=qc)
+        cache = {"k": k, "v": v}
+    x = x + einsum("bshk,hkd->bsd", attn, p.wo)
+    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
+    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
+    return x + y, cache
+
+
+def prefill_block(p, cfg: ModelConfig, kind: str, x, positions,
+                  layer_is_moe: bool, q_chunk: int = 512):
+    if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
+        return _prefill_attn(p, cfg, x, positions, local=(kind == BLOCK_LOCAL_ATTN),
+                             layer_is_moe=layer_is_moe, q_chunk=q_chunk)
+    dt = _dtype(cfg.compute_dtype)
+    if kind == BLOCK_RECURRENT:
+        y, st = rg.rglru_apply(p, x)
+        if cfg.d_ff:
+            h2 = rms_norm(y, p.ln2, cfg.norm_eps)
+            f, _ = _apply_ffn(p.ffn, cfg, h2, False)
+            y = y + f
+        return y, {"h": st["h"], "conv": st["conv"].to(dt)}
+    if kind == BLOCK_MLSTM:
+        y, st = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk)
+        st["conv"] = st["conv"].to(dt)
+        return y, st
+    if kind == BLOCK_SLSTM:
+        return xl.slstm_apply(p, x, n_heads=cfg.n_heads)
+    raise ValueError(kind)
+
+
+def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            q_chunk: int = 512) -> Tuple[torch.Tensor, List[Cache]]:
+    """Returns (last-position logits [B, vocab] f32, caches sized S)."""
+    x = embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    caches = []
+    for li, p in enumerate(params.layers):
+        x, c = prefill_block(p, cfg, cfg.block_kind(li), x, positions,
+                             layer_is_moe(cfg, li), q_chunk=q_chunk)
+        caches.append(c)
+    return unembed(params, cfg, x[:, -1:])[:, 0], caches

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+sessions and language models against the CPU, on a card.
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -289,3 +290,43 @@ def test_cuda_profiled_session_costs_every_span(engine):
     assert sum(s.attrs["launches"] for s in spans) == build.LAUNCHES[ff.NAME] > 0
     peak = card.profiler.peak_device_bytes
     assert 0 < peak <= torch.cuda.max_memory_allocated()
+
+
+LM_ARCHS = ["deepseek_moe_16b", "granite_3_2b", "granite_moe_1b_a400m",
+            "llava_next_mistral_7b", "musicgen_medium", "qwen1_5_110b",
+            "qwen2_1_5b", "qwen3_4b", "recurrentgemma_9b", "xlstm_125m"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aid", LM_ARCHS)
+def test_cuda_lm_reduced_matches_cpu(aid):
+    """A reduced config in float32 (TF32 off) on the card against the CPU
+    from the same weights: forward, prefill (every cache leaf) and
+    decode_step on the grown caches, within chip_smoke's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = chip_smoke.lm_card_against_cpu(aid, seed=0)
+    assert set(errs) == {"logits", "aux", "last", "dlogits", "caches", "dcaches"}
+
+
+def test_lm_entry_points_need_a_card(monkeypatch):
+    """Without a card, init_params, init_caches, concrete_batch and the
+    weight carrier raise unless the caller asks for the CPU."""
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.registry import ShapeSpec, concrete_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import init_caches
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(ARCHS["qwen2_1_5b"])
+    spec = ShapeSpec("t", "prefill", 8, 2)
+    for call in (lambda: init_params(cfg), lambda: init_caches(cfg, 2, 8),
+                 lambda: concrete_batch(cfg, spec),
+                 lambda: convert.lm_caches_from_tree(cfg, {"body": []})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = init_params(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert init_caches(cfg, 2, 8, device="cpu")[0]["k"].device.type == "cpu"
+    assert concrete_batch(cfg, spec, device="cpu")["tokens"].device.type == "cpu"

@@ -610,7 +610,30 @@ def test_label_histogram_gives_the_sni_seed(both):
             assert int(got) == want[p.pid], (label, op, p.pid)
 
 
+def _string_prefix(node) -> str:
+    """The literal text a string expression starts with ('' if none)."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    if isinstance(node, ast.JoinedStr):
+        out = ""
+        for part in node.values:
+            if not (isinstance(part, ast.Constant) and isinstance(part.value, str)):
+                break
+            out += part.value
+        return out
+    return ""
+
+
+def _is_import_call(func) -> bool:
+    """``importlib.import_module``, ``import_module`` or ``__import__``."""
+    name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", "")
+    return name in ("import_module", "__import__")
+
+
 def _imports(path):
+    """Every module a file imports: import statements and the literal
+    start of a string passed to ``importlib.import_module`` / ``__import__``
+    (a relative name starts with '.')."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -618,6 +641,8 @@ def _imports(path):
                 yield a.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module or ""
+        elif isinstance(node, ast.Call) and _is_import_call(node.func) and node.args:
+            yield _string_prefix(node.args[0])
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -636,8 +661,35 @@ def test_port_imports_neither_jax_nor_reference():
             "src/repro_torch/serving/__init__.py",
             "src/repro_torch/serving/cost.py",
             "src/repro_torch/serving/frontend.py",
-            "src/repro_torch/storage/deltas.py"} <= names
+            "src/repro_torch/storage/deltas.py",
+            "src/repro_torch/models/config.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/xlstm.py",
+            "src/repro_torch/models/rglru.py",
+            "src/repro_torch/configs/registry.py",
+            "src/repro_torch/configs/qwen2_1_5b.py",
+            "src/repro_torch/serving/decode.py",
+            "src/repro_torch/data/tokens.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
+
+
+@pytest.mark.parametrize("src, found", [
+    ('import importlib\nimportlib.import_module("repro.configs.qwen2_1_5b")', "repro.configs.qwen2_1_5b"),
+    ('import importlib\nmid = "x"\nimportlib.import_module(f"repro.configs.{mid}")', "repro.configs."),
+    ('from importlib import import_module\nimport_module("jax.numpy")', "jax.numpy"),
+    ('__import__("jaxlib")', "jaxlib"),
+    ('import importlib\nimportlib.import_module(f".{__name__}", __package__)', "."),
+], ids=["constant", "f-string", "bare", "dunder", "relative"])
+def test_import_check_reads_string_imports(tmp_path, src, found):
+    """The import check sees a module named by string (the configs
+    registry loads its modules that way), and a relative name passes."""
+    f = tmp_path / "m.py"
+    f.write_text(src + "\n")
+    mods = list(_imports(f))
+    assert found in mods
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert bool(bad) == (found != ".")

@@ -331,7 +331,7 @@ def test_pinned_generation_survives_compaction_and_gc(setup, tmp_path, engine):
         sched.admit(tdqs[0])
 
 
-def test_fold_repartition_matches_reference(setup, tmp_path):
+def test_fold_repartition_matches_reference(setup, tmp_path, read_aheads_land_at_once):
     """fold(repartition=True) after served and updated traffic: the same
     layout, directory and generation as the reference's, then the same
     answers, loads and counters; a scheduler of the old binding refuses
