@@ -141,6 +141,20 @@ Phases, each printing one JSON line:
                the shapes); and the nine other configs at published width
                with depth cut (``LM_CUTS``), each prefilled and decoding 8
                tokens; the graph kernels must not launch
+  train        language-model training (no hand-written kernel on its
+               path either), TF32 off: all ten reduced configs in float32,
+               one train_step on the card against the CPU (remat; flash_cv
+               on the attention configs; attn_remat on qwen2_1_5b), the
+               loss terms and every leaf of m and v; flash_attention_cv's
+               gradients at Qwen2-1.5B's attention shape, card against
+               CPU; Qwen2-1.5B at full depth in float32 (B=1 x 1,024, wq
+               and wk at fan-in d): every gradient leaf equal across remat,
+               no remat, flash_cv and attn_remat; Qwen2-1.5B in bf16, 5
+               steps of 4 x 2,048 tokens (step time, tokens/s, peak
+               memory, one profiled step, the bounds from the shapes); and
+               the train CLI on xLSTM-125M at its published size, run
+               uninterrupted and killed after its first commit and
+               resumed (the same losses, the same checkpoint layout)
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
@@ -2423,16 +2437,22 @@ def lm_qwen2_consistency(seed: int) -> dict:
            "prompt": 511, "tolerance": LM_CONSIST,
            "reference_init": lm_relations(model, cfg, toks)}
     check(rec["n_params"] == cfg.n_params(), "qwen2: parameter count")
-    with torch.no_grad():
-        for blk in model.layers:
-            blk.wq.mul_((cfg.n_heads / cfg.d_model) ** 0.5)
-            blk.wk.mul_((cfg.n_kv_heads / cfg.d_model) ** 0.5)
+    qk_fan_in_d(cfg, model)
     rec["qk_fan_in_d"] = soft = lm_relations(model, cfg, toks)
     check(soft["prefill_vs_forward"] <= LM_CONSIST, f"qwen2: prefill against forward {rec}")
     check(soft["decode_vs_forward"] <= LM_CONSIST, f"qwen2: decode against forward {rec}")
     del model
     free_cuda()
     return rec
+
+
+def qk_fan_in_d(cfg, model) -> None:
+    """Rescale every wq and wk from the reference's ``_dense`` fan-in (H,
+    Hkv) to fan-in d, in place (see lm_qwen2_consistency)."""
+    with torch.no_grad():
+        for blk in model.layers:
+            blk.wq.mul_((cfg.n_heads / cfg.d_model) ** 0.5)
+            blk.wk.mul_((cfg.n_kv_heads / cfg.d_model) ** 0.5)
 
 
 def lm_serve(aid: str, cfg, B: int, S: int, new: int, seed: int, *,
@@ -2555,6 +2575,398 @@ def phase_lm(seed: int) -> None:
          seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# train: language-model training (loss, backward, AdamW, remat,
+# flash_attention_cv's backward, checkpoints, the train CLI), which reaches
+# no hand-written kernel: the reference computes it outside Pallas
+# ---------------------------------------------------------------------------
+
+# Card against CPU, float32 with TF32 off, one train_step from the same
+# weights and batch: the loss terms to TRAIN_LOSS_RTOL; the global norm,
+# and m (0.1 x the clipped gradient) leaf by leaf, to TRAIN_RTOL of the
+# leaf's largest magnitude; v (0.05 x its square) to twice that.  A leaf
+# whose exact gradient is 0 (the mLSTM's b_i: the stabilizer absorbs a
+# shift of every input-gate logit) holds rounding noise, so a leaf's scale
+# is at least TRAIN_FLOOR of the largest over all leaves (its square for v).
+TRAIN_LOSS_RTOL, TRAIN_RTOL, TRAIN_FLOOR = 1e-4, 1e-3, 1e-6
+# Qwen2-1.5B at full depth in float32, wq and wk at fan-in d: every
+# gradient leaf of each variant (remat off, flash_cv, attn_remat) against
+# remat on, to TRAIN_CONSIST of the leaf's largest magnitude (floored as
+# above).  The variants change the summation order (flash_cv's backward)
+# or recompute the same ops; none changes the math.
+TRAIN_CONSIST = 1e-3
+# xLSTM-125M's train CLI killed after its first commit and resumed: the
+# logged losses of the steps both runs took agree to TRAIN_RESUME (absolute;
+# the log prints four decimals).  The CLI's default batch and length; a
+# step takes 5.6-6.1 s on the card (the mLSTM is a sequential scan in
+# every config, about 160,000 host-dispatched ops a step), so 8 steps with
+# a commit every 4, not 30 with one every 10, which took 385 s.
+TRAIN_RESUME = 1e-3
+TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 8, 4
+TRAIN_CLI = ["--arch", "xlstm-125m", "--steps", str(TRAIN_CLI_STEPS), "--batch", "8",
+             "--seq", "128", "--ckpt-every", str(TRAIN_CLI_EVERY), "--log-every", "1"]
+
+
+def leaf_errs(got: dict, want: dict, floor: float) -> dict:
+    """{name: max |got - want| / scale}: scale is the leaf's largest
+    magnitude (of ``want``), at least ``floor`` of the largest over all
+    leaves.  ``want`` may live on the host."""
+    tops = {n: float(w.abs().max()) for n, w in want.items()}
+    top = max(tops.values())
+    out = {}
+    for n, w in want.items():
+        g = got[n]
+        check(tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype, f"train: leaf {n}")
+        check(bool(torch.isfinite(g).all()), f"train: non-finite {n}")
+        diff = float((g.float() - w.to(g.device).float()).abs().max())
+        out[n] = diff / max(tops[n], floor * top, 1e-30)
+    return out
+
+
+def worst(errs: dict) -> list:
+    n = max(errs, key=errs.get)
+    return [n, errs[n]]
+
+
+def train_card_against_cpu(aid: str, seed: int) -> dict:
+    """A reduced config (float32) on the card and on the CPU from the same
+    weights and batch: one ``train_step`` with ``TrainConfig(remat=True)``,
+    again with ``flash_cv`` (configs with global attention; 8-position
+    chunks, so the tiles and the masked ones are several), and with
+    ``attn_remat`` for qwen2_1_5b.  The loss terms, grad norm and lr, and
+    every leaf of m and v."""
+    import copy
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.configs.registry import ShapeSpec, concrete_batch
+    from repro_torch.models.config import BLOCK_ATTN
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import OptConfig, TrainConfig, init_opt_state, make_train_step
+    cfg = reduced(ARCHS[aid])
+    variants = {"remat": TrainConfig(remat=True)}
+    chunked = dict(remat=True, q_chunk=8, kv_chunk=8)
+    if any(cfg.block_kind(i) == BLOCK_ATTN for i in range(cfg.n_layers)):
+        variants["flash_cv"] = TrainConfig(flash_cv=True, **chunked)
+    if aid == "qwen2_1_5b":
+        variants["attn_remat"] = TrainConfig(attn_remat=True, **chunked)
+    batch = concrete_batch(cfg, ShapeSpec("t", "train", 32, 2), seed, device="cpu")
+    cpu = init_params(cfg, seed, device="cpu")
+    out = {}
+    for name, tcfg in variants.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(cpu).to(dev)
+            state = init_opt_state(model, device=dev)
+            metrics = make_train_step(cfg, tcfg)(model, state,
+                                                 {k: v.to(dev) for k, v in batch.items()})
+            check(int(state["step"]) == 1, f"train {aid}: step")
+            res[dev] = ({k: float(v) for k, v in metrics.items()}, state)
+        (mc, sc), (mg, sg) = res["cpu"], res["cuda"]
+        rel = lambda k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+        rec = {k: rel(k) for k in mc}
+        rec["aux_abs"] = abs(mg["aux"] - mc["aux"])
+        rec["m"] = worst(leaf_errs(sg["m"], sc["m"], TRAIN_FLOOR))
+        rec["v"] = worst(leaf_errs(sg["v"], sc["v"], TRAIN_FLOOR ** 2))
+        ok = (rec["loss"] <= TRAIN_LOSS_RTOL and rec["nll"] <= TRAIN_LOSS_RTOL
+              and (rec["aux"] <= TRAIN_LOSS_RTOL or rec["aux_abs"] <= 1e-6)
+              and rec["grad_norm"] <= TRAIN_RTOL and rec["lr"] <= 1e-6
+              and rec["m"][1] <= TRAIN_RTOL and rec["v"][1] <= 2 * TRAIN_RTOL)
+        check(ok, f"train {aid} {name}: card and CPU disagree {rec}")
+        out[name] = rec
+    free_cuda()
+    return out
+
+
+def flash_cv_card_against_cpu(seed: int, B: int = 1, S: int = 1024) -> dict:
+    """``flash_attention_cv`` at Qwen2-1.5B's attention shape (H 12, Hkv 2,
+    hd 128, 512-position chunks), float32: the output and the gradients of
+    sum(out^2) on the card against the CPU, each to TRAIN_RTOL of its
+    largest magnitude."""
+    from repro_torch.models.layers import flash_attention_cv
+    gen = torch.Generator().manual_seed(seed)
+    arrays = [torch.randn(B, S, h, 128, generator=gen) for h in (12, 2, 2)]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ts = [a.to(dev, copy=True).requires_grad_(True) for a in arrays]
+        out = flash_attention_cv(*ts, 512, 512)
+        (out ** 2).sum().backward()
+        res[dev] = {"out": out.detach(), **{f"d{n}": t.grad for n, t in zip("qkv", ts)}}
+    errs = leaf_errs(res["cuda"], res["cpu"], 0.0)
+    check(max(errs.values()) <= TRAIN_RTOL, f"flash_cv: card and CPU disagree {errs}")
+    free_cuda()
+    return errs
+
+
+def train_qwen2_consistency(seed: int, S: int = 1024) -> dict:
+    """Gradients of Qwen2-1.5B (float32, full width and depth, wq and wk at
+    fan-in d, B=1 x S) under four variants of the same loss: remat on (kept
+    on the host), remat off, flash_cv, attn_remat.  Every leaf to
+    TRAIN_CONSIST."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.step import TrainConfig, value_and_grad
+    cfg = dataclasses.replace(ARCHS["qwen2_1_5b"], param_dtype="float32",
+                              compute_dtype="float32")
+    model = init_params(cfg, seed, device="cuda")
+    qk_fan_in_d(cfg, model)
+    b = TokenPipeline(vocab=cfg.vocab, batch=1, seq=S, seed=seed).batch_at(0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+    variants = {"remat": TrainConfig(remat=True), "no_remat": TrainConfig(remat=False),
+                "flash_cv": TrainConfig(remat=True, flash_cv=True),
+                "attn_remat": TrainConfig(remat=True, attn_remat=True)}
+    rec, base, base_loss = {"batch": 1, "seq": S, "tolerance": TRAIN_CONSIST}, None, None
+    for name, tcfg in variants.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        total, parts, grads = value_and_grad(model, cfg, batch, tcfg)
+        torch.cuda.synchronize()
+        r = {"loss": float(total), "nll": float(parts["nll"]),
+             "s": time.perf_counter() - t0,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+              f"qwen2 train {name}: a non-finite gradient")
+        if base is None:
+            base, base_loss = {n: g.cpu() for n, g in grads.items()}, r["loss"]
+        else:
+            r["loss_rel"] = abs(r["loss"] - base_loss) / abs(base_loss)
+            r["worst"] = worst(leaf_errs(grads, base, TRAIN_FLOOR))
+            check(r["worst"][1] <= TRAIN_CONSIST and r["loss_rel"] <= TRAIN_LOSS_RTOL,
+                  f"qwen2 train {name} against remat: {r}")
+        rec[name] = r
+        del grads
+        free_cuda()
+    del model, base
+    free_cuda()
+    return rec
+
+
+def profile_train_step(step, name: str) -> dict:
+    """One train step under torch.profiler: host kernel launches, device
+    kernels, and the device's busy and idle share of the step's wall time.
+    The trace (tens of MB) is read from a scratch file under build/."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = Path(tmp) / f"profile_{name}.json"
+        prof.export_chrome_trace(str(path))
+        dev = device_events(json.loads(path.read_text())["traceEvents"])
+    check(bool(dev), "the profiler recorded no device activity")
+    busy = busy_ms(dev)
+    by_name: dict = {}
+    for e in dev:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    launches = sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+    return {"wall_ms": wall_ms, "host_kernel_launches": launches,
+            "device_kernels": sum(e.get("cat") == "kernel" for e in dev),
+            "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall_ms,
+            "kernels_by_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def train_qwen2_bf16(seed: int, B: int = 4, S: int = 2048, steps: int = 5) -> dict:
+    """Qwen2-1.5B, the published config at full depth in bf16: ``steps``
+    train steps of B x S tokens from the token pipeline with
+    ``TrainConfig(remat=True, flash_cv=True)``; the loss, grad norm and every
+    parameter finite, ``step == steps``, the parameters moved.  Step times
+    (host clock, the loss's ``.item()`` as the barrier), peak memory, one
+    more step under torch.profiler, and the bounds from the shapes.
+
+    The reference's init at full depth (sharp attention, see
+    lm_qwen2_consistency) gives gradients of 1e17 to 5e18, whose squares
+    overflow float32 in ``global_norm`` (the reference's too), so the norm
+    is inf and the clip zeroes the step.  One backward on those weights is
+    recorded; the steps run with wq and wk at fan-in d."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import TrainConfig, init_opt_state, make_train_step
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import value_and_grad
+    cfg = ARCHS["qwen2_1_5b"]
+    free_cuda()
+    resident = torch.cuda.memory_allocated()
+    model = init_params(cfg, seed, device="cuda")
+    tcfg = TrainConfig(remat=True, flash_cv=True)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=seed)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+               for i in range(steps + 1)]
+    _, _, grads = value_and_grad(model, cfg, batches[0], tcfg)
+    raw = {"grad_abs_max": max(float(g.float().abs().max()) for g in grads.values()),
+           "grad_norm": float(global_norm(grads.values()))}
+    del grads
+    qk_fan_in_d(cfg, model)
+    before = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    state = init_opt_state(model, device="cuda")
+    step_fn = make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step_fn(model, state, batches[i])
+        losses.append(m["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"qwen2 bf16 train: non-finite {losses} {norms}")
+    check(int(state["step"]) == steps, "qwen2 bf16 train: optimizer step")
+    moved, changed = [], {}
+    for n, p in model.named_parameters():
+        check(bool(torch.isfinite(p).all()), f"qwen2 bf16 train: non-finite {n}")
+        diff = p.detach().cpu() != before[n]
+        if bool(diff.any()):
+            moved.append(n)
+        d = changed.setdefault(str(p.dtype).split(".")[-1], [0, 0])
+        d[0] += int(diff.sum())
+        d[1] += diff.numel()
+    n_leaves = len(before)
+    check(len(moved) == n_leaves, f"qwen2 bf16 train: {n_leaves - len(moved)} leaves did not move")
+    del before
+    prof = profile_train_step(lambda: step_fn(model, state, batches[steps]), "qwen2_train")
+    warm = times[1:]
+    n_params = sum(p.numel() for p in model.parameters())
+    rec = {"layers": cfg.n_layers, "batch": B, "seq": S, "tokens_per_step": B * S,
+           "n_params": n_params, "reference_init": raw, "qk_fan_in_d": True,
+           "losses": losses, "grad_norms": norms,
+           "step_ms": times, "step_ms_median_2_5": float(np.median(warm)),
+           "step_ms_min_max_2_5": [min(warm), max(warm)],
+           "tokens_per_s": B * S / (float(np.median(warm)) / 1e3),
+           "max_memory_allocated": peak, "resident_before_bytes": resident,
+           "leaves_moved": len(moved), "leaves": n_leaves,
+           "elements_changed_by_dtype": changed, "profiled_step": prof}
+    # bounds from the shapes (H100 SXM peaks): the bf16 products (6 N T,
+    # plus the remat's second forward of the body, 2 N_body T) on the
+    # tensor cores, and the float32 attention over the whole S x S (every
+    # chunk pair, as the reference computes it): forward, remat recompute
+    # and flash_cv's backward, 4.5 x 28 x 4 B S^2 H hd, outside them
+    T = B * S
+    n_body = n_params - cfg.vocab * cfg.d_model
+    mm = 6 * n_params * T + 2 * n_body * T
+    attn = 4.5 * cfg.n_layers * 4 * B * S * S * cfg.n_heads * cfg.hd
+    rec["ops"] = {"products_bf16": mm, "attention_f32": attn,
+                  "peaks": {"bf16_ops_per_s": BF16_OPS_PER_S, "f32_ops_per_s": FP32_OPS_PER_S}}
+    rec["step_bound_ms"] = (mm / BF16_OPS_PER_S + attn / FP32_OPS_PER_S) * 1e3
+    rec["step_bound_by"] = "operations"
+    del model, state, batches
+    free_cuda()
+    return rec
+
+
+def parse_train_log(text: str) -> dict:
+    steps = {}
+    for line in text.splitlines():
+        m = re.match(r"\[train\] step +(\d+) loss +(\S+)", line)
+        if m:
+            steps[int(m.group(1))] = float(m.group(2))
+    done = [l for l in text.splitlines() if l.startswith("[train] done.")]
+    check(len(done) == 1, f"train CLI: no final line in {text[-400:]}")
+    med = re.search(r"median step ([\d.]+) ms; straggler steps (\d+)", done[0])
+    return {"losses": steps, "median_step_ms": float(med.group(1)),
+            "straggler_steps": int(med.group(2)),
+            "resumed": re.findall(r"resumed from step (\d+)", text)}
+
+
+def run_train_cli(argv: list) -> str:
+    """``repro_torch.launch.train.main`` in this process; its output."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(train.main(argv) == 0, f"train CLI {argv}")
+    free_cuda()
+    return buf.getvalue()
+
+
+def train_cli(workdir: Path) -> dict:
+    """xLSTM-125M at its published size (the reference CLI's default arch)
+    through ``python -m repro_torch.launch.train``: run A uninterrupted;
+    run B in a subprocess SIGKILLed once its first checkpoint commits, then
+    relaunched with the same flags, which must resume from the last commit.
+    The losses of the steps both took agree to TRAIN_RESUME, and the final
+    checkpoints have the same npz keys, shapes and dtypes."""
+    a, b = workdir / "ckpt_a", workdir / "ckpt_b"
+    t0 = time.perf_counter()
+    out_a = parse_train_log(run_train_cli(TRAIN_CLI + ["--ckpt-dir", str(a)]))
+    t_a = time.perf_counter() - t0
+    n, every = TRAIN_CLI_STEPS, TRAIN_CLI_EVERY
+    check(not out_a["resumed"] and len(out_a["losses"]) == n, "train CLI: run A")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = workdir / "run_b.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+                                 "--ckpt-dir", str(b)], stdout=f, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=env)
+        try:
+            while not (b / f"step_{every:08d}" / "done").exists():
+                check(proc.poll() is None, f"train CLI: run B ended early: {log.read_text()[-2000:]}")
+                time.sleep(0.05)
+        finally:
+            proc.kill()       # SIGKILL
+            proc.wait(timeout=60)
+    t_kill = time.perf_counter() - t0
+    committed = sorted(p.name for p in b.iterdir() if (p / "done").exists())
+    t0 = time.perf_counter()
+    out_b = parse_train_log(run_train_cli(TRAIN_CLI + ["--ckpt-dir", str(b)]))
+    t_b = time.perf_counter() - t0
+    last = int(committed[-1].split("_")[1])
+    check(out_b["resumed"] == [str(last)] and 0 < last < n and last % every == 0,
+          f"train CLI: resumed {out_b['resumed']}, committed {committed}")
+    common = sorted(set(out_b["losses"]) & set(out_a["losses"]))
+    check(common == list(range(last, n)), f"train CLI: logged steps {common}")
+    diffs = [abs(out_b["losses"][s] - out_a["losses"][s]) for s in common]
+    check(max(diffs) <= TRAIN_RESUME, f"train CLI: resumed losses differ {diffs}")
+    files = {}
+    for side, d in (("a", a), ("b", b)):
+        with np.load(d / f"step_{n:08d}" / "host0000.npz") as z:
+            files[side] = {k: (z[k].shape, str(z[k].dtype)) for k in z.files}
+    check(files["a"] == files["b"], "train CLI: final checkpoints differ in keys, shapes or dtypes")
+    check(any(dt == "|V2" for _, dt in files["a"].values()), "train CLI: no bf16 leaf stored")
+    return {"argv": TRAIN_CLI, "run_a_s": t_a, "run_b_killed_after_s": t_kill,
+            "run_b_resume_s": t_b, "committed_at_kill": committed, "resumed_from": last,
+            "max_loss_diff": max(diffs), "steps_compared": len(common),
+            "losses_a": out_a["losses"], "median_step_ms_a": out_a["median_step_ms"],
+            "straggler_steps_a": out_a["straggler_steps"],
+            "median_step_ms_b": out_b["median_step_ms"],
+            "straggler_steps_b": out_b["straggler_steps"], "npz_leaves": len(files["a"])}
+
+
+def phase_train(seed: int) -> None:
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_cuda()
+    launches0 = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    reduced_errs = {aid: train_card_against_cpu(aid, seed) for aid in sorted(ARCHS)}
+    t_reduced = time.perf_counter() - t0
+    flash_cv = flash_cv_card_against_cpu(seed)
+    consistency = train_qwen2_consistency(seed)
+    bf16 = train_qwen2_bf16(seed)
+    (ROOT / "build").mkdir(exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-", dir=ROOT / "build"))
+    try:
+        cli = train_cli(workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
+    check(not any(launched.values()), f"train: a graph kernel launched {launched}")
+    emit("train", tolerances={"loss_rtol": TRAIN_LOSS_RTOL, "rtol": TRAIN_RTOL,
+                              "floor": TRAIN_FLOOR, "consistency": TRAIN_CONSIST,
+                              "resume_abs": TRAIN_RESUME},
+         reduced_card_vs_cpu=reduced_errs, reduced_s=t_reduced,
+         flash_cv_card_vs_cpu=flash_cv, qwen2_f32_consistency=consistency,
+         qwen2_bf16=bf16, cli=cli, graph_kernel_launches=launched,
+         seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=200.0,
@@ -2616,6 +3028,7 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     del pg, sess, tsess, msess, sessions, oracle, served, tserved, mserved
     phase_lm(args.seed)
+    phase_train(args.seed)
 
     # the step's launches on each engine's serving path (path, traditional,
     # mapreduce, the profiled sessions, the front end, the three engines

@@ -13,6 +13,9 @@ lists of numpy arrays, the JAX package's layout: ``head_layers``, the
 and cache list, which hold the layers in layer order:
 
   lm_params_from_tree / lm_tree_from_params   — tree <-> ``Model``
+  lm_opt_state_from_tree / lm_tree_from_opt_state
+                                              — the optimizer state's
+                                                ``{"step", "m", "v"}``
   lm_caches_from_tree / lm_tree_from_caches   — tree <-> cache list
   split_layers / join_layers                  — the layout alone
 """
@@ -148,7 +151,10 @@ def dtype_name(dtype) -> str:
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     """A copy of ``a`` as a tensor of the same dtype.  numpy holds a JAX
     bf16 array as an ``ml_dtypes`` bfloat16 array, which ``torch.from_numpy``
-    rejects: it goes through float32, which is exact."""
+    rejects: it goes through float32, which is exact.  A tensor is copied
+    as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.array(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device=device,
@@ -161,20 +167,42 @@ def _resolve(device):
     return resolve_device(device)
 
 
+def lm_named_from_tree(cfg: ModelConfig, tree) -> Dict[str, Any]:
+    """A parameter-shaped tree as {parameter name: leaf}."""
+    top, layers = split_layers(cfg, tree)
+    flat = dict(top)
+    for i, layer in enumerate(layers):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return flat
+
+
+def lm_tree_from_named(cfg: ModelConfig, named: Dict[str, Any]):
+    """{parameter name: leaf} in the reference's tree layout."""
+    top, layers = {}, [{} for _ in range(cfg.n_layers)]
+    for name, t in named.items():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            layers[int(i)][rest] = t
+        else:
+            top[name] = t
+    return join_layers(cfg, top, layers)
+
+
+def _check_names(flat: Dict[str, Any], params: Dict[str, Any]) -> None:
+    if set(flat) != set(params):
+        raise ValueError(f"leaves differ: tree only {sorted(set(flat) - set(params))}, "
+                         f"model only {sorted(set(params) - set(flat))}")
+
+
 def lm_params_from_tree(cfg: ModelConfig, tree, *, device=None) -> Model:
     """The reference's parameter tree carried into the port's ``Model``:
     every leaf's name, shape and dtype must match.  ``device=None`` means
     the card (raises without one)."""
     dev = _resolve(device)
-    top, layers = split_layers(cfg, tree)
-    flat = dict(top)
-    for i, layer in enumerate(layers):
-        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    flat = lm_named_from_tree(cfg, tree)
     model = Model(cfg, dev)
     params = dict(model.named_parameters())
-    if set(flat) != set(params):
-        raise ValueError(f"leaves differ: tree only {sorted(set(flat) - set(params))}, "
-                         f"model only {sorted(set(params) - set(flat))}")
+    _check_names(flat, params)
     with torch.no_grad():
         for name, p in params.items():
             t = tensor_from_numpy(flat[name], dev)
@@ -187,14 +215,35 @@ def lm_params_from_tree(cfg: ModelConfig, tree, *, device=None) -> Model:
 
 def lm_tree_from_params(cfg: ModelConfig, model: Model):
     """The model's parameters in the reference's tree layout (tensors)."""
-    top, layers = {}, [{} for _ in range(cfg.n_layers)]
-    for name, p in model.named_parameters():
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            layers[int(i)][rest] = p.detach()
-        else:
-            top[name] = p.detach()
-    return join_layers(cfg, top, layers)
+    return lm_tree_from_named(cfg, {n: p.detach() for n, p in model.named_parameters()})
+
+
+def lm_opt_state_from_tree(cfg: ModelConfig, tree, model: Model, *, device=None):
+    """The reference's optimizer state ``{"step", "m", "v"}`` (``m`` and
+    ``v`` in the parameter tree's layout) as the port's name-keyed state:
+    every moment float32 and of its parameter's shape.  ``device=None``
+    means the card (raises without one)."""
+    dev = _resolve(device)
+    params = dict(model.named_parameters())
+    out = {"step": tensor_from_numpy(tree["step"], dev).to(torch.int32)}
+    for key in ("m", "v"):
+        flat = lm_named_from_tree(cfg, tree[key])
+        _check_names(flat, params)
+        out[key] = {}
+        for name, p in params.items():
+            t = tensor_from_numpy(flat[name], dev)
+            if t.shape != p.shape or t.dtype != torch.float32:
+                raise ValueError(f"{key} {name}: {tuple(t.shape)} {t.dtype}, want "
+                                 f"{tuple(p.shape)} float32")
+            out[key][name] = t
+    return out
+
+
+def lm_tree_from_opt_state(cfg: ModelConfig, opt_state):
+    """The port's optimizer state in the reference's layout (tensors)."""
+    return {"step": opt_state["step"],
+            "m": lm_tree_from_named(cfg, opt_state["m"]),
+            "v": lm_tree_from_named(cfg, opt_state["v"])}
 
 
 def lm_caches_from_tree(cfg: ModelConfig, tree, *, device=None) -> List[Dict[str, torch.Tensor]]:

@@ -13,10 +13,13 @@ a batched per-expert SwiGLU, and combined with their gate weights.
 
 ``jnp`` promotes a product of two dtypes to the wider one and
 ``torch.matmul`` raises on it, so every product of two tensors goes
-through ``matmul`` / ``einsum`` below, which promote as JAX does.  The
-training-only pieces of the reference (``flash_attention_cv``'s custom
-VJP, ``remat_qchunk``, and the expert-parallel ``moe_ffn_tp`` under
-``shard_map``) are not here.
+through ``matmul`` / ``einsum`` below, which promote as JAX does.
+
+For training, ``flash_attention_cv`` is the reference's custom-VJP
+attention as a ``torch.autograd.Function`` (a tiled backward that
+recomputes each probability tile), and ``flash_attention``'s
+``remat_qchunk`` checkpoints each query chunk.  The expert-parallel
+``moe_ffn_tp`` under ``shard_map`` needs a device mesh and is not here.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 # (shape, generator, device) -> a float32 tensor of that shape
 Init = Callable[[Sequence[int], torch.Generator, torch.device], torch.Tensor]
@@ -133,17 +138,146 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
+# Flash attention with a hand-written backward (tiles recomputed)
+# ---------------------------------------------------------------------------
+
+def _chunks(q, k, q_chunk: int, kv_chunk: int):
+    """(B, S, Hkv, G, hd, Cq, Ck, nq, nk) of a causal GQA call; the chunks
+    must divide S."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    Cq, Ck = min(q_chunk, S), min(kv_chunk, S)
+    assert S % Cq == 0 and S % Ck == 0, (S, Cq, Ck)
+    return B, S, Hkv, H // Hkv, hd, Cq, Ck, S // Cq, S // Ck
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """float32 for float32 and narrower inputs (the reference's), float64
+    for float64 ones (``gradcheck``)."""
+    return torch.promote_types(dt, torch.float32)
+
+
+def _causal_mask(qi: int, j: int, Cq: int, Ck: int, device) -> torch.Tensor:
+    """[1, Cq, 1, 1, Ck]: query qi*Cq + a may see key j*Ck + b."""
+    gq = qi * Cq + torch.arange(Cq, device=device)
+    gk = j * Ck + torch.arange(Ck, device=device)
+    return (gq[:, None] >= gk[None, :])[None, :, None, None, :]
+
+
+def _flash_fwd_impl(q, k, v, q_chunk: int, kv_chunk: int):
+    """The reference's ``_flash_fwd_impl``: (out [B,S,H,hd], m, l), with
+    m, l [nq, B, Cq, Hkv, G] the online softmax's row max and sum."""
+    B, S, Hkv, G, hd, Cq, Ck, nq, nk = _chunks(q, k, q_chunk, kv_chunk)
+    acc, dev = _acc_dtype(q.dtype), q.device
+    scale = 1.0 / math.sqrt(hd)
+    qs = q.reshape(B, nq, Cq, Hkv, G, hd)
+    ks = k.reshape(B, nk, Ck, Hkv, hd)
+    vs = v.reshape(B, nk, Ck, Hkv, hd)
+    outs, ms, ls = [], [], []
+    for qi in range(nq):
+        q_i = qs[:, qi].to(acc)
+        m = torch.full((B, Cq, Hkv, G), -math.inf, dtype=acc, device=dev)
+        l = torch.zeros((B, Cq, Hkv, G), dtype=acc, device=dev)
+        o = torch.zeros((B, Cq, Hkv, G, hd), dtype=acc, device=dev)
+        for j in range(nk):
+            s = torch.einsum("bqhgd,bchd->bqhgc", q_i, ks[:, j].to(acc)) * scale
+            mask = _causal_mask(qi, j, Cq, Ck, dev)
+            s = torch.where(mask, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("bqhgc,bchd->bqhgd", p, vs[:, j].to(acc))
+            m = m_new
+        outs.append((o / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype))
+        ms.append(m)
+        ls.append(l)
+    out = torch.stack(outs, dim=1).reshape(B, S, Hkv * G, hd)
+    return out, torch.stack(ms), torch.stack(ls)
+
+
+def _flash_cv_bwd(q, k, v, out, ms, ls, dout, q_chunk: int, kv_chunk: int):
+    """The reference's ``_flash_cv_bwd``: every [Cq, Ck] probability tile is
+    recomputed from (q, k, m, l); dq, dk and dv accumulate in float32 across
+    chunks, the GQA group summed into dk and dv."""
+    B, S, Hkv, G, hd, Cq, Ck, nq, nk = _chunks(q, k, q_chunk, kv_chunk)
+    acc, dev = _acc_dtype(q.dtype), q.device
+    scale = 1.0 / math.sqrt(hd)
+    qs = q.reshape(B, nq, Cq, Hkv, G, hd)
+    ks = k.reshape(B, nk, Ck, Hkv, hd)
+    vs = v.reshape(B, nk, Ck, Hkv, hd)
+    dos = dout.reshape(B, nq, Cq, Hkv, G, hd)
+    os_ = out.reshape(B, nq, Cq, Hkv, G, hd)
+    dk = torch.zeros((B, nk, Ck, Hkv, hd), dtype=acc, device=dev)
+    dv = torch.zeros((B, nk, Ck, Hkv, hd), dtype=acc, device=dev)
+    dqs = []
+    for qi in range(nq):
+        q_i, do_i = qs[:, qi].to(acc), dos[:, qi].to(acc)
+        # D = rowsum(dout * out)  [B,Cq,Hkv,G]
+        D = torch.einsum("bqhgd,bqhgd->bqhg", do_i, os_[:, qi].to(acc))
+        m_i, l_i = ms[qi], ls[qi]
+        m_safe = torch.where(torch.isfinite(m_i), m_i, 0.0)
+        l_safe = torch.clamp_min(l_i, 1e-30)
+        dq_i = torch.zeros((B, Cq, Hkv, G, hd), dtype=acc, device=dev)
+        for j in range(nk):
+            k_j, v_j = ks[:, j].to(acc), vs[:, j].to(acc)
+            s = torch.einsum("bqhgd,bchd->bqhgc", q_i, k_j) * scale
+            mask = _causal_mask(qi, j, Cq, Ck, dev)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0) / l_safe[..., None]
+            dv[:, j] += torch.einsum("bqhgc,bqhgd->bchd", p, do_i)
+            dp = torch.einsum("bqhgd,bchd->bqhgc", do_i, v_j)
+            ds = p * (dp - D[..., None]) * scale
+            dq_i = dq_i + torch.einsum("bqhgc,bchd->bqhgd", ds, k_j)
+            dk[:, j] += torch.einsum("bqhgc,bqhgd->bchd", ds, q_i)
+        dqs.append(dq_i)
+    dq = torch.stack(dqs, dim=1).reshape(q.shape).to(q.dtype)
+    return dq, dk.reshape(k.shape).to(k.dtype), dv.reshape(v.shape).to(v.dtype)
+
+
+class _FlashCV(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_chunk, kv_chunk):
+        out, ms, ls = _flash_fwd_impl(q, k, v, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, ms, ls)
+        ctx.chunks = (q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, ms, ls = ctx.saved_tensors
+        return (*_flash_cv_bwd(q, k, v, out, ms, ls, dout, *ctx.chunks), None, None)
+
+
+def flash_attention_cv(q, k, v, q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Causal GQA attention with the FlashAttention-2 style backward: the
+    forward keeps only (q, k, v, out) and the per-chunk row max ``m`` and
+    sum ``l``; the backward recomputes each [Cq, Ck] probability tile, so
+    nothing O(S^2) is stashed.  q [B,S,H,hd]; k,v [B,S,Hkv,hd]."""
+    return _FlashCV.apply(q, k, v, q_chunk, kv_chunk)
+
+
+# ---------------------------------------------------------------------------
 # Flash-style attention (double-chunk loop, online softmax)
 # ---------------------------------------------------------------------------
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     q_chunk: int = 512, kv_chunk: int = 512,
                     window: Optional[int] = None,
-                    causal_skip: bool = False):
+                    causal_skip: bool = False,
+                    remat_qchunk: bool = False):
     """q [B,S,H,hd]; k,v [B,S,Hkv,hd] (GQA: H = Hkv * G).  Returns [B,S,H,hd].
 
     ``causal_skip``: bound the inner KV loop at each query chunk's causal
-    horizon (chunks j <= qi), which skips the masked upper triangle.
+    horizon (chunks j <= qi), which skips the masked upper triangle.  The
+    reference cannot differentiate it (a dynamic ``fori_loop`` bound), so
+    training leaves it off.
+
+    ``remat_qchunk``: checkpoint each query chunk, so the backward
+    recomputes its [Cq, Ck] tiles instead of stashing them (only while
+    autograd records).
     """
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
@@ -161,9 +295,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q_idx = torch.arange(Cq, device=dev)
     k_idx = torch.arange(Ck, device=dev)
 
-    outs = []
-    for qi in range(nq):
-        q_i = qs[:, qi].float()
+    def one_q_chunk(qi: int, q_i):
+        q_i = q_i.float()
         # online-softmax state
         m = torch.full((B, Cq, Hkv, G), -math.inf, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Cq, Hkv, G), dtype=torch.float32, device=dev)
@@ -191,7 +324,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
             o = o * corr[..., None] + torch.einsum(
                 "bqhgc,bchd->bqhgd", p, vs[:, j].float())
             m = m_new
-        outs.append((o / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype))
+        return (o / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype)
+
+    remat = remat_qchunk and torch.is_grad_enabled()
+    outs = [checkpoint(one_q_chunk, qi, qs[:, qi], use_reentrant=False) if remat
+            else one_q_chunk(qi, qs[:, qi]) for qi in range(nq)]
     return torch.stack(outs, dim=1).reshape(B, S, H, hd)
 
 

@@ -11,7 +11,11 @@ Every block is a module whose parameters keep the reference's leaf names,
 layouts and dtypes (``wq`` [d, H, hd], ``wo`` [H, hd, d], ``e_gate``
 [E, d, f], norm scales as a delta from 1), so ``repro_torch.convert``
 carries the reference's weights across with a copy.  Parameters do not
-require grad: this is the serving half of the stack.
+require grad unless a trainer asks (``train.step`` turns it on around its
+backward).  ``forward``'s ``remat`` checkpoints each body period, as the
+reference's ``jax.checkpoint(period_fn)`` does; the sharding hooks
+(``act_shard``, ``logit_shard``, ``moe_fn``) have no meaning on one card
+and are not here.
 
 Modality frontends (audio frames / VLM patches) are stubs: the model gets
 precomputed frame/patch embeddings; the in-model projection and the
@@ -23,12 +27,14 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MLSTM,
                      BLOCK_RECURRENT, BLOCK_SLSTM, FAMILY_AUDIO, FAMILY_VLM,
                      ModelConfig)
-from .layers import (Leaves, apply_rope, dense, einsum, flash_attention, gelu,
-                     local_attention, moe_ffn, rms_norm, swiglu, zeros)
+from .layers import (Leaves, apply_rope, dense, einsum, flash_attention,
+                     flash_attention_cv, gelu, local_attention, moe_ffn, rms_norm,
+                     swiglu, zeros)
 from . import rglru as rg
 from . import xlstm as xl
 
@@ -232,7 +238,8 @@ def _zero(x) -> torch.Tensor:
 
 def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
                      layer_is_moe: bool, q_chunk: int = 512,
-                     kv_chunk: int = 512, causal_skip: bool = False):
+                     kv_chunk: int = 512, causal_skip: bool = False,
+                     attn_remat: bool = False, flash_cv: bool = False):
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -242,9 +249,11 @@ def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
     kc = min(kv_chunk, S)
     if local:
         attn = local_attention(q, k, v, window=cfg.local_window, q_chunk=qc)
+    elif flash_cv:
+        attn = flash_attention_cv(q, k, v, qc, kc)
     else:
         attn = flash_attention(q, k, v, causal=True, q_chunk=qc, kv_chunk=kc,
-                               causal_skip=causal_skip)
+                               causal_skip=causal_skip, remat_qchunk=attn_remat)
     x = x + einsum("bshk,hkd->bsd", attn, p.wo)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     y, aux = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
@@ -253,13 +262,15 @@ def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                 layer_is_moe: bool, q_chunk: int = 512, kv_chunk: int = 512,
-                causal_skip: bool = False):
+                causal_skip: bool = False, attn_remat: bool = False,
+                flash_cv: bool = False):
     """Full-sequence application with no carried state."""
     if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
         return apply_attn_block(p, cfg, x, positions,
                                 local=(kind == BLOCK_LOCAL_ATTN),
                                 layer_is_moe=layer_is_moe, q_chunk=q_chunk,
-                                kv_chunk=kv_chunk, causal_skip=causal_skip)
+                                kv_chunk=kv_chunk, causal_skip=causal_skip,
+                                attn_remat=attn_remat, flash_cv=flash_cv)
     if kind == BLOCK_RECURRENT:
         y, _ = rg.rglru_apply(p, x)
         if cfg.d_ff:
@@ -271,7 +282,8 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
         y, _ = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk)
         return y, _zero(x)
     if kind == BLOCK_SLSTM:
-        y, _ = xl.slstm_apply(p, x, n_heads=cfg.n_heads)
+        y, _ = xl.slstm_apply(p, x, n_heads=cfg.n_heads,
+                              remat_chunk=cfg.mlstm_chunk)
         return y, _zero(x)
     raise ValueError(kind)
 
@@ -306,17 +318,43 @@ def unembed(params: Model, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            q_chunk: int = 512, kv_chunk: int = 512,
-            causal_skip: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B,S,vocab] f32, aux_loss scalar)."""
+            remat: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
+            causal_skip: bool = False, attn_remat: bool = False,
+            flash_cv: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits [B,S,vocab] f32, aux_loss scalar).
+
+    ``remat``: each body period is checkpointed (its activations recomputed
+    in the backward); the head and tail layers are not.  It acts only
+    while autograd records, so serving under ``no_grad`` is unchanged.
+    ``attn_remat`` checkpoints each attention query chunk; ``flash_cv``
+    selects ``flash_attention_cv``.  The aux loss sums as the reference's
+    does: per layer in the head and tail, per period in the body."""
     x = embed_inputs(params, cfg, batch)
     B, S, d = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    head, body, tail = stack_segments(cfg)
+    opts = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
+                attn_remat=attn_remat, flash_cv=flash_cv)
+
+    def run(x, layers):
+        """The layers in order: (x, their aux losses summed from 0)."""
+        aux_sum = _zero(x)
+        for li in layers:
+            x, aux = apply_block(params.layers[li], cfg, cfg.block_kind(li), x,
+                                 positions, layer_is_moe=layer_is_moe(cfg, li), **opts)
+            aux_sum = aux_sum + aux
+        return x, aux_sum
+
     aux_total = _zero(x)
-    for li, p in enumerate(params.layers):
-        x, aux = apply_block(p, cfg, cfg.block_kind(li), x, positions,
-                             layer_is_moe=layer_is_moe(cfg, li),
-                             q_chunk=q_chunk, kv_chunk=kv_chunk,
-                             causal_skip=causal_skip)
+    for li in head:
+        x, aux = run(x, [li])
+        aux_total = aux_total + aux
+    period_ckpt = remat and torch.is_grad_enabled()
+    for period in body:
+        x, aux = (checkpoint(run, x, period, use_reentrant=False) if period_ckpt
+                  else run(x, period))
+        aux_total = aux_total + aux
+    for li in tail:
+        x, aux = run(x, [li])
         aux_total = aux_total + aux
     return unembed(params, cfg, x), aux_total

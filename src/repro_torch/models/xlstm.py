@@ -8,9 +8,9 @@ are O(1) in sequence length.
 
 Simplifications vs. the paper (as in the reference): block-diagonal
 projections are dense per head; sLSTM omits the post-block projection
-factor, mLSTM uses projection factor 2.  The reference's ``remat_chunk``
-only changes what autodiff stashes, so inference here runs the sequential
-scan and gives the same numbers.
+factor, mLSTM uses projection factor 2.  sLSTM's ``remat_chunk``
+checkpoints each chunk of steps while autograd records; it changes what
+the backward stashes, not the numbers.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Leaves, const, matmul, normal, rms_norm, zeros
 
@@ -228,8 +229,14 @@ def slstm_state_init(batch: int, d_model: int, n_heads: int,
             "h": z()}
 
 
-def slstm_apply(params, x, state=None, *, n_heads: int):
-    """Exact sequential sLSTM (recurrent gate connections force a true scan)."""
+def slstm_apply(params, x, state=None, *, n_heads: int, remat_chunk: int = 0):
+    """Exact sequential sLSTM (recurrent gate connections force a true scan).
+
+    ``remat_chunk > 0`` (and S a multiple of it, longer than it): each chunk
+    of T steps is checkpointed, so the backward stashes per-chunk states
+    instead of per-step ones.  The recurrence itself cannot be
+    parallelized, so only the stash shrinks, not the depth.
+    """
     B, S, d = x.shape
     hd = d // n_heads
     if state is None:
@@ -239,21 +246,37 @@ def slstm_apply(params, x, state=None, *, n_heads: int):
     gx = gx.reshape(B, S, n_heads, 4 * hd)
     r_h = params.r_h.float()
 
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
-    hs = []
-    for t in range(S):
-        rec = torch.einsum("bhd,hdk->bhk", h, r_h)
-        g = gx[:, t] + rec                              # [B,H,4hd]
-        gi, gf, gz, go = torch.chunk(g, 4, dim=-1)
-        logf = F.logsigmoid(gf)
-        m_new = torch.maximum(logf + m, gi)
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        i_ = torch.exp(gi - m_safe)
-        f_ = torch.where(torch.isfinite(m), torch.exp(logf + m - m_safe), 0.0)
-        c = f_ * c + i_ * torch.tanh(gz)
-        n = f_ * n + i_
-        h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
-        m = m_new
-        hs.append(h)
-    y = matmul(torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype), params.w_out)
+    def steps(carry, gxc):
+        """The recurrence over gxc [B,T,H,4hd]: (carry, h [B,T,H,hd])."""
+        c, n, m, h = carry
+        hs = []
+        for t in range(gxc.shape[1]):
+            rec = torch.einsum("bhd,hdk->bhk", h, r_h)
+            g = gxc[:, t] + rec                             # [B,H,4hd]
+            gi, gf, gz, go = torch.chunk(g, 4, dim=-1)
+            logf = F.logsigmoid(gf)
+            m_new = torch.maximum(logf + m, gi)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            i_ = torch.exp(gi - m_safe)
+            f_ = torch.where(torch.isfinite(m), torch.exp(logf + m - m_safe), 0.0)
+            c = f_ * c + i_ * torch.tanh(gz)
+            n = f_ * n + i_
+            h = torch.sigmoid(go) * c / torch.clamp_min(n, 1.0)
+            m = m_new
+            hs.append(h)
+        return (c, n, m, h), torch.stack(hs, dim=1)
+
+    carry = (state["c"], state["n"], state["m"], state["h"])
+    T = min(remat_chunk, S) if remat_chunk else 0
+    if T and S % T == 0 and S > T and torch.is_grad_enabled():
+        hs = []
+        for i in range(S // T):
+            carry, h_c = checkpoint(steps, carry, gx[:, i * T:(i + 1) * T],
+                                    use_reentrant=False)
+            hs.append(h_c)
+        hs = torch.cat(hs, dim=1)
+    else:
+        carry, hs = steps(carry, gx)
+    c, n, m, h = carry
+    y = matmul(hs.reshape(B, S, d).to(x.dtype), params.w_out)
     return x + y, {"c": c, "n": n, "m": m, "h": h}

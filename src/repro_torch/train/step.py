@@ -1,0 +1,93 @@
+"""Loss and train-step builders: the JAX package's ``train/step.py`` in
+PyTorch.
+
+``make_train_step`` returns ``train_step(model, opt_state, batch) ->
+metrics``: the loss, its backward, and ``adamw_update`` applied to the
+model and the optimizer state in place (the port's counterpart of the
+reference's ``donate_argnums=(0, 1)``).  The MoE aux loss and the z-loss
+are folded in as the reference folds them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..models.config import ModelConfig
+from ..models.transformer import Model, forward
+from .optimizer import OptConfig, OptState, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: OptConfig = OptConfig()
+    aux_loss_weight: float = 0.01     # MoE load-balancing
+    z_loss_weight: float = 1e-4       # logit normalizer regularizer
+    remat: bool = True
+    q_chunk: int = 512
+    kv_chunk: int = 512
+    causal_skip: bool = False
+    tp_act: bool = False     # no effect on one card (the reference's TP sharding)
+    attn_remat: bool = False # recompute attention tiles in backward
+    flash_cv: bool = False   # flash_attention_cv's hand-written backward
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss_weight: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits [B,S,V] f32, labels [B,S] int.  Mean NLL over unmasked
+    positions, plus z-loss.  Returns (total, nll)."""
+    lse = torch.logsumexp(logits, dim=-1)                            # [B,S]
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]  # [B,S]
+    nll = lse - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = (nll * mask).sum() / denom
+    zl = ((lse * lse) * mask).sum() / denom
+    return loss + z_loss_weight * zl, loss
+
+
+def loss_fn(model: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, {"nll", "aux"})."""
+    logits, aux = forward(model, cfg, batch, remat=tcfg.remat,
+                          q_chunk=tcfg.q_chunk, kv_chunk=tcfg.kv_chunk,
+                          causal_skip=tcfg.causal_skip,
+                          attn_remat=tcfg.attn_remat, flash_cv=tcfg.flash_cv)
+    total, nll = cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                               tcfg.z_loss_weight)
+    total = total + tcfg.aux_loss_weight * aux
+    return total, {"nll": nll, "aux": aux}
+
+
+def value_and_grad(model: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                   tcfg: TrainConfig):
+    """(total, {"nll", "aux"}, {name: gradient}): the loss and its backward.
+    The parameters require grad only for the call."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            total, parts = loss_fn(model, cfg, batch, tcfg)
+            total.backward()
+        grads = {}
+        for name, p in params.items():
+            grads[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+    finally:
+        for p in params.values():
+            p.requires_grad_(False)
+    return total.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+    def train_step(model: Model, opt_state: OptState,
+                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        total, parts, grads = value_and_grad(model, cfg, batch, tcfg)
+        opt_metrics = adamw_update(tcfg.opt, model, grads, opt_state)
+        return {"loss": total, **parts, **opt_metrics}
+    return train_step

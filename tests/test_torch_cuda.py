@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, and its
-sessions and language models against the CPU, on a card.
+sessions, language models and training against the CPU, on a card.
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -308,6 +308,31 @@ def test_cuda_lm_reduced_matches_cpu(aid):
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = chip_smoke.lm_card_against_cpu(aid, seed=0)
     assert set(errs) == {"logits", "aux", "last", "dlogits", "caches", "dcaches"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aid", LM_ARCHS)
+def test_cuda_train_step_reduced_matches_cpu(aid):
+    """One train_step of a reduced config in float32 (TF32 off) on the card
+    against the CPU from the same weights and batch (remat; flash_cv on the
+    attention configs): the loss terms and every leaf of m and v, within
+    chip_smoke's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = chip_smoke.train_card_against_cpu(aid, seed=0)
+    assert "remat" in rec
+
+
+@pytest.mark.cuda
+def test_cuda_flash_cv_grads_match_cpu():
+    """flash_attention_cv's output and gradients at Qwen2-1.5B's attention
+    shape, float32, on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = chip_smoke.flash_cv_card_against_cpu(seed=0)
+    assert set(errs) == {"out", "dq", "dk", "dv"}
 
 
 def test_lm_entry_points_need_a_card(monkeypatch):

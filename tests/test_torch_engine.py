@@ -670,7 +670,14 @@ def test_port_imports_neither_jax_nor_reference():
             "src/repro_torch/configs/registry.py",
             "src/repro_torch/configs/qwen2_1_5b.py",
             "src/repro_torch/serving/decode.py",
-            "src/repro_torch/data/tokens.py"} <= names
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/train/__init__.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/distributed/__init__.py",
+            "src/repro_torch/distributed/checkpoint.py",
+            "src/repro_torch/distributed/watchdog.py",
+            "src/repro_torch/launch/train.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
