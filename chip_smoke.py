@@ -127,6 +127,18 @@ Phases, each printing one JSON line:
                update, overlay rebuild and compaction seconds, peak device
                memory
 
+  cost         the dry run (``repro_torch.launch.dryrun.run_cell``: the
+               ATen ops on the meta device, no card) of the calls the lm
+               and train phases time, at their shapes: Qwen2-1.5B's bf16
+               prefill of 8 x 2,048, its decode step over 2,081 cached
+               positions, its train step of 4 x 2,048 (remat + flash_cv)
+               and xLSTM-125M's train step of 8 x 128; counted one after
+               another in this process, between the graph phases and lm;
+               each cell's bound (H100 SXM peaks), ATen ops, useful-FLOP
+               ratio and argument + temp bytes (the temp peak extrapolated
+               over the layer stack, a lower bound, where
+               ``temp_peak_exact`` is false), and the seconds the phase
+               added
   lm           the language-model serving stack (no hand-written kernel
                on its path; the reference computes it outside Pallas), TF32
                off: all ten reduced configs in float32 on the card against
@@ -137,10 +149,12 @@ Phases, each printing one JSON line:
                dtypes kept); Qwen2-1.5B in bf16 serving 8 prompts of 2,048
                tokens, then 32 greedy tokens (prefill seconds, decode ms per
                token, peak memory, one step under torch.profiler: host
-               launches and the device's idle share, beside the bounds from
-               the shapes); and the nine other configs at published width
-               with depth cut (``LM_CUTS``), each prefilled and decoding 8
-               tokens; the graph kernels must not launch
+               launches and the device's idle share; beside each time and
+               peak the cost phase's record: bound, useful-FLOP ratio,
+               ATen ops, argument + temp bytes); and the nine other
+               configs at published width with depth cut (``LM_CUTS``),
+               each prefilled and decoding 8 tokens; the graph kernels
+               must not launch
   train        language-model training (no hand-written kernel on its
                path either), TF32 off: all ten reduced configs in float32,
                one train_step on the card against the CPU (remat; flash_cv
@@ -151,10 +165,11 @@ Phases, each printing one JSON line:
                and wk at fan-in d): every gradient leaf equal across remat,
                no remat, flash_cv and attn_remat; Qwen2-1.5B in bf16, 5
                steps of 4 x 2,048 tokens (step time, tokens/s, peak
-               memory, one profiled step, the bounds from the shapes); and
-               the train CLI on xLSTM-125M at its published size, run
-               uninterrupted and killed after its first commit and
-               resumed (the same losses, the same checkpoint layout)
+               memory, one profiled step, beside the cost phase's
+               record); and the train CLI on xLSTM-125M at its published
+               size, run uninterrupted (beside its record) and killed after
+               its first commit and resumed (the same losses, the same
+               checkpoint layout)
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
@@ -186,8 +201,6 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-FP32_OPS_PER_S = 67e12        # H100 SXM peak outside the tensor cores
 RECORD: dict = {}
 T0 = time.perf_counter()
 
@@ -398,11 +411,12 @@ def timing_record(fn, plain, nbytes: int, nops: int, worst: int,
     """The kernel's own device time (CUDA-graph replay), the time per call
     through the Python wrapper (back to back, as a caller pays it), the
     plain version's time, and the bound."""
+    from repro_torch.launch.cost_analysis import H100_F32_FLOPS_PER_S, HBM_BW
     ms = graph_time_ms(fn)
     call_ms = cuda_time_ms(fn, reps=call_reps, warmup=100)
     plain_ms = cuda_time_ms(plain, reps=300)
-    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops_ms = nops / FP32_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / HBM_BW * 1e3
+    bound_ops_ms = nops / H100_F32_FLOPS_PER_S * 1e3
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bytes": nbytes,
             "ops": nops, "bound_ms": max(bound_bytes_ms, bound_ops_ms),
             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
@@ -485,10 +499,11 @@ def kernel_fused_frontier(rng, Np: int) -> tuple:
             paper = (inv, args, out)
         if name == "mapreduce":
             # the step at MapReduceMP's shape: device time beside its bound
+            from repro_torch.launch.cost_analysis import H100_F32_FLOPS_PER_S, HBM_BW
             nbytes, _, nops = step_bytes_ops(inv, args, got)
             lanes4 = {"ms": graph_time_ms(lambda: ff.frontier_step_cuda(inv, *args, out)),
-                      "bytes": nbytes, "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                                       nops / FP32_OPS_PER_S) * 1e3}
+                      "bytes": nbytes, "bound_ms": max(nbytes / HBM_BW,
+                                                       nops / H100_F32_FLOPS_PER_S) * 1e3}
             del inv, args, out, got
     inv, args, out = paper
     nbytes, parts, nops = step_bytes_ops(inv, args, out)
@@ -2248,7 +2263,6 @@ LM_RTOL, LM_ATOL, LM_CONV_RTOL = 1e-4, 1e-3, 2.0 ** -7
 # so with wq and wk at fan-in d (see lm_qwen2_consistency) the relations
 # hold to LM_CONSIST of the largest logit.
 LM_CONSIST = 1e-4
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 # every other published config, at its published width: (layers kept,
 # batch, prompt length).  The layers are the fewest that hold each of the
 # config's block kinds.
@@ -2264,6 +2278,8 @@ LM_CUTS = {
     "recurrentgemma_9b": (3, 2, 4096),        # one period r, r, local; past the window
 }
 LM_DECODE = 8
+# Qwen2-1.5B's bf16 serving: batch, prompt length, greedy tokens
+LM_SERVE = (8, 2048, 32)
 
 
 def free_cuda() -> None:
@@ -2487,9 +2503,12 @@ def lm_serve(aid: str, cfg, B: int, S: int, new: int, seed: int, *,
     last, caches = prefill(model, cfg, batch)
     torch.cuda.synchronize()
     rec["prefill_s"] = time.perf_counter() - t0
+    rec["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated()
     rec["prefill_tokens_per_s"] = B * S / rec["prefill_s"]
     caches = grow_caches(cfg, caches, new + bool(profile_name))
     rec["cache_bytes"] = lm_cache_bytes(caches)
+    rec["decode_cache_positions"] = S + new + bool(profile_name)
+    torch.cuda.reset_peak_memory_stats()
     audio = cfg.family == FAMILY_AUDIO
     gen = torch.Generator(device="cuda").manual_seed(seed)
     nxt = lambda lg: ({"frame_embeds": torch.randn(B, cfg.frontend_dim(), generator=gen,
@@ -2514,7 +2533,9 @@ def lm_serve(aid: str, cfg, B: int, S: int, new: int, seed: int, *,
     rec["decode_ms_median"] = float(np.median(times))
     rec["decode_ms_quartiles"] = [float(q) for q in np.percentile(times, [25, 75])]
     rec["decode_ms_min_max"] = [min(times), max(times)]
-    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["decode_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["max_memory_allocated"] = max(rec["prefill_max_memory_allocated"],
+                                      rec["decode_max_memory_allocated"])
     if profile_name:
         step = lambda: decode_step(model, cfg, caches, inp, S + new)
         rec["profiled_step"] = lm_profile_step(step, profile_name)
@@ -2523,28 +2544,21 @@ def lm_serve(aid: str, cfg, B: int, S: int, new: int, seed: int, *,
     return rec
 
 
-def lm_qwen2_bounds(cfg, rec: dict) -> None:
-    """The least time the card could take for the served work, from the
-    shapes (H100 SXM peaks): a decode step reads the weights and the whole
-    cache once; the prefill's projections run on the bf16 tensor cores and
-    its attention as float32 products over the whole S x S (as the
-    reference computes it, every chunk pair), each over its own peak."""
-    B, S, L = rec["batch"], rec["prompt"], cfg.n_layers
-    H, hd = cfg.n_heads, cfg.hd
-    step_bytes = rec["param_bytes"] + rec["cache_bytes"]
-    rec["decode_bound_ms"] = step_bytes / HBM_BYTES_PER_S * 1e3
-    rec["decode_bound_by"] = "bytes"
-    body = rec["n_params"] - cfg.vocab * cfg.d_model
-    proj_ops = 2 * body * B * S
-    attn_ops = 2 * 2 * B * H * S * S * hd * L
-    ops_s = proj_ops / BF16_OPS_PER_S + attn_ops / FP32_OPS_PER_S
-    bytes_s = (rec["param_bytes"] + rec["cache_bytes"]) / HBM_BYTES_PER_S
-    rec["prefill_ops"] = {"projections_bf16": proj_ops, "attention_f32": attn_ops}
-    rec["prefill_bound_s"] = max(ops_s, bytes_s)
-    rec["prefill_bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+def against_record(cell: dict, measured_s: float, peak_bytes: int) -> dict:
+    """A measured time and peak beside the dry run's record of the same
+    call (``phase_cost``): its bound (H100 SXM peaks), the share of it the
+    card reached, the useful-FLOP ratio, and argument + temp bytes against
+    ``torch.cuda.max_memory_allocated`` (recorded, not gated)."""
+    r, i = cell["roofline"], cell["info"]
+    return {"measured_s": measured_s, "bound_s": r["t_bound_s"],
+            "bound_by": "operations" if r["dominant"] == "compute" else "bytes",
+            "share_of_bound": r["t_bound_s"] / measured_s,
+            "useful_flops_ratio": cell["useful_flops_ratio"], "aten_ops": i["aten_ops"],
+            "argument_plus_temp_bytes": i["argument_size_in_bytes"] + i["temp_size_in_bytes"],
+            "max_memory_allocated": peak_bytes}
 
 
-def phase_lm(seed: int) -> None:
+def phase_lm(seed: int, cost: dict) -> None:
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2556,10 +2570,14 @@ def phase_lm(seed: int) -> None:
     t_reduced = time.perf_counter() - t0
     consistency = lm_qwen2_consistency(seed)
     cfg = ARCHS["qwen2_1_5b"]
-    serving = lm_serve("qwen2_1_5b", cfg, 8, 2048, 32, seed, warm=True,
+    serving = lm_serve("qwen2_1_5b", cfg, *LM_SERVE, seed, warm=True,
                        profile_name="qwen2_1_5b")
     serving["published_layers"] = cfg.n_layers
-    lm_qwen2_bounds(cfg, serving)
+    serving["against_dry_run"] = {
+        "prefill": against_record(cost["qwen2_prefill"], serving["prefill_s"],
+                                  serving["prefill_max_memory_allocated"]),
+        "decode": against_record(cost["qwen2_decode"], serving["decode_ms_median"] / 1e3,
+                                 serving["decode_max_memory_allocated"])}
     published = {}
     for aid, (layers, B, S) in LM_CUTS.items():
         cut = dataclasses.replace(ARCHS[aid], n_layers=layers)
@@ -2603,6 +2621,8 @@ TRAIN_CONSIST = 1e-3
 # a commit every 4, not 30 with one every 10, which took 385 s.
 TRAIN_RESUME = 1e-3
 TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 8, 4
+# Qwen2-1.5B's bf16 steps: batch, sequence length
+TRAIN_BF16 = (4, 2048)
 TRAIN_CLI = ["--arch", "xlstm-125m", "--steps", str(TRAIN_CLI_STEPS), "--batch", "8",
              "--seq", "128", "--ckpt-every", str(TRAIN_CLI_EVERY), "--log-every", "1"]
 
@@ -2768,13 +2788,14 @@ def profile_train_step(step, name: str) -> dict:
             "kernels_by_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
 
 
-def train_qwen2_bf16(seed: int, B: int = 4, S: int = 2048, steps: int = 5) -> dict:
+def train_qwen2_bf16(seed: int, B: int = TRAIN_BF16[0], S: int = TRAIN_BF16[1],
+                     steps: int = 5) -> dict:
     """Qwen2-1.5B, the published config at full depth in bf16: ``steps``
     train steps of B x S tokens from the token pipeline with
     ``TrainConfig(remat=True, flash_cv=True)``; the loss, grad norm and every
     parameter finite, ``step == steps``, the parameters moved.  Step times
-    (host clock, the loss's ``.item()`` as the barrier), peak memory, one
-    more step under torch.profiler, and the bounds from the shapes.
+    (host clock, the loss's ``.item()`` as the barrier), peak memory and
+    one more step under torch.profiler.
 
     The reference's init at full depth (sharp attention, see
     lm_qwen2_consistency) gives gradients of 1e17 to 5e18, whose squares
@@ -2839,19 +2860,6 @@ def train_qwen2_bf16(seed: int, B: int = 4, S: int = 2048, steps: int = 5) -> di
            "max_memory_allocated": peak, "resident_before_bytes": resident,
            "leaves_moved": len(moved), "leaves": n_leaves,
            "elements_changed_by_dtype": changed, "profiled_step": prof}
-    # bounds from the shapes (H100 SXM peaks): the bf16 products (6 N T,
-    # plus the remat's second forward of the body, 2 N_body T) on the
-    # tensor cores, and the float32 attention over the whole S x S (every
-    # chunk pair, as the reference computes it): forward, remat recompute
-    # and flash_cv's backward, 4.5 x 28 x 4 B S^2 H hd, outside them
-    T = B * S
-    n_body = n_params - cfg.vocab * cfg.d_model
-    mm = 6 * n_params * T + 2 * n_body * T
-    attn = 4.5 * cfg.n_layers * 4 * B * S * S * cfg.n_heads * cfg.hd
-    rec["ops"] = {"products_bf16": mm, "attention_f32": attn,
-                  "peaks": {"bf16_ops_per_s": BF16_OPS_PER_S, "f32_ops_per_s": FP32_OPS_PER_S}}
-    rec["step_bound_ms"] = (mm / BF16_OPS_PER_S + attn / FP32_OPS_PER_S) * 1e3
-    rec["step_bound_by"] = "operations"
     del model, state, batches
     free_cuda()
     return rec
@@ -2891,9 +2899,11 @@ def train_cli(workdir: Path) -> dict:
     The losses of the steps both took agree to TRAIN_RESUME, and the final
     checkpoints have the same npz keys, shapes and dtypes."""
     a, b = workdir / "ckpt_a", workdir / "ckpt_b"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out_a = parse_train_log(run_train_cli(TRAIN_CLI + ["--ckpt-dir", str(a)]))
     t_a = time.perf_counter() - t0
+    peak_a = torch.cuda.max_memory_allocated()
     n, every = TRAIN_CLI_STEPS, TRAIN_CLI_EVERY
     check(not out_a["resumed"] and len(out_a["losses"]) == n, "train CLI: run A")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -2928,7 +2938,8 @@ def train_cli(workdir: Path) -> dict:
             files[side] = {k: (z[k].shape, str(z[k].dtype)) for k in z.files}
     check(files["a"] == files["b"], "train CLI: final checkpoints differ in keys, shapes or dtypes")
     check(any(dt == "|V2" for _, dt in files["a"].values()), "train CLI: no bf16 leaf stored")
-    return {"argv": TRAIN_CLI, "run_a_s": t_a, "run_b_killed_after_s": t_kill,
+    return {"argv": TRAIN_CLI, "run_a_s": t_a, "run_a_max_memory_allocated": peak_a,
+            "run_b_killed_after_s": t_kill,
             "run_b_resume_s": t_b, "committed_at_kill": committed, "resumed_from": last,
             "max_loss_diff": max(diffs), "steps_compared": len(common),
             "losses_a": out_a["losses"], "median_step_ms_a": out_a["median_step_ms"],
@@ -2937,7 +2948,7 @@ def train_cli(workdir: Path) -> dict:
             "straggler_steps_b": out_b["straggler_steps"], "npz_leaves": len(files["a"])}
 
 
-def phase_train(seed: int) -> None:
+def phase_train(seed: int, cost: dict) -> None:
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2950,12 +2961,16 @@ def phase_train(seed: int) -> None:
     flash_cv = flash_cv_card_against_cpu(seed)
     consistency = train_qwen2_consistency(seed)
     bf16 = train_qwen2_bf16(seed)
+    bf16["against_dry_run"] = against_record(
+        cost["qwen2_train"], bf16["step_ms_median_2_5"] / 1e3, bf16["max_memory_allocated"])
     (ROOT / "build").mkdir(exist_ok=True)
     workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-", dir=ROOT / "build"))
     try:
         cli = train_cli(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    cli["against_dry_run"] = against_record(
+        cost["xlstm_train"], cli["median_step_ms_a"] / 1e3, cli["run_a_max_memory_allocated"])
     launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
     check(not any(launched.values()), f"train: a graph kernel launched {launched}")
     emit("train", tolerances={"loss_rtol": TRAIN_LOSS_RTOL, "rtol": TRAIN_RTOL,
@@ -2965,6 +2980,60 @@ def phase_train(seed: int) -> None:
          flash_cv_card_vs_cpu=flash_cv, qwen2_f32_consistency=consistency,
          qwen2_bf16=bf16, cli=cli, graph_kernel_launches=launched,
          seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# cost: the dry run (repro_torch.launch.dryrun) of the calls the lm and
+# train phases time, at their shapes, on the meta device (no card)
+# ---------------------------------------------------------------------------
+
+# name -> (arch, (kind, seq, batch), TrainConfig fields): Qwen2-1.5B's bf16
+# prefill and decode step (the caches grown past the prompt by the greedy
+# tokens and the profiled step), its bf16 train step, and the train CLI's
+# xLSTM-125M step
+COST_CELLS = {
+    "qwen2_prefill": ("qwen2_1_5b", ("prefill", LM_SERVE[1], LM_SERVE[0]), {}),
+    "qwen2_decode": ("qwen2_1_5b", ("decode", LM_SERVE[1] + LM_SERVE[2] + 1, LM_SERVE[0]),
+                     {}),
+    "qwen2_train": ("qwen2_1_5b", ("train", TRAIN_BF16[1], TRAIN_BF16[0]),
+                    {"remat": True, "flash_cv": True}),
+    "xlstm_train": ("xlstm_125m", ("train", int(TRAIN_CLI[TRAIN_CLI.index("--seq") + 1]),
+                                   int(TRAIN_CLI[TRAIN_CLI.index("--batch") + 1])),
+                    {"remat": True}),
+}
+
+
+def cost_args(name: str) -> tuple:
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.train.step import TrainConfig
+    arch, shape, kw = COST_CELLS[name]
+    return arch, ShapeSpec(name, *shape), TrainConfig(**kw)
+
+
+def phase_cost() -> dict:
+    """The dry-run record of every COST_CELLS cell, counted here on the
+    host (no card): each cell's bound, ATen ops, useful-FLOP ratio and
+    argument + temp bytes.  ``added_s`` is the time this phase added to the
+    script."""
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    cells = {n: run_cell(*cost_args(n)) for n in COST_CELLS}
+    added = time.perf_counter() - t0
+    out = {}
+    for n, c in cells.items():
+        check(c["status"] == "ok" and c["roofline"]["t_bound_s"] > 0, f"cost {n}: {c}")
+        i = c["info"]
+        out[n] = {"arch": c["arch"], "kind": c["kind"], "batch": c["batch"], "seq": c["seq"],
+                  **{k: c["roofline"][k] for k in ("t_bound_s", "t_compute_s", "t_memory_s",
+                                                   "dominant")},
+                  "flops_by_class": i["flops_by_class"], "bytes": i["bytes_accessed"],
+                  "aten_ops": i["aten_ops"], "useful_flops_ratio": c["useful_flops_ratio"],
+                  "argument_plus_temp_bytes": (i["argument_size_in_bytes"]
+                                               + i["temp_size_in_bytes"]),
+                  "temp_peak_exact": c["depth"]["temp_peak_exact"],
+                  "fits": c["fits"], "count_s": c["count_s"]}
+    emit("cost", cells=out, added_s=added)
+    return cells
 
 
 def main() -> int:
@@ -2988,6 +3057,7 @@ def main() -> int:
     smi = smi_line()
     # the card's SM count and top SM clock beside the peaks the resource
     # profiler's roofline assumes (obs/profile.py)
+    from repro_torch.launch import cost_analysis
     from repro_torch.obs import profile
     props = torch.cuda.get_device_properties(0)
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -2996,7 +3066,9 @@ def main() -> int:
          clocks_max_sm=smi_line("clocks.max.sm"),
          roofline={"sms": profile.H100_SMS, "max_sm_clock_hz": profile.H100_MAX_SM_CLOCK_HZ,
                    "int32_ops_per_s": profile.H100_INT32_OPS_PER_S,
-                   "hbm_bytes_per_s": profile.H100_HBM_BYTES_PER_S})
+                   "hbm_bytes_per_s": profile.H100_HBM_BYTES_PER_S,
+                   "dry_run_flops_per_s": cost_analysis.PEAK_FLOPS},
+         total_memory=props.total_memory)
 
     t0 = time.perf_counter()
     info = build.build_all()
@@ -3027,8 +3099,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del pg, sess, tsess, msess, sessions, oracle, served, tserved, mserved
-    phase_lm(args.seed)
-    phase_train(args.seed)
+    cost = phase_cost()
+    phase_lm(args.seed, cost)
+    phase_train(args.seed, cost)
 
     # the step's launches on each engine's serving path (path, traditional,
     # mapreduce, the profiled sessions, the front end, the three engines

@@ -677,7 +677,10 @@ def test_port_imports_neither_jax_nor_reference():
             "src/repro_torch/distributed/__init__.py",
             "src/repro_torch/distributed/checkpoint.py",
             "src/repro_torch/distributed/watchdog.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/op_cost.py",
+            "src/repro_torch/launch/cost_analysis.py",
+            "src/repro_torch/launch/dryrun.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
