@@ -55,6 +55,18 @@ Phases, each printing one JSON line:
                fill against cap; Q5 gated to m_limit=2 under MAX-YIELD;
                submit_many of the four queries (the sequential drain)
                equal to the per-query results
+  mesh         MapReduceMP on multi-shard part meshes of the same graph:
+               four one-mapper shards on cuda:0, two shards of two on
+               cuda:0, and the mappers spread over distinct cards when
+               there are two or more (``meshes_run`` names those that
+               ran); each serves the path's runs and the gated Q5 on a
+               fresh session, equal to the mapreduce phase's one-shard
+               session on answers, iterations, yield counters and loads,
+               and to the oracle; fused_frontier launches equal iterations
+               x shards; warm Q5 on the mesh and on one shard in turns
+               (median of 5), the shuffle's bytes per iteration between
+               shards and between cards, peak memory per device and
+               whether each pair of cards has peer access
   cli          ``python -m repro_torch.launch.serve`` in-process at
                ``--scale 20`` with ``--verify``, for the mapreduce and opat
                engines (opat with ``--metrics-out`` and ``--trace-out``:
@@ -1062,8 +1074,12 @@ def phase_mapreduce(pg, oracle) -> tuple:
     check(launches > 0, "the mapreduce path launched no fused_frontier kernel")
     check(iters == sess.engine.batched_iters - it0,
           f"mapreduce: summed n_iterations {iters} != engine count")
-    check(launches == iters,
-          f"mapreduce: fused_frontier launches {launches} != summed iterations {iters}")
+    # one launch per shard an iteration: the default mesh is one shard of
+    # four lanes on one card
+    shards = len(sess.engine.mesh.shards)
+    check(launches == iters * shards,
+          f"mapreduce: fused_frontier launches {launches} != summed iterations "
+          f"{iters} x {shards} shards")
     queries = []
     for dq, budget, res, lat in served:
         check(verify(res, oracle[dq.name], budget),
@@ -1089,11 +1105,12 @@ def phase_mapreduce(pg, oracle) -> tuple:
                  "n_iterations": res.n_iterations, "n_answers": int(res.answers.shape[0]),
                  "completed_from": res.completed_from.tolist(),
                  "spawned_from": res.spawned_from.tolist(),
+                 "loads": mesh_loads(res.stats),
                  "fused_frontier_launches": build.LAUNCHES[NAME]}
     check(np.array_equal(res.answers, oracle[q5.name]),
           "mapreduce m_limit=2 max-yield Q5 disagrees with the oracle")
-    check(gated_rec["fused_frontier_launches"] == res.n_iterations,
-          f"gated mapreduce: launches != iterations: {gated_rec}")
+    check(gated_rec["fused_frontier_launches"] == res.n_iterations * shards,
+          f"gated mapreduce: launches != iterations x shards: {gated_rec}")
 
     # submit_many drains the same runs one query at a time
     budgets = [b for _, b in runs]
@@ -1108,9 +1125,11 @@ def phase_mapreduce(pg, oracle) -> tuple:
               and r.reports[0].extra["n_iterations"]
               == single.reports[0].extra["n_iterations"],
               f"mapreduce submit_many {dq.name} differs from its submit")
-    check(build.LAUNCHES[NAME] == drain_iters,
-          f"mapreduce submit_many: launches {build.LAUNCHES[NAME]} != iterations {drain_iters}")
+    check(build.LAUNCHES[NAME] == drain_iters * shards,
+          f"mapreduce submit_many: launches {build.LAUNCHES[NAME]} != iterations "
+          f"{drain_iters} x {shards} shards")
     emit("mapreduce", P=pg.k, cap=cfg.cap, quota=sess.engine.quota,
+         mesh=str(sess.engine.mesh),
          fused_frontier_launches=launches, iterations=iters,
          cold_latency_s=served[0][3], warm_latency_s=served[-1][3],
          max_memory_allocated=peak, resident_before_bytes=resident,
@@ -1120,8 +1139,130 @@ def phase_mapreduce(pg, oracle) -> tuple:
                       "fused_frontier_launches": build.LAUNCHES[NAME],
                       "cold_loads": report.load_stats.cold_loads,
                       "warm_loads": report.load_stats.warm_loads})
-    return launches, sess, served
+    return launches, sess, served, (res, gated_rec)
 
+
+MESH_ROUNDS = 5     # warm Q5 rounds per mesh in the mesh phase
+
+
+def mesh_loads(st) -> list:
+    """A MapReduceMP run's load counts: cold, warm, bytes staged cold."""
+    return [st.cold_loads, st.warm_loads, st.bytes_cold]
+
+
+def mesh_record(res) -> tuple:
+    """What the mesh phase holds equal across meshes: answers, iterations,
+    yield counters and loads of one served query."""
+    x = res.reports[0].extra
+    return (res.answers.tobytes(), x["n_iterations"], x["completed_from"].tolist(),
+            x["spawned_from"].tolist(), mesh_loads(res.reports[0].stats))
+
+
+def sync_all() -> None:
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def phase_mesh(pg, oracle, one, served, gated) -> int:
+    """MapReduceMP on multi-shard part meshes: four one-mapper shards on
+    cuda:0, two shards of two on cuda:0, and the mappers spread over
+    distinct cards when there are two or more.  Each serves the path's
+    runs and the gated m_limit=2 MAX-YIELD Q5 on a fresh session, held to
+    the mapreduce phase's session on the default mesh (``one``,
+    ``served``, ``gated``; one shard on one card) on every field and to
+    the oracle; then warm Q5 on the mesh and on ``one`` in turns.
+    Returns the step's launches."""
+    from repro_torch.core import (GraphSession, MapReduceMPEngine, generate_plan,
+                                  make_part_mesh)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    t_phase = time.perf_counter()
+    cfg = one.config
+    dqs, runs = path_runs(pg)
+    q5 = dqs[1]
+    meshes = {"4x1": make_part_mesh(4, devices=["cuda:0"] * 4),
+              "2x2": make_part_mesh(4, devices=["cuda:0"] * 2)}
+    if torch.cuda.device_count() >= 2:
+        meshes["cards"] = make_part_mesh(4)
+    gated_res, gated_rec = gated
+    total, out = 0, {}
+    for name, mesh in meshes.items():
+        sync_all()
+        for d in mesh.devices:
+            torch.cuda.reset_peak_memory_stats(d)
+        sess = GraphSession(pg=pg, engine="mapreduce", heuristic="max-sn",
+                            config=cfg, device="cuda", mesh=mesh)
+        build.LAUNCHES.clear()
+        got = serve(sess, runs)
+        sync_all()
+        launches = build.LAUNCHES[NAME]
+        iters = sum(res.reports[0].extra["n_iterations"] for _, _, res, _ in got)
+        shards = len(mesh.shards)
+        check(launches == iters * shards > 0,
+              f"mesh {name}: fused_frontier launches {launches} != "
+              f"{iters} iterations x {shards} shards")
+        for (dq, budget, res, _), (_, _, want, _) in zip(got, served):
+            check(verify(res, oracle[dq.name], budget),
+                  f"mesh {name} {dq.name} (budget {budget}) disagrees with the oracle")
+            check(mesh_record(res) == mesh_record(want),
+                  f"mesh {name} {dq.name} (budget {budget}) differs from one shard")
+        gated_eng = MapReduceMPEngine(pg, cfg, m_limit=2, heuristic="max-yield",
+                                      store=sess.store, mesh=mesh)
+        build.LAUNCHES.clear()
+        gres = gated_eng.run(generate_plan(q5.disjuncts[0], pg.graph, sess.catalog))
+        sync_all()
+        check(np.array_equal(gres.answers, oracle[q5.name])
+              and np.array_equal(gres.answers, gated_res.answers)
+              and gres.n_iterations == gated_rec["n_iterations"]
+              and gres.completed_from.tolist() == gated_rec["completed_from"]
+              and gres.spawned_from.tolist() == gated_rec["spawned_from"]
+              and mesh_loads(gres.stats) == gated_rec["loads"],
+              f"mesh {name}: gated max-yield Q5 differs from one shard")
+        check(build.LAUNCHES[NAME] == gres.n_iterations * shards,
+              f"mesh {name}: gated launches {build.LAUNCHES[NAME]} != iterations x shards")
+        launches += build.LAUNCHES[NAME]
+        peaks = {str(d): torch.cuda.max_memory_allocated(d) for d in mesh.devices}
+        # warm Q5 on the default mesh (one shard on one card) and on the
+        # mesh, in turns
+        warm = warm_rounds({"default": one, "mesh": sess}, q5, MESH_ROUNDS)
+        total += launches
+        out[name] = {"mesh": str(mesh), "shards": shards, "lanes": list(mesh.lanes),
+                     "devices": [str(d) for d in mesh.devices],
+                     "peer_access": mesh.peer_access(),
+                     "iterations": iters, "fused_frontier_launches": launches,
+                     "gated_iterations": gres.n_iterations,
+                     "shuffle_bytes_per_iteration": sess.engine.shuffle_bytes(),
+                     "warm_q5_s": warm["mesh"]["median_s"],
+                     "warm_q5_default_s": warm["default"]["median_s"],
+                     "warm_q5": warm,
+                     "max_memory_allocated": peaks,
+                     "queries": [{"query": dq.name, "max_answers": b,
+                                  "iterations": res.reports[0].extra["n_iterations"],
+                                  "latency_s": t} for dq, b, res, t in got]}
+        del sess, gated_eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("mesh", device_count=torch.cuda.device_count(), meshes_run=list(meshes),
+         default_mesh=str(one.engine.mesh),
+         distinct_cards=len(meshes) > 2, meshes=out,
+         added_s=time.perf_counter() - t_phase)
+    return total
+
+
+
+def mesh_alone(scale: float = 200.0, seed: int = 0) -> None:
+    """The build, the path's graph and oracle, then the mapreduce and mesh
+    phases alone: ``python -c "import chip_smoke as c; c.mesh_alone()"``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.oracle import match_disjunctive
+    from repro_torch.kernels import build
+    build.build_all()
+    pg = phase_graph(scale, seed)
+    dqs, _ = path_runs(pg)
+    oracle = {dq.name: match_disjunctive(pg.graph, dq, q_pad=8) for dq in dqs}
+    _, sess, served, gated = phase_mapreduce(pg, oracle)
+    phase_mesh(pg, oracle, sess, served, gated)
 
 def phase_cli(workdir: Path) -> None:
     """The port's serving CLI in this process, as a user runs it: in RAM on
@@ -1180,8 +1321,11 @@ def phase_cli(workdir: Path) -> None:
 
 
 def engine_loops(engine) -> int:
-    """Evaluator loops the engine has run: single-partition and batched."""
-    return getattr(engine, "inner_iters", 0) + engine.batched_iters
+    """Step launches the engine has made: its single-partition and batched
+    evaluator loops, or MapReduceMP's iterations x shards (the iterations
+    on one card)."""
+    return getattr(engine, "inner_iters", 0) + getattr(engine, "step_launches",
+                                                       engine.batched_iters)
 
 
 def warm_rounds(sessions, dq, rounds: int = 12) -> dict:
@@ -3086,7 +3230,8 @@ def main() -> int:
         tsess, tserved = phase_traditional(pg, oracle)
         sessions = {"opat": sess, "traditional": tsess}
         phase_shared(sessions, oracle, {"opat": served, "traditional": tserved})
-        mlaunches, msess, mserved = phase_mapreduce(pg, oracle)
+        mlaunches, msess, mserved, mgated = phase_mapreduce(pg, oracle)
+        xlaunches = phase_mesh(pg, oracle, msess, mserved, mgated)
         phase_cli(workdir)
         phase_profile({**sessions, "mapreduce": msess}, served[1][0])
         plaunches = phase_metrics(pg, {**sessions, "mapreduce": msess},
@@ -3098,18 +3243,18 @@ def main() -> int:
         ulaunches = phase_mutation(pg, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    del pg, sess, tsess, msess, sessions, oracle, served, tserved, mserved
+    del pg, sess, tsess, msess, sessions, oracle, served, tserved, mserved, mgated
     cost = phase_cost()
     phase_lm(args.seed, cost)
     phase_train(args.seed, cost)
 
     # the step's launches on each engine's serving path (path, traditional,
-    # mapreduce, the profiled sessions, the front end, the three engines
-    # out of core, the repartitioned OPAT session, the mutable sessions),
-    # each counted from 0 in its own phase
+    # mapreduce, its meshes, the profiled sessions, the front end, the three
+    # engines out of core, the repartitioned OPAT session, the mutable
+    # sessions), each counted from 0 in its own phase
     step_launches = (launches + RECORD["traditional"]["fused_frontier_launches"]
-                     + mlaunches + plaunches + flaunches + olaunches + rlaunches
-                     + ulaunches)
+                     + mlaunches + xlaunches + plaunches + flaunches + olaunches
+                     + rlaunches + ulaunches)
     sources = {
         "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", step_launches),
         "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",

@@ -9,8 +9,10 @@ Public API of this slice:
   EngineConfig / make_partition_evaluator — the evaluator (core/engine.py)
   OPATEngine                           — One Partition At a Time serving
   TraditionalMPEngine                  — p partitions per iteration (Sec. 8)
-  MapReduceMPEngine                    — map/shuffle/reduce (Sec. 9), P lanes
-                                         of one device
+  MapReduceMPEngine                    — map/shuffle/reduce (Sec. 9) on a
+                                         part mesh
+  PartMesh / make_part_mesh            — the mesh's shards: devices and
+                                         the mapper ids each holds
   QueryScheduler / ScheduleReport      — shared-load multi-query serving
   PartitionStore / LoadStats           — device residency: LRU cache,
                                          pins, side-stream prefetch; with
@@ -36,6 +38,7 @@ from .heuristics import (ALL_HEURISTICS, MAX_SN, MAX_YIELD, MAX_YIELD_SHARED,
                          MIN_SN, RANDOM_SN, SHARED_HEURISTICS, rank_partitions,
                          rank_partitions_shared)
 from .mapreduce_mp import MapReduceMPEngine, MapReduceMPResult
+from .mesh import PartMesh, PartShard, default_part_mesh, make_part_mesh
 from .metrics import RunStats, l_ideal_for_plan, validate_run_residency
 from .opat import OPATEngine, OPATResult, absorb_eval_outputs
 from .oracle import match_disjunctive, match_query
@@ -74,6 +77,7 @@ __all__ = [
     "QueryScheduler", "ScheduleReport", "batch_bucket",
     "TraditionalMPEngine", "TraditionalMPResult",
     "MapReduceMPEngine", "MapReduceMPResult",
+    "PartMesh", "PartShard", "default_part_mesh", "make_part_mesh",
     "GraphSession", "QueryResult", "BindingBatch", "QueryState",
     "LoadStats", "PartitionStore", "StoreEntry",
 ]

@@ -60,6 +60,7 @@ from .engine import EngineConfig, resolve_device
 from .graph import Graph, PartitionedGraph, build_partitions
 from .heuristics import MAX_SN
 from .mapreduce_mp import MapReduceMPEngine
+from .mesh import PartMesh
 from .metrics import RunStats
 from .opat import OPATEngine
 from .partition import partition_graph, partition_quality
@@ -105,8 +106,11 @@ class GraphSession:
     """One partitioned graph, one engine, many queries.
 
     ``engine`` is ``"opat"``, ``"traditional"`` (with ``processors``
-    partitions per iteration) or ``"mapreduce"`` (one lane per partition
-    on the one device, the session's ``heuristic`` fixed at construction).
+    partitions per iteration) or ``"mapreduce"`` (one mapper per
+    partition, the session's ``heuristic`` fixed at construction), whose
+    mappers ``mesh`` (core/mesh.py) spreads over devices; None is
+    ``default_part_mesh`` on the session's device (one shard of k lanes on
+    one card).
     ``cache_parts`` / ``cache_bytes`` size the store's LRU device cache
     (None = unbounded); ``prefetch`` enables OPAT's runner-up staging.
     Pass ``pg`` to reuse an existing ``PartitionedGraph``.  ``device=None``
@@ -143,7 +147,8 @@ class GraphSession:
                  catalog: Optional[Catalog] = None,
                  tracer: Optional[Any] = None,
                  device: Union[None, str, torch.device] = None,
-                 profiler: Optional[Any] = None):
+                 profiler: Optional[Any] = None,
+                 mesh: Optional[PartMesh] = None):
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         self.device = resolve_device(device)
@@ -170,6 +175,7 @@ class GraphSession:
         self._read_ahead = read_ahead
         self._processors = processors
         self._prefetch = prefetch
+        self._mesh = mesh
         self.repartitions = 0
         self.tracer = tracer if tracer is not None else NULL_TRACER
         # resource profiling (obs/profile.py): on whenever a real tracer is
@@ -218,7 +224,7 @@ class GraphSession:
         else:
             self.engine = MapReduceMPEngine(pg, self.config, heuristic=self.heuristic,
                                             store=self.store, tracer=self.tracer,
-                                            profiler=self.profiler)
+                                            profiler=self.profiler, mesh=self._mesh)
         # MapReduceMP surfaces per-partition yield counters but has no host
         # partition loop, so no per-partition load sequence: the profile
         # says so rather than passing off zeros as load observations
@@ -522,6 +528,7 @@ class GraphSession:
              processors: int = 2,
              prefetch: bool = True,
              seed: int = 0,
+             mesh: Optional[PartMesh] = None,
              verify_checksums: bool = True,
              tracer: Optional[Any] = None,
              device: Union[None, str, torch.device] = None,
@@ -553,7 +560,7 @@ class GraphSession:
                    host_cache_parts=host_cache_parts,
                    host_cache_bytes=host_cache_bytes, read_ahead=read_ahead,
                    processors=processors, prefetch=prefetch, seed=seed,
-                   tracer=tracer, device=device, profiler=profiler)
+                   mesh=mesh, tracer=tracer, device=device, profiler=profiler)
         sess._mdir = mdir
         sess._view = view
         # the directory's writes trace into the session's stream

@@ -36,6 +36,14 @@ since each one duplicates its partitions' buffers.  A stacked bundle is
 staged without a stacked host copy: each partition's page-locked host
 tensors copy straight into their slice of the device tensor.
 
+``get_stacked(pids, device=...)`` places a bundle, the counterpart of the
+JAX package's ``sharding=``: on one device, or over a ``PartMesh``
+(core/mesh.py), where each shard stages its own [L_s, ...] stack on its
+device (``StoreEntry.shards``; two shards on one device share nothing).
+It is one load, counted as the JAX package counts one sharded stacked
+load: cold the first time, warm after, the bundle's bytes.  The placement
+is part of the cache key, so a mesh change never serves a stale entry.
+
 ``release(key)`` is the scheduler's retirement hook: a counted ``drop``.
 
 Out of core: pass ``backing=DiskCatalog`` (storage/format.py) and the
@@ -59,9 +67,10 @@ bundle; a host miss builds the bundle through the view's overlay loader
 (a shard read re-padded to the view's geometry, or a stale partition
 rebuilt from its pending deltas, counted as ``delta_overlays`` on the
 calling thread before the load).  ``owner`` is then the view's [V]
-table, copied to the device once per (generation, seq) and kept in an
+table, copied to each device once per (generation, seq) and kept in an
 LRU of four, so the owner table, the g2l rows and the graph a kernel
-reads always come from one view.  Pins, ``drop``, ``release`` and
+reads always come from one view (``owner_on(device)`` for a mesh's
+devices).  Pins, ``drop``, ``release`` and
 ``contains`` name the plain pid (or pid tuple) and cover every
 generation's staging of it.  With no view the keys are the plain pids.
 """
@@ -81,6 +90,7 @@ from ..obs.trace import NULL_TRACER
 from ..storage.host_cache import HostArrayTier, HostShardCache
 from .engine import resolve_device
 from .graph import PartitionedGraph
+from .mesh import PartMesh, normalize_device
 
 
 @dataclasses.dataclass
@@ -145,14 +155,17 @@ StoreKey = Union[int, Tuple[int, ...]]
 class StoreEntry:
     """One device-resident unit: evaluator inputs + the matching g2l
     row(s).  A single partition keeps its scalars (pid, n_core) as ints; a
-    stacked bundle holds [n, ...] tensors, scalars as [n] int32."""
+    stacked bundle holds [n, ...] tensors, scalars as [n] int32.  A bundle
+    placed over a part mesh holds one stacked entry per shard in
+    ``shards`` (keyed by the shard's pids) and no tensors of its own."""
 
     key: StoreKey
     part: Dict[str, Union[int, torch.Tensor]]
-    g2l: torch.Tensor            # [V] row, or [n, V] for a stacked bundle
+    g2l: Optional[torch.Tensor]  # [V] row, or [n, V] for a stacked bundle
     nbytes: int                  # bytes of the host numpy bundle(s)
     prefetched: bool = False     # staged by prefetch(), not yet touched by get()
     ready: Optional[Any] = None  # CUDA event the side-stream copy recorded
+    shards: Tuple["StoreEntry", ...] = ()
 
     @property
     def cost_parts(self) -> int:
@@ -208,14 +221,16 @@ class PartitionStore:
         # cache key (a plain key, or its bundle tokens under a view) ->
         # entry; the entry's own ``key`` is always the plain key
         self._cache: "OrderedDict[Any, StoreEntry]" = OrderedDict()
-        self._owner_dev: Optional[torch.Tensor] = None
+        # the owner table per device, with no view
+        self._owner_dev: Dict[torch.device, torch.Tensor] = {}
         # pinned plain keys (refcounted): protected from LRU eviction while
         # a caller evaluates against them — the double-buffer guarantee
         self._pins: Dict[StoreKey, int] = {}
         # the ambient generation view, per thread (``viewing``)
         self._local = threading.local()
-        # the device owner table per (generation, seq): a small LRU
-        self._owner_cache: "OrderedDict[Tuple[int, int], torch.Tensor]" = OrderedDict()
+        # the owner table per (generation, seq), per device: a small LRU
+        self._owner_cache: "OrderedDict[Tuple[int, int], Dict[torch.device, torch.Tensor]]" \
+            = OrderedDict()
 
     # -- generation views (mutable graph directories) -----------------------
 
@@ -284,22 +299,30 @@ class PartitionStore:
 
     @property
     def owner(self) -> torch.Tensor:
-        """[V] owner table on the device.  With no view, ``pg.owner``
-        copied once; under a view, the view's assignment (vertex adds
-        grow V), copied once per (generation, seq)."""
+        """[V] owner table on the store's device (``owner_on``)."""
+        return self.owner_on(self.device)
+
+    def owner_on(self, device: Union[str, torch.device]) -> torch.Tensor:
+        """[V] owner table on ``device``.  With no view, ``pg.owner``
+        copied once per device; under a view, the view's assignment (vertex
+        adds grow V), copied once per (generation, seq) and device."""
+        dev = normalize_device(device)
         v = self.view
         if v is None:
-            if self._owner_dev is None:
-                self._owner_dev = torch.from_numpy(np.asarray(self.pg.owner)).to(self.device)
-            return self._owner_dev
-        ok = (int(v.generation), int(v.seq))
-        got = self._owner_cache.get(ok)
+            per = self._owner_dev
+            src = self.pg.owner
+        else:
+            ok = (int(v.generation), int(v.seq))
+            per = self._owner_cache.get(ok)
+            if per is None:
+                per = self._owner_cache[ok] = {}
+                while len(self._owner_cache) > 4:
+                    self._owner_cache.popitem(last=False)
+            self._owner_cache.move_to_end(ok)
+            src = v.assignment
+        got = per.get(dev)
         if got is None:
-            got = torch.from_numpy(np.asarray(v.assignment, dtype=np.int32)).to(self.device)
-            self._owner_cache[ok] = got
-            while len(self._owner_cache) > 4:
-                self._owner_cache.popitem(last=False)
-        self._owner_cache.move_to_end(ok)
+            got = per[dev] = torch.from_numpy(np.asarray(src, dtype=np.int32)).to(dev)
         return got
 
     @property
@@ -329,13 +352,21 @@ class PartitionStore:
         safe to read on the current stream."""
         return self._lookup(int(pid))
 
-    def get_stacked(self, pids: Sequence[int]) -> StoreEntry:
+    def get_stacked(self, pids: Sequence[int],
+                    device: Union[None, str, torch.device, PartMesh] = None
+                    ) -> StoreEntry:
         """A stacked [n, ...] bundle over ``pids`` (order-sensitive), the
-        unit TraditionalMP ships per iteration."""
+        unit TraditionalMP ships per iteration and MapReduceMP ships once.
+        ``device`` places it: None is the store's device; a ``PartMesh``
+        of n mappers splits it into one stacked entry per shard, on the
+        shard's device (``StoreEntry.shards``)."""
         key = tuple(int(p) for p in pids)
         if not key:
             raise ValueError("get_stacked needs at least one partition id")
-        return self._lookup(key)
+        if isinstance(device, PartMesh) and device.k != len(key):
+            raise ValueError(f"a mesh of {device.k} mappers cannot place "
+                             f"{len(key)} partitions")
+        return self._lookup(key, device)
 
     def prefetch(self, pid: int) -> bool:
         """Stage ``pid`` off the critical path: a side-stream copy on CUDA
@@ -440,8 +471,13 @@ class PartitionStore:
         nk = self._normkey(key)
         return [ck for ck, e in self._cache.items() if e.key == nk]
 
-    def _lookup(self, key: StoreKey) -> StoreEntry:
+    def _lookup(self, key: StoreKey, placement: Any = None) -> StoreEntry:
         ck = self._vkey(key)
+        if isinstance(placement, PartMesh):
+            ck = (ck, placement.key)
+        elif placement is not None:
+            placement = normalize_device(placement)
+            ck = (ck, str(placement))
         with self.tracer.span("store.load", pid=key) as sp:
             got = self._cache.get(ck)
             if got is not None:
@@ -457,7 +493,7 @@ class PartitionStore:
                 self.profiler.sample_device(sp, self)
                 return got
             sp.set(tier="cold")
-            entry = (self._stage_stacked(key) if isinstance(key, tuple)
+            entry = (self._stage_stacked(key, placement) if isinstance(key, tuple)
                      else self._stage(key, side_stream=False))
             self.stats.misses += 1
             self.stats.bytes_cold += entry.nbytes
@@ -489,32 +525,47 @@ class PartitionStore:
             ready.record(self._copy_stream)
         return StoreEntry(key=pid, part=part, g2l=g2l, nbytes=nbytes, ready=ready)
 
-    def _stage_stacked(self, key: Tuple[int, ...]) -> StoreEntry:
-        """Stack the partitions of ``key`` on the device, on the current
-        stream.  On CUDA each partition's page-locked host tensors copy
-        (``non_blocking``) straight into their slice of the stacked device
-        tensor, so no unpinned stacked host copy is ever made.  The
+    def _stage_stacked(self, key: Tuple[int, ...], placement: Any) -> StoreEntry:
+        """Stack the partitions of ``key`` on ``placement`` (None: the
+        store's device; a device; or one stack per shard of a mesh).  The
         bundles are held here until every slice's copy is issued: a host
         tier smaller than ``key`` evicts one while the next is read."""
         self._count_overlays(key)
         bundles = [self._host_get(p) for p in key]
+        if not isinstance(placement, PartMesh):
+            return self._stack(key, bundles,
+                               self.device if placement is None else placement)
+        shards, lo = [], 0
+        for sh in placement.shards:
+            hi = lo + len(sh.pids)
+            shards.append(self._stack(key[lo:hi], bundles[lo:hi], sh.device))
+            lo = hi
+        return StoreEntry(key=key, part={}, g2l=None,
+                          nbytes=sum(e.nbytes for e in shards), shards=tuple(shards))
+
+    @staticmethod
+    def _stack(key: Tuple[int, ...], bundles: list, device: torch.device) -> StoreEntry:
+        """One stacked entry of ``bundles`` on ``device``, on its current
+        stream.  On CUDA each partition's page-locked host tensors copy
+        (``non_blocking``) straight into their slice of the stacked device
+        tensor, so no unpinned stacked host copy is ever made."""
         nbytes = sum(b.nbytes for b in bundles)
         scalars = {k: torch.tensor([b.part[k] for b in bundles], dtype=torch.int32)
                    for k, v in bundles[0].part.items() if isinstance(v, int)}
         tensors = [(k, [b.part[k] for b in bundles])
                    for k, v in bundles[0].part.items() if not isinstance(v, int)]
         tensors.append(("g2l", [b.g2l for b in bundles]))
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             stacked = {k: torch.stack(ts) for k, ts in tensors}
         else:
             stacked = {}
             for k, ts in tensors:
                 out = torch.empty((len(ts), *ts[0].shape), dtype=ts[0].dtype,
-                                  device=self.device)
+                                  device=device)
                 for i, t in enumerate(ts):
                     out[i].copy_(t, non_blocking=True)
                 stacked[k] = out
-            scalars = {k: v.pin_memory().to(self.device, non_blocking=True)
+            scalars = {k: v.pin_memory().to(device, non_blocking=True)
                        for k, v in scalars.items()}
         g2l = stacked.pop("g2l")
         return StoreEntry(key=key, part={**scalars, **stacked}, g2l=g2l,

@@ -84,9 +84,10 @@ def frontier_expand_cuda(lidx, pint, pflt, rows, *tables):
     dev = lidx.device
     ok = torch.empty((EB, W), dtype=torch.bool, device=dev)
     dg = torch.empty((EB, W), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (lidx, pint, pflt, rows, *tables, ok, dg)]
-    err = _launcher()(*ptrs, EB, W, Q, stream)
+    # the launcher runs in the current CUDA device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = _launcher()(*ptrs, EB, W, Q, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {err}")
     build.LAUNCHES[NAME] += 1

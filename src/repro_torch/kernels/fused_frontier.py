@@ -322,13 +322,15 @@ def frontier_step_cuda(inv: StepInvariants, wr, ws, lidx, sel, m,
     is allocated and nothing synchronises."""
     check_step_args(inv, wr, ws, lidx, sel, m, out)
     L, EB = sel.shape
-    stream = torch.cuda.current_stream(sel.device).cuda_stream
-    err = _launcher()(
-        wr.data_ptr(), wr.stride(0), ws.data_ptr(), ws.stride(0),
-        lidx.data_ptr(), lidx.stride(0), lidx.shape[1], sel.data_ptr(),
-        sel.stride(0), m.data_ptr(), *inv.ptrs, *[o.data_ptr() for o in out],
-        L, EB, inv.tables[0].shape[1], wr.shape[2], inv.plan_int.shape[1],
-        inv.node_pad, inv.owner.shape[0], stream)
+    # the launcher runs in the current CUDA device: make it the tensors'
+    with torch.cuda.device(sel.device):
+        stream = torch.cuda.current_stream(sel.device).cuda_stream
+        err = _launcher()(
+            wr.data_ptr(), wr.stride(0), ws.data_ptr(), ws.stride(0),
+            lidx.data_ptr(), lidx.stride(0), lidx.shape[1], sel.data_ptr(),
+            sel.stride(0), m.data_ptr(), *inv.ptrs, *[o.data_ptr() for o in out],
+            L, EB, inv.tables[0].shape[1], wr.shape[2], inv.plan_int.shape[1],
+            inv.node_pad, inv.owner.shape[0], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {err}")
     build.LAUNCHES[NAME] += 1

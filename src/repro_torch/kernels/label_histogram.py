@@ -103,10 +103,12 @@ def label_histogram_cuda(node_label, node_value, core_mask, label, value_op,
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = _scratch(dev, stream)
     vec = use_vector_loads(node_label, node_value, core_mask)
-    err = _launcher()(
-        node_label.data_ptr(), node_value.data_ptr(), core_mask.data_ptr(),
-        node_label.shape[0], int(label), int(value_op), float(value),
-        count.data_ptr(), scratch.data_ptr(), int(vec), stream)
+    # the launcher runs in the current CUDA device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = _launcher()(
+            node_label.data_ptr(), node_value.data_ptr(), core_mask.data_ptr(),
+            node_label.shape[0], int(label), int(value_op), float(value),
+            count.data_ptr(), scratch.data_ptr(), int(vec), stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {err}")
     build.LAUNCHES[NAME] += 1

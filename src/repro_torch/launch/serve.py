@@ -43,10 +43,11 @@ Serving modes:
 prints ``MATCH``/``MISMATCH`` per query; any mismatch ends the run with a
 non-zero exit code.
 
-Every engine runs on one device: ``--device cuda`` (the default; raises
-with no card) or ``--device cpu`` (the kernels' plain versions).
-MapReduceMP runs its P mappers as P lanes of that one device, so it needs
-no device-count setting.
+Every engine runs on ``--device cuda`` (the default; raises with no card)
+or ``--device cpu`` (the kernels' plain versions).  MapReduceMP takes the
+default part mesh (core/mesh.py): its P mappers as P lanes of one shard
+on one card or the CPU, spread over the cards when there are several; it
+needs no device-count setting.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset synthetic \\
         --scale 0.5 --k 4 --engine mapreduce --verify --device cpu

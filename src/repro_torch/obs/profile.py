@@ -19,8 +19,9 @@ Three read-only instruments:
                       and folds it through a roofline of one H100: a
                       memory term at HBM bandwidth and a compute term at
                       the card's INT32 rate (the step does integer work).
-                      There is no collective term: MapReduceMP's lanes are
-                      virtual on one card.  ``stamp_kernel`` writes the
+                      There is no collective term: the cost is the step's,
+                      and MapReduceMP's shuffle between shards is not
+                      costed.  ``stamp_kernel`` writes the
                       call's cost -- one launch's times the call's step
                       launches -- onto every ``kernel.eval`` span, so a
                       trace joins *predicted* cost with *measured* wall
@@ -53,7 +54,7 @@ from __future__ import annotations
 
 import collections
 import resource
-from typing import Any, Deque, Dict, Optional
+from typing import Any, Deque, Dict, Optional, Sequence
 
 # Roofline peaks of one NVIDIA H100 80GB HBM3 (SXM), read as
 # "NVIDIA H100 80GB HBM3, 700.00 W" by nvidia-smi on the card this port is
@@ -102,7 +103,7 @@ class NullResourceProfiler:
     def observe_rss(self) -> int:
         return 0
 
-    def attribute_kernel(self, key: Any, *shape: Any) -> None:
+    def attribute_kernel(self, key: Any, *shape: Any, lanes: Any = None) -> None:
         pass
 
     def stamp_kernel(self, span: Any, key: Any, launches: int) -> None:
@@ -156,12 +157,16 @@ class ResourceProfiler:
 
     # -- kernel cost attribution -------------------------------------------
 
-    def attribute_kernel(self, key: Any, *shape: Any) -> Dict[str, Any]:
+    def attribute_kernel(self, key: Any, *shape: Any,
+                         lanes: Optional[Sequence[int]] = None) -> Dict[str, Any]:
         """Predicted cost of one step launch under ``key`` at ``shape``
         (L, EB, W, Q, S, node_pad, V; see ``kernels.ops.step_cost``),
-        folded through the roofline.  Computed once per key, from the
-        first call's shapes; call sites invoke it from the branch that
-        marks a key's first call."""
+        folded through the roofline.  ``lanes`` lists the lane counts of a
+        group of launches that differ only in L (a part mesh's shards, one
+        launch each): one launch's cost is then their mean, recorded with
+        ``lanes`` when they differ.  Computed once per key, from the first
+        call's shapes; call sites invoke it from the branch that marks a
+        key's first call."""
         skey = _key_str(key)
         cached = self.kernel_costs.get(skey)
         if cached is not None:
@@ -172,10 +177,14 @@ class ResourceProfiler:
             # imported here: the kernels import the core package, whose
             # store and engines import this module
             from ..kernels.ops import step_cost
-            ops, nbytes = step_cost(*shape)
-            cost = step_roofline(ops, nbytes)
+            group = [shape[0]] if lanes is None else list(lanes)
+            costs = [step_cost(L, *shape[1:]) for L in group]
+            cost = step_roofline(sum(c[0] for c in costs) / len(costs),
+                                 sum(c[1] for c in costs) / len(costs))
             cost["shape"] = dict(zip(("L", "EB", "W", "Q", "S", "node_pad", "V"),
                                      (int(x) for x in shape)))
+            if len(set(group)) > 1:
+                cost["lanes"] = [int(L) for L in group]
         except Exception as e:  # profiling must never break serving
             cost["cost_error"] = type(e).__name__
         self.kernel_costs[skey] = cost

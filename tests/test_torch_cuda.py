@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and its
-sessions, language models and training against the CPU, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, its
+sessions, language models and training against the CPU, and MapReduceMP
+on multi-shard part meshes against one shard, on a card (the two-card
+cases skip with fewer cards).
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -151,10 +153,104 @@ def test_cuda_mapreduce_matches_cpu():
     from repro_torch.kernels import build
     g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=0)
     qs = subgen_queries(g)
+    from repro_torch.core import make_part_mesh
     build.LAUNCHES.clear()
     card = chip_smoke.mapreduce_small(g, qs, "cuda")
-    assert build.LAUNCHES[ff.NAME] == sum(r[3] for r in card)
+    # one launch per shard an iteration (one shard on one card)
+    shards = len(make_part_mesh(4).shards)
+    assert build.LAUNCHES[ff.NAME] == sum(r[3] for r in card) * shards
     assert chip_smoke.same_mapreduce(card, chip_smoke.mapreduce_small(g, qs, "cpu"))
+
+
+def mesh_runs(g, qs, mesh) -> list:
+    """``chip_smoke.mapreduce_small``'s runs (and gated RANDOM-SN) on the
+    card, every engine on ``mesh``, each run's load counts appended."""
+    from repro_torch.core import EngineConfig, GraphSession, MapReduceMPEngine, generate_plan
+    sess = GraphSession(g, engine="mapreduce", config=EngineConfig(cap=16384),
+                        device="cuda", mesh=mesh)
+    engines = {"all": sess.engine,
+               "m2_max-yield": MapReduceMPEngine(sess.pg, sess.config, m_limit=2,
+                                                 heuristic="max-yield", store=sess.store,
+                                                 mesh=mesh),
+               "m2_random-sn": MapReduceMPEngine(sess.pg, sess.config, m_limit=2,
+                                                 heuristic="random-sn", store=sess.store,
+                                                 mesh=mesh)}
+    out = []
+    for dq in qs:
+        plan = generate_plan(dq.disjuncts[0], g, sess.catalog)
+        for run, K in (("all", None), ("all", 5), ("m2_max-yield", None),
+                       ("m2_random-sn", None)):
+            r = engines[run].run(plan, max_answers=K, seed=3)
+            out.append((run, dq.name, r.answers, r.n_iterations, r.completed_from.tolist(),
+                        r.spawned_from.tolist(), r.stats.cold_loads, r.stats.warm_loads,
+                        r.stats.bytes_cold))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [[[0], [1], [2], [3]], [[0, 1], [2, 3]], [[0], [1, 2, 3]]])
+def test_cuda_four_shards_on_one_card_equal_one_shard(layout):
+    """MapReduceMP on a multi-shard mesh whose shards all lie on cuda:0
+    (per-shard buffers and launches, the shuffle as copies between shards)
+    against the default one-shard mesh: every run bit for bit equal
+    (answers, iterations, yield counters, loads), and the step launched
+    once per shard an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import PartMesh, make_part_mesh
+    from repro_torch.data.generators import subgen_like_graph, subgen_queries
+    from repro_torch.kernels import build
+    g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=0)
+    qs = subgen_queries(g)
+    mesh = PartMesh(tuple(("cuda:0", p) for p in layout))
+    one = mesh_runs(g, qs, make_part_mesh(4, devices=["cuda:0"]))
+    build.LAUNCHES.clear()
+    many = mesh_runs(g, qs, mesh)
+    assert build.LAUNCHES[ff.NAME] == sum(r[3] for r in many) * len(layout)
+    assert len(one) == len(many)
+    for a, b in zip(one, many):
+        assert a[:2] == b[:2] and np.array_equal(a[2], b[2]) and a[3:] == b[3:], a[:2]
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_their_tensors_card():
+    """Each wrapper launches on its tensors' card while another is
+    current: the step, frontier_expand and label_histogram on cuda:1 with
+    cuda:0 current, each bit-equal to its plain version."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(5)
+    with torch.cuda.device(0):
+        inv, args = chip_smoke.step_case(rng, 4, 512, 20, 8, 4096, P=4, dev="cuda:1")
+        got = ff.frontier_step_cuda(inv, *args, ff.step_outputs(4, 512, 20, 8, "cuda:1"))
+        torch.cuda.synchronize(1)
+        rec = chip_smoke.compare_step(got, ff.frontier_step_plain(inv, *args))
+        assert rec["mismatches"] == 0 and got[0].device == torch.device("cuda:1"), rec
+        eargs = chip_smoke.expand_args(chip_smoke.engine_case(rng, 512, 20, 8, 4096, 9000,
+                                                              dev="cuda:1"))
+        ok, dg = fe.frontier_expand_cuda(*eargs)
+        torch.cuda.synchronize(1)
+        wok, _ = fe.frontier_expand_plain(*eargs)
+        assert torch.equal(ok, wok)
+        hargs = chip_smoke.histogram_case(rng, 294_400, dev="cuda:1")
+        got = lh.label_histogram_cuda(*hargs, 2, 3, 0.1)
+        assert int(got) == int(lh.label_histogram_plain(*hargs, 2, 3, 0.1))
+
+
+@pytest.mark.cuda
+def test_cuda_two_card_mesh_equals_one_card():
+    """A mesh over two cards (the shuffle across them) equals the default
+    one-shard run on one card, bit for bit."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core import make_part_mesh
+    from repro_torch.data.generators import subgen_like_graph, subgen_queries
+    g = subgen_like_graph(n_nodes=2000, n_edges=6000, n_embed=50, seed=0)
+    qs = subgen_queries(g)
+    mesh = make_part_mesh(4, devices=["cuda:0", "cuda:1"])
+    one, many = mesh_runs(g, qs, make_part_mesh(4, devices=["cuda:0"])), mesh_runs(g, qs, mesh)
+    for a, b in zip(one, many):
+        assert a[:2] == b[:2] and np.array_equal(a[2], b[2]) and a[3:] == b[3:], a[:2]
 
 
 @pytest.fixture(scope="module")

@@ -278,6 +278,38 @@ def test_mapreduce_final_generation_matches_oracle_and_fresh_save(setup, tmp_pat
     assert sess.store.owner.shape[0] == sess.graph.n_nodes == setup["V"] + 2
 
 
+@pytest.mark.parametrize("layout", [[[0], [1], [2], [3]], [[0], [1, 2, 3]]])
+def test_mapreduce_on_a_mesh_follows_the_view(setup, tmp_path, layout):
+    """MapReduceMP on a multi-shard mesh of an opened, mutated session:
+    the owner table and the stacks of every shard follow the view (a stale
+    view's overlay, then the widened final generation), so each run equals
+    the default one-shard session's on the same updates (answers,
+    iterations, loads) and the oracle over the overlay graph."""
+    mesh = tc.PartMesh(tuple(("cpu", p) for p in layout))
+    one, many = (tc.GraphSession.open(_copy(setup, tmp_path, name), engine="mapreduce",
+                                      config=tc.EngineConfig(cap=CAP), device="cpu",
+                                      host_cache_parts=1, mesh=m)
+                 for name, m in (("one", None), ("many", mesh)))
+    assert many.engine.mesh == mesh and one.engine.mesh.lanes == (4,)
+    for ops in (setup["ops_a"], setup["ops_b"]):
+        for sess in (one, many):
+            sess.mutate(ops)
+        for tdq in setup["tdqs"]:
+            a, b = many.submit(tdq), one.submit(tdq)
+            np.testing.assert_array_equal(a.answers,
+                                          match_disjunctive(many.graph, tdq, q_pad=8))
+            np.testing.assert_array_equal(a.answers, b.answers)
+            assert a.reports[0].stats.iterations == b.reports[0].stats.iterations
+            assert a.load_stats.to_dict() == b.load_stats.to_dict()
+    for sess in (one, many):
+        sess.compact_all()
+    for tdq in setup["tdqs"]:
+        a = many.submit(tdq)
+        assert a.generation == many.generation > 0
+        np.testing.assert_array_equal(a.answers, one.submit(tdq).answers)
+    assert many.store.owner_on("cpu").shape[0] == many.graph.n_nodes == setup["V"] + 2
+
+
 @pytest.mark.parametrize("engine", ["opat", "traditional"])
 def test_pinned_generation_survives_compaction_and_gc(setup, tmp_path, engine):
     """A scheduler pinned to generation G keeps answering from G after an
