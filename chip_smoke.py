@@ -182,6 +182,22 @@ Phases, each printing one JSON line:
                size, run uninterrupted (beside its record) and killed after
                its first commit and resumed (the same losses, the same
                checkpoint layout)
+  lm_mesh      the language models' mesh (no hand-written kernel on its
+               path): in a one-rank NCCL group made in this process,
+               Qwen2-1.5B at published width with depth cut to 2 layers
+               (wq and wk at fan-in d, as in train), 3 bf16 train steps
+               of 4 x 2,048 on make_test_mesh((1, 1))
+               (the FSDP path of distributed.fsdp) against
+               make_train_step unsharded (bit-equal, else within
+               MESH_TOL), and deepseek-moe-16b at published width (2
+               layers: the dense head layer and one MoE layer) forward
+               on 2 x 2,048 with make_tp_moe_fn over the one-rank model
+               group against the dense moe_ffn; peak memory, resident
+               parameter and optimizer bytes and step seconds of each;
+               within 60 s.  With two or more cards, one NCCL process per
+               card (up to four): the Qwen2 step on (D, 1) and deepseek's
+               moe_fn on (1, D) (64 / D experts a card) against one card
+               (the Qwen2 step also at the raw init, its first step held)
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
@@ -3127,6 +3143,270 @@ def phase_train(seed: int, cost: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# lm_mesh: the language models' mesh (launch.{mesh,sharding},
+# distributed.fsdp, layers.make_tp_moe_fn); no graph kernel on its path
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 2            # both configs' depth cut; every width published
+MESH_TRAIN = (4, 2048, 3)  # Qwen2-1.5B: batch, sequence, bf16 train steps
+MESH_MOE = (2, 2048)       # deepseek-moe-16b: batch, sequence (forward)
+# Where the sharded step is not bit-equal to the unsharded one (wq and wk
+# at fan-in d), its losses and grad norms must agree to these (readings on
+# two and four H100s: losses 2.1e-6 and 7.5e-6, grad norms 6.1e-5 and
+# 1.3e-5), every leaf of m (float32: 0.1 x the clipped gradients, summed
+# over the steps) within m_rel of the leaf's largest, floored at 1e-6 of
+# the model's largest, and every parameter element within 2 x the summed
+# learning rates (Adam's first step is a sign, so a gradient at rounding
+# level moves a weight by +-lr) plus three bf16 ulps of itself.  At the
+# raw init only the first step's loss and grad norm are held, to
+# raw_step0_rtol (readings 7.8e-8 and 1.7e-6 on two and four H100s): its
+# near one-hot attention grows rounding over the later steps.  The
+# expert-parallel forward's logits (over their largest magnitude) and aux
+# loss to logit_rel and aux_rtol (its combine sums float32 partials with
+# index_add_, whose order on the card varies).
+MESH_TOL = {"loss_rtol": 5e-5, "grad_norm_rtol": 3e-4, "m_rel": 2e-2, "param_ulps": 3,
+            "raw_step0_rtol": 1e-5, "logit_rel": 2e-2, "aux_rtol": 1e-3}
+MESH_BUDGET_S = 60.0
+
+
+def mesh_cfgs() -> tuple:
+    from repro_torch.configs import ARCHS
+    return (dataclasses.replace(ARCHS["qwen2_1_5b"], n_layers=MESH_LAYERS),
+            dataclasses.replace(ARCHS["deepseek_moe_16b"], n_layers=MESH_LAYERS))
+
+
+def tensor_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def mesh_batches(cfg, B: int, S: int, n: int, seed: int, dev) -> list:
+    from repro_torch.data.tokens import TokenPipeline
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=seed)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(i).items()}
+            for i in range(n)]
+
+
+def mesh_train(cfg, batches: list, seed: int, dev, mesh=None, *,
+               fan_in_d: bool = True) -> tuple:
+    """``len(batches)`` bf16 train steps of Qwen2 from ``init_params(seed)``,
+    wq and wk at fan-in d unless ``fan_in_d`` is off (see
+    lm_qwen2_consistency: the raw init's near one-hot attention turns
+    rounding into gradient differences): FSDP-sharded over ``mesh`` (each
+    rank fed its rows) or, with no mesh, ``train.make_train_step`` on the
+    card.  (record, {"params", "m"}: whole leaves)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import TrainConfig, init_opt_state, make_train_step
+    tcfg = TrainConfig(remat=True, flash_cv=True)
+    model = init_params(cfg, seed, device=dev)
+    if fan_in_d:
+        qk_fan_in_d(cfg, model)
+    B = batches[0]["tokens"].shape[0]
+    if mesh is None:
+        step_fn, feed = make_train_step(cfg, tcfg), batches
+    else:
+        fsdp.shard_model(model, mesh)
+        step_fn = fsdp.make_train_step(cfg, tcfg, mesh, B)
+        feed = [fsdp.local_batch(b, mesh) for b in batches]
+    opt = init_opt_state(model, device=dev)
+    rec = {"resident_bytes": torch.cuda.memory_allocated(dev),   # model + opt placed
+           "param_bytes": tensor_bytes(model.parameters()),
+           "opt_bytes": tensor_bytes([*opt["m"].values(), *opt["v"].values()]),
+           "losses": [], "grad_norms": [], "lrs": [], "step_s": []}
+    if mesh is not None:
+        plan = fsdp.plan_of(model)
+        rec["sharded_leaves"] = sum(d is not None for d in plan.dims.values())
+        rec["sharded_param_bytes"] = tensor_bytes(p for n, p in model.named_parameters()
+                                                  if plan.dims[n] is not None)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for b in feed:
+        t0 = time.perf_counter()
+        m = step_fn(model, opt, b)
+        rec["losses"].append(m["loss"].item())
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["lrs"].append(float(m["lr"]))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    check(all(np.isfinite(rec["losses"] + rec["grad_norms"])), f"lm_mesh: non-finite {rec}")
+    if mesh is None:
+        return rec, {"params": {n: p.detach() for n, p in model.named_parameters()},
+                     "m": opt["m"]}
+    return rec, {"params": fsdp.full_leaves(model), "m": fsdp.full_leaves(model, opt["m"])}
+
+
+def mesh_same_train(got: dict, want: dict, got_state: dict, want_state: dict, *,
+                    raw_init: bool = False) -> dict:
+    """Bit-equal, or each difference against MESH_TOL; at the raw init the
+    first step's loss and grad norm only.  ``m_rel`` is the largest leaf's
+    error over its scale, ``param_excess`` the largest amount by which a
+    parameter element passes its bound (<= 0)."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    gp, wp, gm, wm = (got_state["params"], want_state["params"], got_state["m"],
+                      want_state["m"])
+    bitwise = (got["losses"] == want["losses"] and got["grad_norms"] == want["grad_norms"]
+               and all(torch.equal(gp[n], w) for n, w in wp.items())
+               and all(torch.equal(gm[n], w) for n, w in wm.items()))
+    lrs = 2 * sum(want["lrs"])
+    ulp = MESH_TOL["param_ulps"] * 2.0 ** -7
+    diff = lambda n, w: (gp[n].float() - w.float()).abs()
+    top = max(float(w.abs().max()) for w in wm.values())
+    m_rel = {n: float((gm[n] - w).abs().max()) / max(float(w.abs().max()), 1e-6 * top, 1e-30)
+             for n, w in wm.items()}
+    worst = max(m_rel, key=m_rel.get)
+    out = {"bitwise": bitwise,
+           "loss_rel": max(rel(a, b) for a, b in zip(got["losses"], want["losses"])),
+           "grad_norm_rel": max(rel(a, b) for a, b in zip(got["grad_norms"],
+                                                          want["grad_norms"])),
+           "step0_loss_rel": rel(got["losses"][0], want["losses"][0]),
+           "step0_grad_norm_rel": rel(got["grad_norms"][0], want["grad_norms"][0]),
+           "m_rel": m_rel[worst], "m_rel_leaf": worst,
+           "param_abs_max": max(float(diff(n, w).max()) for n, w in wp.items()),
+           "param_excess": max(float((diff(n, w) - lrs - ulp * w.float().abs()).max())
+                               for n, w in wp.items())}
+    if raw_init:
+        ok = max(out["step0_loss_rel"], out["step0_grad_norm_rel"]) <= MESH_TOL["raw_step0_rtol"]
+    else:
+        ok = bitwise or (out["loss_rel"] <= MESH_TOL["loss_rtol"]
+                         and out["grad_norm_rel"] <= MESH_TOL["grad_norm_rtol"]
+                         and out["m_rel"] <= MESH_TOL["m_rel"] and out["param_excess"] <= 0)
+    check(ok, f"lm_mesh: the sharded step differs {out}")
+    return out
+
+
+def mesh_moe(cfg, mesh, seed: int, dev, *, dense: bool) -> dict:
+    """deepseek-moe-16b's forward with ``make_tp_moe_fn`` over the mesh's
+    model axis (64 / n experts computed on each card), and with
+    ``dense`` also the dense ``moe_ffn`` forward on this card: logits and
+    aux against each other."""
+    from repro_torch.launch.sharding import _batch_dim_spec
+    from repro_torch.models.layers import make_tp_moe_fn
+    from repro_torch.models.transformer import forward, init_params
+    B, S = MESH_MOE
+    model = init_params(cfg, seed, device=dev)
+    batch = {"tokens": mesh_batches(cfg, B, S, 1, seed, dev)[0]["tokens"]}
+    moe_fn = make_tp_moe_fn(mesh, _batch_dim_spec(mesh, B), cfg)
+    rec = {"experts_per_card": cfg.n_experts // mesh.shape["model"]}
+    with torch.no_grad():
+        for key in ("moe_fn_first_s", "moe_fn_s"):      # the first sets up NCCL
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lt, at = forward(model, cfg, batch, remat=False, moe_fn=moe_fn)
+            torch.cuda.synchronize(dev)
+            rec[key] = time.perf_counter() - t0
+        check(bool(torch.isfinite(lt).all()) and tuple(lt.shape) == (B, S, cfg.vocab),
+              f"lm_mesh: moe_fn logits {tuple(lt.shape)}")
+        if dense:
+            t0 = time.perf_counter()
+            ld, ad = forward(model, cfg, batch, remat=False)
+            torch.cuda.synchronize(dev)
+            rec.update(dense_s=time.perf_counter() - t0, bitwise=bool(torch.equal(lt, ld)),
+                       logit_rel=lm_err(lt, ld), aux=[float(at), float(ad)],
+                       aux_rel=abs(float(at) - float(ad)) / max(abs(float(ad)), 1e-30))
+            check(rec["logit_rel"] <= MESH_TOL["logit_rel"]
+                  and rec["aux_rel"] <= MESH_TOL["aux_rtol"], f"lm_mesh: moe_fn differs {rec}")
+    return rec
+
+
+def mesh_rank(rank: int, world: int, workdir: str, seed: int) -> None:
+    """One card of the multi-card ``lm_mesh`` run (a spawned process):
+    Qwen2-1.5B's step on (world, 1) and deepseek's moe_fn on (1, world);
+    rank 0 also runs both on its own card alone and writes the record.
+    The Qwen2 step runs twice: wq and wk at fan-in d (every step, m and
+    the parameters checked against one card) and at the raw init (its
+    first step checked: its near one-hot attention makes the later
+    gradients depend on the rows' split, as on one card)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    from repro_torch.launch.mesh import close_world, init_world, make_test_mesh
+    dev = init_world("cuda", init_method=f"file://{workdir}/store")
+    qwen, deepseek = mesh_cfgs()
+    B, S, steps = MESH_TRAIN
+    batches = mesh_batches(qwen, B, S, steps, seed, dev)
+    rec = {"rank": rank, "device": str(dev)}
+    mesh = make_test_mesh((world, 1), device=dev)
+    for key, fan in (("train", True), ("raw_init", False)):
+        rec[key], full = mesh_train(qwen, batches, seed, dev, mesh, fan_in_d=fan)
+        torch.distributed.barrier()
+        if rank == 0:
+            one, want = mesh_train(qwen, batches, seed, dev, fan_in_d=fan)
+            rec[f"{key}_one_card"] = one
+            rec[f"{key}_vs_one_card"] = mesh_same_train(rec[key], one, full, want,
+                                                        raw_init=not fan)
+            del want
+        del full
+        free_cuda()
+        torch.distributed.barrier()
+    rec["moe"] = mesh_moe(deepseek, make_test_mesh((1, world), device=dev), seed, dev,
+                          dense=rank == 0)
+    free_cuda()
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(rec))
+    close_world()
+
+
+def phase_lm_mesh(seed: int) -> None:
+    """The LM mesh on one card in a one-rank NCCL group made in this
+    process: Qwen2-1.5B at published width (2 layers; wq and wk at fan-in
+    d) for MESH_TRAIN's bf16 steps on ``make_test_mesh((1, 1))`` (FSDP
+    path) against ``make_train_step`` unsharded; deepseek-moe-16b at
+    published width (2 layers: the dense head layer and one MoE layer)
+    forward with ``make_tp_moe_fn`` over a one-rank model group against
+    the dense ``moe_ffn``.  With two or more cards, one NCCL process per
+    card (up to four): the Qwen2 step on (D, 1) and deepseek on (1, D)
+    against one card."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import close_world, init_world, make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check("RANK" not in os.environ, "lm_mesh: run chip_smoke.py alone, not under a launcher")
+    free_cuda()
+    launches0 = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    qwen, deepseek = mesh_cfgs()
+    B, S, steps = MESH_TRAIN
+    dev = init_world("cuda")
+    try:
+        mesh = make_test_mesh((1, 1), device=dev)
+        batches = mesh_batches(qwen, B, S, steps, seed, dev)
+        plain, want = mesh_train(qwen, batches, seed, dev)
+        free_cuda()
+        sharded, got = mesh_train(qwen, batches, seed, dev, mesh)
+        same = mesh_same_train(sharded, plain, got, want)
+        del want, got
+        free_cuda()
+        moe = mesh_moe(deepseek, mesh, seed, dev, dense=True)
+        free_cuda()
+    finally:
+        close_world()
+    one_card_s = time.perf_counter() - t0
+    check(one_card_s <= MESH_BUDGET_S, f"lm_mesh: {one_card_s:.1f} s on one card")
+    n = min(torch.cuda.device_count(), 4)
+    multi = {"cards": n, "ran": n >= 2}
+    if n >= 2:
+        import torch.multiprocessing as mp
+        (ROOT / "build").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-", dir=ROOT / "build"))
+        try:
+            t1 = time.perf_counter()
+            mp.spawn(mesh_rank, args=(n, str(work), seed), nprocs=n)
+            multi["seconds"] = time.perf_counter() - t1
+            multi["ranks"] = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        devices = {r["device"] for r in multi["ranks"]}
+        check(len(devices) == n, f"lm_mesh: ranks on {devices}")
+        for r in multi["ranks"]:
+            check(r["moe"]["experts_per_card"] == deepseek.n_experts // n,
+                  f"lm_mesh: rank {r['rank']} computed {r['moe']['experts_per_card']} experts")
+    launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
+    check(not any(launched.values()), f"lm_mesh: a graph kernel launched {launched}")
+    emit("lm_mesh", layers=MESH_LAYERS, train_shape=MESH_TRAIN, moe_shape=MESH_MOE,
+         tolerances=MESH_TOL, qwen2_unsharded=plain, qwen2_sharded_1x1=sharded,
+         qwen2_sharded_vs_unsharded=same, deepseek_moe_fn_vs_dense=moe,
+         one_card_s=one_card_s, multi_card=multi, graph_kernel_launches=launched,
+         seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
 # cost: the dry run (repro_torch.launch.dryrun) of the calls the lm and
 # train phases time, at their shapes, on the meta device (no card)
 # ---------------------------------------------------------------------------
@@ -3247,6 +3527,7 @@ def main() -> int:
     cost = phase_cost()
     phase_lm(args.seed, cost)
     phase_train(args.seed, cost)
+    phase_lm_mesh(args.seed)
 
     # the step's launches on each engine's serving path (path, traditional,
     # mapreduce, its meshes, the profiled sessions, the front end, the three

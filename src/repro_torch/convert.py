@@ -176,8 +176,10 @@ def lm_named_from_tree(cfg: ModelConfig, tree) -> Dict[str, Any]:
     return flat
 
 
-def lm_tree_from_named(cfg: ModelConfig, named: Dict[str, Any]):
-    """{parameter name: leaf} in the reference's tree layout."""
+def lm_tree_from_named(cfg: ModelConfig, named: Dict[str, Any],
+                       stack: Callable = torch.stack):
+    """{parameter name: leaf} in the reference's tree layout; the body's
+    leaves are stacked across periods with ``stack``."""
     top, layers = {}, [{} for _ in range(cfg.n_layers)]
     for name, t in named.items():
         if name.startswith("layers."):
@@ -185,7 +187,7 @@ def lm_tree_from_named(cfg: ModelConfig, named: Dict[str, Any]):
             layers[int(i)][rest] = t
         else:
             top[name] = t
-    return join_layers(cfg, top, layers)
+    return join_layers(cfg, top, layers, stack)
 
 
 def _check_names(flat: Dict[str, Any], params: Dict[str, Any]) -> None:

@@ -10,6 +10,9 @@ every cross-shard step (per-shard buffers and launches, gathered stop
 counters, the shuffle as copies between shards), as the JAX package's
 tests force four host devices on one CPU.
 
+Not to be confused with ``launch/mesh.py``, the language models' device
+mesh (``data`` / ``model`` axes over ``torch.distributed`` ranks).
+
 ``make_part_mesh(k)`` spreads the k mappers as evenly as possible over the
 visible cards: one card gives one shard of k lanes, four cards at k=4 give
 four shards of one.  ``make_part_mesh(k, devices=[...])`` makes one shard

@@ -22,6 +22,14 @@ written by either package restores in the other:
     void array back as it is);
   * data-pipeline state goes into ``meta.json`` (``extra_meta``);
   * ``keep`` bounds disk usage (oldest committed checkpoints pruned).
+
+On a process group (``launch.mesh.init_world``) every rank calls
+``save_checkpoint``: a DTensor leaf is gathered whole (``full_tensor()``),
+rank 0 writes the one-host layout above, and every rank waits at a
+barrier.  ``load_checkpoint(..., shardings=)`` cuts each whole leaf to
+this rank's block of its ``NamedSharding`` (``launch.sharding``), so a
+checkpoint written on any number of ranks, or by the JAX package,
+resumes on any other.
 """
 from __future__ import annotations
 
@@ -34,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..convert import dtype_name
 
@@ -82,20 +92,46 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.dtype(dtype)))
 
 
+def map_tree(tree, other, fn):
+    """``fn(leaf, other's leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, other[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(v, o, fn) for v, o in zip(tree, other))
+    return fn(tree, other)
+
+
+def _writer() -> bool:
+    """Rank 0 of the process group writes (the only process without one)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, state: Dict[str, Any],
                     extra_meta: Optional[Dict[str, Any]] = None,
                     keep: int = 3) -> str:
     final = os.path.join(directory, f"step_{step:08d}")
+    writer = _writer()
+    arrays = {}
+    meta_leaves = {}
+    for key, leaf in _flatten(state):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        if writer:
+            arrays[key] = _to_numpy(leaf)
+            meta_leaves[key] = {"shape": list(leaf.shape), "dtype": dtype_name(leaf.dtype)}
+    if writer:
+        _write(directory, final, step, arrays, meta_leaves, extra_meta, keep)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _write(directory: str, final: str, step: int, arrays, meta_leaves,
+           extra_meta, keep: int) -> None:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-
-    arrays = {}
-    meta_leaves = {}
-    for key, leaf in _flatten(state):
-        arrays[key] = _to_numpy(leaf)
-        meta_leaves[key] = {"shape": list(leaf.shape), "dtype": dtype_name(leaf.dtype)}
     np.savez(os.path.join(tmp, "host0000.npz"), **arrays)
     meta = {"step": step, "time": time.time(), "leaves": meta_leaves,
             "n_hosts": 1, **(extra_meta or {})}
@@ -112,7 +148,6 @@ def save_checkpoint(directory: str, step: int, state: Dict[str, Any],
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
                       ignore_errors=True)
-    return final
 
 
 def latest_steps(directory: str) -> List[int]:
@@ -132,9 +167,11 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, template, step: Optional[int] = None,
-                    device=None) -> Tuple[int, Any, Dict[str, Any]]:
+                    device=None, shardings=None) -> Tuple[int, Any, Dict[str, Any]]:
     """Restore ``template``-shaped state as tensors of the stored dtypes:
-    on the host, or on ``device`` if given."""
+    on the host, or on ``device`` if given.  ``shardings`` (a tree of
+    ``NamedSharding``s of the template's structure) cuts each leaf to
+    this rank's block (elastic restore onto another mesh)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -147,9 +184,13 @@ def load_checkpoint(directory: str, template, step: Optional[int] = None,
         if name.endswith(".npz"):
             with np.load(os.path.join(path, name)) as z:
                 for k in z.files:
-                    t = _from_numpy(z[k], meta["leaves"][k]["dtype"])
-                    flat[k] = t if device is None else t.to(device)
-    return step, _unflatten_like(template, flat), meta
+                    flat[k] = _from_numpy(z[k], meta["leaves"][k]["dtype"])
+    state = _unflatten_like(template, flat)
+    if shardings is not None:
+        state = map_tree(state, shardings, lambda t, s: s.shard(t))
+    if device is not None:
+        state = map_tree(state, state, lambda t, _: t.to(device))
+    return step, state, meta
 
 
 @dataclasses.dataclass
@@ -160,13 +201,18 @@ class CheckpointManager:
     every: int = 100
     keep: int = 3
 
-    def restore_or_none(self, template, device=None):
+    def restore_or_none(self, template, device=None, shardings=None):
         if latest_step(self.directory) is None:
             return None
-        return load_checkpoint(self.directory, template, device=device)
+        return load_checkpoint(self.directory, template, device=device,
+                               shardings=shardings)
+
+    def due(self, step: int) -> bool:
+        """Whether ``maybe_save`` at ``step`` writes."""
+        return step % self.every == 0 and step > 0
 
     def maybe_save(self, step: int, state, extra_meta=None) -> Optional[str]:
-        if step % self.every == 0 and step > 0:
+        if self.due(step):
             return save_checkpoint(self.directory, step, state,
                                    extra_meta=extra_meta, keep=self.keep)
         return None

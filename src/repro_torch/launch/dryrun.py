@@ -19,8 +19,9 @@ One JSON per cell is written to ``--out``
 ``--force``, so a killed sweep resumes where it stopped.  Several cells
 are counted at once, one spawned process each, up to the CPU count.  The
 reference's mesh flags (``--mesh multi``, ``--tp-act``,
-``--embed-replicated``, ``--moe-tp``) have no counterpart on one card and
-are rejected.
+``--embed-replicated``, ``--moe-tp``) count a sharded program on a
+256- or 512-rank mesh; they wait for the slice after dense tensor
+parallelism over the ``model`` axis and are rejected.
 """
 from __future__ import annotations
 
@@ -140,8 +141,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"],
-                    help="single only: the reference's multi-pod mesh has no "
-                         "counterpart on one card")
+                    help="single only: the multi-chip mesh's cost records "
+                         "wait for dense tensor parallelism")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--smoke", action="store_true",
@@ -161,7 +162,7 @@ def parser() -> argparse.ArgumentParser:
                     help="flash_attention_cv's hand-written backward")
     for flag in REJECTED.values():
         ap.add_argument(flag, action="store_true",
-                        help="rejected: needs the reference's device mesh")
+                        help="rejected: waits for dense tensor parallelism")
     return ap
 
 
@@ -176,11 +177,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
     if args.mesh != "single":
-        ap.error(f"--mesh {args.mesh} (the reference's multi-chip mesh) has no "
-                 "counterpart on one card")
+        ap.error(f"--mesh {args.mesh} (the reference's multi-chip mesh) waits for "
+                 "the slice after dense tensor parallelism")
     for attr, flag in REJECTED.items():
         if getattr(args, attr):
-            ap.error(f"{flag} shards over the reference's device mesh; one card has none")
+            ap.error(f"{flag} costs a sharded program; it waits for the slice after "
+                     "dense tensor parallelism")
     tcfg = TrainConfig(remat=not args.no_remat, causal_skip=args.causal_skip,
                        q_chunk=args.q_chunk, kv_chunk=args.kv_chunk,
                        attn_remat=args.attn_remat, flash_cv=args.flash_cv)

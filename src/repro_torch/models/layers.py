@@ -18,8 +18,12 @@ through ``matmul`` / ``einsum`` below, which promote as JAX does.
 For training, ``flash_attention_cv`` is the reference's custom-VJP
 attention as a ``torch.autograd.Function`` (a tiled backward that
 recomputes each probability tile), and ``flash_attention``'s
-``remat_qchunk`` checkpoints each query chunk.  The expert-parallel
-``moe_ffn_tp`` under ``shard_map`` needs a device mesh and is not here.
+``remat_qchunk`` checkpoints each query chunk.
+
+``moe_ffn_tp`` is the expert-parallel MoE over a process group (the
+``model`` axis of a ``launch.mesh`` mesh): each rank runs only its own
+experts and one all-reduce combines them.  ``make_tp_moe_fn`` installs it
+as ``forward``'s ``moe_fn``, where the reference's ``shard_map`` does.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import math
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
@@ -397,6 +402,95 @@ def top_k_stable(x: torch.Tensor, k: int):
     """``lax.top_k`` over the last axis: on ties the lowest index first."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn_tp(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+               capacity_factor: float = 1.25, group=None):
+    """Expert-parallel MoE dispatch over ``group`` (the model axis):
+    activations are replicated over the group, the expert weights are this
+    rank's [E/n, d, f] block; each rank compacts ONLY the (token, k) pairs
+    routed to its local experts (the drop slot is ``E_loc``, the order a
+    stable sort), runs its experts at capacity ``C = ceil(N * top_k / E *
+    capacity_factor)`` of the local N, and the per-rank partial outputs are
+    summed with one all-reduce (the combine).
+
+    Gradients are those of the dense ``moe_ffn`` over the same tokens: the
+    combine's backward passes the (replicated) cotangent on, and the
+    tokens and router probabilities that feed the local experts go through
+    ``comm.copy_to``, whose backward sums the ranks' partial cotangents.
+    x [N, d] local tokens; returns ([N, d], aux), aux over the local N."""
+    from ..distributed import comm
+    N, d = x.shape
+    E_loc = w_gate.shape[0]
+    n_ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    E = E_loc * n_ranks
+    e_lo = rank * E_loc
+    dev = x.device
+
+    logits = x.float() @ router_w.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, top_e = top_k_stable(comm.copy_to(probs, group), top_k)   # [N, k]
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+
+    eflat = top_e.reshape(-1)                                    # [N*k]
+    frac = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+        0, eflat, torch.ones(N * top_k, dtype=torch.float32, device=dev)) / (N * top_k)
+    aux = E * torch.sum(frac * probs.mean(0))
+
+    # local compaction: (token, k) pairs whose expert lives on this rank
+    local = (eflat >= e_lo) & (eflat < e_lo + E_loc)
+    le = torch.where(local, eflat - e_lo, E_loc)                 # E_loc = drop
+    order = torch.argsort(le, stable=True)                       # locals first
+    sorted_e = le[order]
+    C = int(math.ceil(N * top_k / E * capacity_factor))
+    grp = torch.searchsorted(sorted_e, torch.arange(E_loc + 1, device=dev))
+    pos = torch.arange(N * top_k, device=dev) - grp[torch.clamp(sorted_e, 0, E_loc)]
+    keep = (sorted_e < E_loc) & (pos < C)
+    slot = torch.where(keep, sorted_e * C + pos, E_loc * C)     # E_loc*C = trash row
+    token_of = order // top_k
+
+    xe = comm.copy_to(x, group)
+    xg = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=dev)
+    xg[slot] = xe[token_of]
+    xg = xg[:E_loc * C].reshape(E_loc, C, d)
+    h = F.silu(einsum("ecd,edf->ecf", xg, w_gate)) * einsum("ecd,edf->ecf", xg, w_up)
+    ye = einsum("ecf,efd->ecd", h, w_down).reshape(E_loc * C, d)
+
+    y_sorted = ye[torch.clamp(slot, 0, E_loc * C - 1)]
+    gates_sorted = gate_vals.reshape(-1)[order]
+    w = torch.where(keep, gates_sorted, 0.0).float()
+    y_partial = torch.zeros((N, d), dtype=torch.float32, device=dev).index_add_(
+        0, token_of, y_sorted.float() * w[:, None])
+    y = comm.reduce_sum(y_partial, group)        # the combine (one all-reduce)
+    return y.to(x.dtype), aux
+
+
+def make_tp_moe_fn(mesh, dp_spec, cfg):
+    """``forward``'s ``moe_fn`` running ``moe_ffn_tp`` over the mesh's
+    ``model`` axis (a ``launch.mesh.Mesh``).  ``x`` is this rank's batch
+    shard (the whole batch where ``dp_spec`` is None); whole expert leaves
+    are sliced to this rank's ``model`` block, as ``shard_map``'s in_specs
+    do, and blocks already local are used as given.  The aux loss is
+    averaged over the dp axes.  Shared experts stay dense
+    (``transformer._apply_ffn``)."""
+    from ..distributed import comm
+    group = mesh.group("model")
+    n, r = mesh.shape["model"], mesh.index("model")
+    e_loc = cfg.n_experts // n
+    dp_groups = [mesh.group(a) for a in ("pod", "data") if a in mesh.axis_names]
+
+    def local(w):
+        return w if w.shape[0] == e_loc else w[r * e_loc:(r + 1) * e_loc]
+
+    def moe_fn(p, x):
+        B, S, d = x.shape
+        y, aux = moe_ffn_tp(x.reshape(B * S, d), p.router, local(p.e_gate),
+                            local(p.e_up), local(p.e_down), top_k=cfg.top_k,
+                            capacity_factor=cfg.capacity_factor, group=group)
+        for g in dp_groups:
+            aux = comm.mean(aux, g, scale_grad=dp_spec is not None)
+        return y.reshape(B, S, d), aux
+    return moe_fn
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, *, top_k: int,

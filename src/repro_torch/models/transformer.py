@@ -13,9 +13,12 @@ layouts and dtypes (``wq`` [d, H, hd], ``wo`` [H, hd, d], ``e_gate``
 carries the reference's weights across with a copy.  Parameters do not
 require grad unless a trainer asks (``train.step`` turns it on around its
 backward).  ``forward``'s ``remat`` checkpoints each body period, as the
-reference's ``jax.checkpoint(period_fn)`` does; the sharding hooks
-(``act_shard``, ``logit_shard``, ``moe_fn``) have no meaning on one card
-and are not here.
+reference's ``jax.checkpoint(period_fn)`` does.  The mesh hooks have the
+reference's meaning: ``act_shard`` and ``logit_shard`` are closures applied
+to each layer's activations and to the logits (``launch.sharding``'s
+``act_constraint`` / ``logit_constraint``), and ``moe_fn(p, x)`` replaces
+the routed experts (``layers.make_tp_moe_fn``; the shared experts stay
+dense).
 
 Modality frontends (audio frames / VLM patches) are stubs: the model gets
 precomputed frame/patch embeddings; the in-model projection and the
@@ -218,14 +221,18 @@ def _qkv(p, cfg: ModelConfig, x):
     return q, k, v
 
 
-def _apply_ffn(p, cfg: ModelConfig, x, layer_is_moe: bool):
-    """x [B,S,d] -> (y, aux_loss)."""
+def _apply_ffn(p, cfg: ModelConfig, x, layer_is_moe: bool, moe_fn=None):
+    """x [B,S,d] -> (y, aux_loss).  ``moe_fn`` (optional) overrides the
+    routed-expert implementation (e.g. ``layers.make_tp_moe_fn``)."""
     if layer_is_moe:
         B, S, d = x.shape
-        y, aux = moe_ffn(x.reshape(B * S, d), p.router, p.e_gate, p.e_up,
-                         p.e_down, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor)
-        y = y.reshape(B, S, d)
+        if moe_fn is not None:
+            y, aux = moe_fn(p, x)
+        else:
+            y, aux = moe_ffn(x.reshape(B * S, d), p.router, p.e_gate, p.e_up,
+                             p.e_down, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+            y = y.reshape(B, S, d)
         if cfg.n_shared_experts:
             y = y + swiglu(x, p.s_gate, p.s_up, p.s_down)
         return y, aux
@@ -239,7 +246,7 @@ def _zero(x) -> torch.Tensor:
 def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
                      layer_is_moe: bool, q_chunk: int = 512,
                      kv_chunk: int = 512, causal_skip: bool = False,
-                     attn_remat: bool = False, flash_cv: bool = False):
+                     moe_fn=None, attn_remat: bool = False, flash_cv: bool = False):
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -256,13 +263,13 @@ def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
                                causal_skip=causal_skip, remat_qchunk=attn_remat)
     x = x + einsum("bshk,hkd->bsd", attn, p.wo)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, aux = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
+    y, aux = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn)
     return x + y, aux
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                 layer_is_moe: bool, q_chunk: int = 512, kv_chunk: int = 512,
-                causal_skip: bool = False, attn_remat: bool = False,
+                causal_skip: bool = False, moe_fn=None, attn_remat: bool = False,
                 flash_cv: bool = False):
     """Full-sequence application with no carried state."""
     if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
@@ -270,7 +277,8 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                                 local=(kind == BLOCK_LOCAL_ATTN),
                                 layer_is_moe=layer_is_moe, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk, causal_skip=causal_skip,
-                                attn_remat=attn_remat, flash_cv=flash_cv)
+                                moe_fn=moe_fn, attn_remat=attn_remat,
+                                flash_cv=flash_cv)
     if kind == BLOCK_RECURRENT:
         y, _ = rg.rglru_apply(p, x)
         if cfg.d_ff:
@@ -319,7 +327,8 @@ def unembed(params: Model, cfg: ModelConfig, x) -> torch.Tensor:
 
 def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
-            causal_skip: bool = False, attn_remat: bool = False,
+            causal_skip: bool = False, act_shard=None, logit_shard=None,
+            moe_fn=None, attn_remat: bool = False,
             flash_cv: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,vocab] f32, aux_loss scalar).
 
@@ -328,13 +337,17 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     while autograd records, so serving under ``no_grad`` is unchanged.
     ``attn_remat`` checkpoints each attention query chunk; ``flash_cv``
     selects ``flash_attention_cv``.  The aux loss sums as the reference's
-    does: per layer in the head and tail, per period in the body."""
+    does: per layer in the head and tail, per period in the body.
+    ``act_shard`` is applied to every layer's output, ``logit_shard`` to
+    the float32 logits, and ``moe_fn`` replaces each MoE layer's routed
+    experts."""
     x = embed_inputs(params, cfg, batch)
     B, S, d = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     head, body, tail = stack_segments(cfg)
     opts = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
-                attn_remat=attn_remat, flash_cv=flash_cv)
+                moe_fn=moe_fn, attn_remat=attn_remat, flash_cv=flash_cv)
+    constrain = act_shard if act_shard is not None else (lambda t: t)
 
     def run(x, layers):
         """The layers in order: (x, their aux losses summed from 0)."""
@@ -342,6 +355,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
         for li in layers:
             x, aux = apply_block(params.layers[li], cfg, cfg.block_kind(li), x,
                                  positions, layer_is_moe=layer_is_moe(cfg, li), **opts)
+            x = constrain(x)
             aux_sum = aux_sum + aux
         return x, aux_sum
 
@@ -357,4 +371,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     for li in tail:
         x, aux = run(x, [li])
         aux_total = aux_total + aux
-    return unembed(params, cfg, x), aux_total
+    logits = unembed(params, cfg, x)
+    if logit_shard is not None:
+        logits = logit_shard(logits)
+    return logits, aux_total

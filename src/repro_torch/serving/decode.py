@@ -210,7 +210,7 @@ def decode_step(params: Model, cfg: ModelConfig, caches: List[Cache],
 # ---------------------------------------------------------------------------
 
 def _prefill_attn(p, cfg, x, positions, *, local: bool, layer_is_moe: bool,
-                  q_chunk: int):
+                  q_chunk: int, moe_fn=None):
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -229,15 +229,15 @@ def _prefill_attn(p, cfg, x, positions, *, local: bool, layer_is_moe: bool,
         cache = {"k": k, "v": v}
     x = x + einsum("bshk,hkd->bsd", attn, p.wo)
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
+    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn)
     return x + y, cache
 
 
 def prefill_block(p, cfg: ModelConfig, kind: str, x, positions,
-                  layer_is_moe: bool, q_chunk: int = 512):
+                  layer_is_moe: bool, q_chunk: int = 512, moe_fn=None):
     if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
         return _prefill_attn(p, cfg, x, positions, local=(kind == BLOCK_LOCAL_ATTN),
-                             layer_is_moe=layer_is_moe, q_chunk=q_chunk)
+                             layer_is_moe=layer_is_moe, q_chunk=q_chunk, moe_fn=moe_fn)
     dt = _dtype(cfg.compute_dtype)
     if kind == BLOCK_RECURRENT:
         y, st = rg.rglru_apply(p, x)
@@ -256,14 +256,18 @@ def prefill_block(p, cfg: ModelConfig, kind: str, x, positions,
 
 
 def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            q_chunk: int = 512) -> Tuple[torch.Tensor, List[Cache]]:
-    """Returns (last-position logits [B, vocab] f32, caches sized S)."""
+            q_chunk: int = 512, act_shard=None,
+            moe_fn=None) -> Tuple[torch.Tensor, List[Cache]]:
+    """Returns (last-position logits [B, vocab] f32, caches sized S).
+    ``act_shard`` and ``moe_fn`` are ``forward``'s hooks."""
+    constrain = act_shard if act_shard is not None else (lambda t: t)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     caches = []
     for li, p in enumerate(params.layers):
         x, c = prefill_block(p, cfg, cfg.block_kind(li), x, positions,
-                             layer_is_moe(cfg, li), q_chunk=q_chunk)
+                             layer_is_moe(cfg, li), q_chunk=q_chunk, moe_fn=moe_fn)
+        x = constrain(x)
         caches.append(c)
     return unembed(params, cfg, x[:, -1:])[:, 0], caches

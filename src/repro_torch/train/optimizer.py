@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -96,15 +96,20 @@ def decays(name: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, model: nn.Module, grads: Dict[str, torch.Tensor],
-                 opt_state: OptState) -> Dict[str, torch.Tensor]:
+                 opt_state: OptState, *,
+                 gnorm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One AdamW step in place: the model's parameters, ``m``, ``v`` and
     ``step``.  ``grads`` maps every parameter name to its gradient.
-    Returns {"grad_norm", "lr"} (float32 scalars)."""
+    ``gnorm`` is the gradients' global norm where the caller has it (the
+    whole model's, when ``grads`` are one rank's shards); by default
+    ``global_norm`` of ``grads``.  Returns {"grad_norm", "lr"} (float32
+    scalars)."""
     params = dict(model.named_parameters())
     if set(grads) != set(params):
         raise ValueError(f"gradients for {sorted(set(grads) ^ set(params))} "
                          "missing or unknown")
-    gnorm = global_norm(grads[n] for n in params)
+    if gnorm is None:
+        gnorm = global_norm(grads[n] for n in params)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     opt_state["step"] += 1
     stepf = opt_state["step"].float()

@@ -5,7 +5,9 @@ PyTorch.
 metrics``: the loss, its backward, and ``adamw_update`` applied to the
 model and the optimizer state in place (the port's counterpart of the
 reference's ``donate_argnums=(0, 1)``).  The MoE aux loss and the z-loss
-are folded in as the reference folds them.
+are folded in as the reference folds them.  ``act_shard``, ``logit_shard``
+and ``moe_fn`` are ``forward``'s mesh hooks; the step on a data-parallel
+mesh is ``distributed.fsdp.make_train_step``, which shares ``loss_fn``.
 """
 from __future__ import annotations
 
@@ -28,51 +30,57 @@ class TrainConfig:
     q_chunk: int = 512
     kv_chunk: int = 512
     causal_skip: bool = False
-    tp_act: bool = False     # no effect on one card (the reference's TP sharding)
+    tp_act: bool = False     # shard [B,S,d] activations over model too (raises
+                             # in launch.sharding.act_constraint: dense TP)
     attn_remat: bool = False # recompute attention tiles in backward
     flash_cv: bool = False   # flash_attention_cv's hand-written backward
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
-                  z_loss_weight: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                  z_loss_weight: float = 0.0, *,
+                  count: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits [B,S,V] f32, labels [B,S] int.  Mean NLL over unmasked
-    positions, plus z-loss.  Returns (total, nll)."""
+    positions, plus z-loss.  Returns (total, nll).  ``count`` is the number
+    of unmasked positions the means divide by (``mask.sum()`` by default;
+    the whole batch's when the logits are one data shard of it, so that the
+    shards' losses sum to the batch's)."""
     lse = torch.logsumexp(logits, dim=-1)                            # [B,S]
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]  # [B,S]
     nll = lse - gold
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.float()
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    denom = torch.clamp_min(mask.sum() if count is None else count, 1.0)
     loss = (nll * mask).sum() / denom
     zl = ((lse * lse) * mask).sum() / denom
     return loss + z_loss_weight * zl, loss
 
 
 def loss_fn(model: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            tcfg: TrainConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, {"nll", "aux"})."""
+            tcfg: TrainConfig, act_shard=None, logit_shard=None, moe_fn=None, *,
+            count: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, {"nll", "aux"}); ``count`` as in ``cross_entropy``."""
     logits, aux = forward(model, cfg, batch, remat=tcfg.remat,
                           q_chunk=tcfg.q_chunk, kv_chunk=tcfg.kv_chunk,
-                          causal_skip=tcfg.causal_skip,
+                          causal_skip=tcfg.causal_skip, act_shard=act_shard,
+                          logit_shard=logit_shard, moe_fn=moe_fn,
                           attn_remat=tcfg.attn_remat, flash_cv=tcfg.flash_cv)
     total, nll = cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
-                               tcfg.z_loss_weight)
+                               tcfg.z_loss_weight, count=count)
     total = total + tcfg.aux_loss_weight * aux
     return total, {"nll": nll, "aux": aux}
 
 
-def value_and_grad(model: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                   tcfg: TrainConfig):
-    """(total, {"nll", "aux"}, {name: gradient}): the loss and its backward.
-    The parameters require grad only for the call."""
-    params = dict(model.named_parameters())
+def grads_of(params: Dict[str, torch.nn.Parameter], loss: Callable):
+    """``loss()`` -> (total, parts) run with ``params`` requiring grad, and
+    its backward: (total, parts, {name: gradient}), detached."""
     for p in params.values():
         p.requires_grad_(True)
     try:
         with torch.enable_grad():
-            total, parts = loss_fn(model, cfg, batch, tcfg)
+            total, parts = loss()
             total.backward()
         grads = {}
         for name, p in params.items():
@@ -84,10 +92,20 @@ def value_and_grad(model: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor
     return total.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+def value_and_grad(model: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                   tcfg: TrainConfig, act_shard=None, logit_shard=None, moe_fn=None):
+    """(total, {"nll", "aux"}, {name: gradient}): the loss and its backward.
+    The parameters require grad only for the call."""
+    return grads_of(dict(model.named_parameters()),
+                    lambda: loss_fn(model, cfg, batch, tcfg, act_shard, logit_shard, moe_fn))
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, act_shard=None,
+                    logit_shard=None, moe_fn=None) -> Callable:
     def train_step(model: Model, opt_state: OptState,
                    batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        total, parts, grads = value_and_grad(model, cfg, batch, tcfg)
+        total, parts, grads = value_and_grad(model, cfg, batch, tcfg, act_shard,
+                                             logit_shard, moe_fn)
         opt_metrics = adamw_update(tcfg.opt, model, grads, opt_state)
         return {"loss": total, **parts, **opt_metrics}
     return train_step

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, its
-sessions, language models and training against the CPU, and MapReduceMP
-on multi-shard part meshes against one shard, on a card (the two-card
-cases skip with fewer cards).
+sessions, language models and training against the CPU, MapReduceMP on
+multi-shard part meshes against one shard, and the LM mesh (the FSDP
+step and the expert-parallel MoE) against one card, on a card (the
+two-card cases skip with fewer cards).
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -429,6 +430,49 @@ def test_cuda_flash_cv_grads_match_cpu():
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = chip_smoke.flash_cv_card_against_cpu(seed=0)
     assert set(errs) == {"out", "dq", "dk", "dv"}
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_sharded_step_equals_unsharded():
+    """In a one-rank NCCL group made in this process: the reduced Qwen2's
+    FSDP step on make_test_mesh((1, 1)) against make_train_step (bit-equal,
+    else within chip_smoke's MESH_TOL), and the reduced deepseek's moe_fn
+    over the one-rank model axis against the dense moe_ffn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch.mesh import close_world, init_world, make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_world("cuda")
+    try:
+        mesh = make_test_mesh((1, 1), device=dev)
+        qwen = reduced(ARCHS["qwen2_1_5b"])
+        batches = chip_smoke.mesh_batches(qwen, 2, 64, 2, 0, dev)
+        plain, want = chip_smoke.mesh_train(qwen, batches, 0, dev)
+        sharded, got = chip_smoke.mesh_train(qwen, batches, 0, dev, mesh)
+        chip_smoke.mesh_same_train(sharded, plain, got, want)
+        moe = chip_smoke.mesh_moe(reduced(ARCHS["deepseek_moe_16b"]), mesh, 0, dev, dense=True)
+        assert moe["experts_per_card"] == 4
+    finally:
+        close_world()
+
+
+@pytest.mark.cuda
+def test_cuda_two_card_mesh_equals_one_card(tmp_path):
+    """Two NCCL processes, one a card: Qwen2-1.5B (2 layers, published
+    width) on (2, 1) against its one-card step, and deepseek-moe-16b's
+    moe_fn on (1, 2), 32 experts a card, against the dense forward
+    (chip_smoke.mesh_rank checks both, within MESH_TOL)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import json
+    import torch.multiprocessing as mp
+    mp.spawn(chip_smoke.mesh_rank, args=(2, str(tmp_path), 0), nprocs=2)
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
+    assert {r["device"] for r in ranks} == {"cuda:0", "cuda:1"}
+    assert all(r["moe"]["experts_per_card"] == 32 for r in ranks)
+    assert "m_rel" in ranks[0]["train_vs_one_card"] and "logit_rel" in ranks[0]["moe"]
+    assert "step0_grad_norm_rel" in ranks[0]["raw_init_vs_one_card"]
 
 
 def test_lm_entry_points_need_a_card(monkeypatch):

@@ -680,7 +680,11 @@ def test_port_imports_neither_jax_nor_reference():
             "src/repro_torch/launch/train.py",
             "src/repro_torch/launch/op_cost.py",
             "src/repro_torch/launch/cost_analysis.py",
-            "src/repro_torch/launch/dryrun.py"} <= names
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/sharding.py",
+            "src/repro_torch/distributed/comm.py",
+            "src/repro_torch/distributed/fsdp.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
