@@ -173,10 +173,11 @@ Phases, each printing one JSON line:
                on the attention configs; attn_remat on qwen2_1_5b), the
                loss terms and every leaf of m and v; flash_attention_cv's
                gradients at Qwen2-1.5B's attention shape, card against
-               CPU; Qwen2-1.5B at full depth in float32 (B=1 x 1,024, wq
-               and wk at fan-in d): every gradient leaf equal across remat,
-               no remat, flash_cv and attn_remat; Qwen2-1.5B in bf16, 5
-               steps of 4 x 2,048 tokens (step time, tokens/s, peak
+               CPU; Qwen2-1.5B at full width in float32, 8 layers (B=1 x
+               1,024, wq and wk at fan-in d): every gradient leaf equal
+               across remat, no remat, flash_cv and attn_remat; Qwen2-1.5B
+               in bf16 at full depth, 3 steps of 4 x 2,048 tokens (step
+               time, tokens/s, peak
                memory, one profiled step, beside the cost phase's
                record); and the train CLI on xLSTM-125M at its published
                size, run uninterrupted (beside its record) and killed after
@@ -186,10 +187,12 @@ Phases, each printing one JSON line:
                path): in a one-rank NCCL group made in this process,
                Qwen2-1.5B at published width with depth cut to 2 layers
                (wq and wk at fan-in d, as in train), 3 bf16 train steps
-               of 4 x 2,048 on make_test_mesh((1, 1))
-               (the FSDP path of distributed.fsdp) against
-               make_train_step unsharded (bit-equal, else within
-               MESH_TOL), and deepseek-moe-16b at published width (2
+               of 4 x 2,048 on make_test_mesh((1, 1)) (distributed.fsdp's
+               step: FSDP over data, tensor parallel over model) against
+               make_train_step unsharded, and a prefill of 4 x 2,048 with
+               8 greedy decode steps through distributed.tp on (1, 1)
+               against serving.decode (both bit-equal: a one-rank mesh
+               cuts no leaf), and deepseek-moe-16b at published width (2
                layers: the dense head layer and one MoE layer) forward
                on 2 x 2,048 with make_tp_moe_fn over the one-rank model
                group against the dense moe_ffn; peak memory, resident
@@ -197,7 +200,16 @@ Phases, each printing one JSON line:
                within 60 s.  With two or more cards, one NCCL process per
                card (up to four): the Qwen2 step on (D, 1) and deepseek's
                moe_fn on (1, D) (64 / D experts a card) against one card
-               (the Qwen2 step also at the raw init, its first step held)
+               (the Qwen2 step also at the raw init, its first step
+               held); then dense tensor parallelism on (1, D): Qwen2-1.5B
+               (3 bf16 steps of 4 x 2,048; a prefill of 4 x 2,048 and 8
+               greedy steps with the S-sharded cache of 2,064) and
+               recurrentgemma-9b at published width, 3 layers (r, r,
+               local: 2 steps of 2 x 2,048, a prefill of 2 x 2,048 and 8
+               steps), each against one card within MESH_TOL, greedy
+               tokens equal, every cut leaf, cache and logit
+               block 1/D of one card's bytes; with four cards Qwen2 on
+               (2, 2) too
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
@@ -2627,8 +2639,9 @@ def qk_fan_in_d(cfg, model) -> None:
     Hkv) to fan-in d, in place (see lm_qwen2_consistency)."""
     with torch.no_grad():
         for blk in model.layers:
-            blk.wq.mul_((cfg.n_heads / cfg.d_model) ** 0.5)
-            blk.wk.mul_((cfg.n_kv_heads / cfg.d_model) ** 0.5)
+            if hasattr(blk, "wq"):
+                blk.wq.mul_((cfg.n_heads / cfg.d_model) ** 0.5)
+                blk.wk.mul_((cfg.n_kv_heads / cfg.d_model) ** 0.5)
 
 
 def lm_serve(aid: str, cfg, B: int, S: int, new: int, seed: int, *,
@@ -2767,22 +2780,24 @@ def phase_lm(seed: int, cost: dict) -> None:
 # shift of every input-gate logit) holds rounding noise, so a leaf's scale
 # is at least TRAIN_FLOOR of the largest over all leaves (its square for v).
 TRAIN_LOSS_RTOL, TRAIN_RTOL, TRAIN_FLOOR = 1e-4, 1e-3, 1e-6
-# Qwen2-1.5B at full depth in float32, wq and wk at fan-in d: every
-# gradient leaf of each variant (remat off, flash_cv, attn_remat) against
-# remat on, to TRAIN_CONSIST of the leaf's largest magnitude (floored as
-# above).  The variants change the summation order (flash_cv's backward)
-# or recompute the same ops; none changes the math.
+# Qwen2-1.5B at full width in float32, depth cut to TRAIN_CONSIST_LAYERS
+# (the script's time limit), wq and wk at fan-in d: every gradient leaf of each variant (remat off, flash_cv,
+# attn_remat) against remat on, to TRAIN_CONSIST of the leaf's largest
+# magnitude (floored as above).  The variants change the summation order
+# (flash_cv's backward) or recompute the same ops; none changes the math.
 TRAIN_CONSIST = 1e-3
+TRAIN_CONSIST_LAYERS = 8
 # xLSTM-125M's train CLI killed after its first commit and resumed: the
 # logged losses of the steps both runs took agree to TRAIN_RESUME (absolute;
 # the log prints four decimals).  The CLI's default batch and length; a
 # step takes 5.6-6.1 s on the card (the mLSTM is a sequential scan in
-# every config, about 160,000 host-dispatched ops a step), so 8 steps with
-# a commit every 4, not 30 with one every 10, which took 385 s.
+# every config, about 160,000 host-dispatched ops a step), so 6 steps with
+# a commit every 3, not 30 with one every 10, which took 385 s.
 TRAIN_RESUME = 1e-3
-TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 8, 4
-# Qwen2-1.5B's bf16 steps: batch, sequence length
+TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 6, 3
+# Qwen2-1.5B's bf16 steps: batch, sequence length; how many steps
 TRAIN_BF16 = (4, 2048)
+TRAIN_BF16_STEPS = 3
 TRAIN_CLI = ["--arch", "xlstm-125m", "--steps", str(TRAIN_CLI_STEPS), "--batch", "8",
              "--seq", "128", "--ckpt-every", str(TRAIN_CLI_EVERY), "--log-every", "1"]
 
@@ -2877,16 +2892,16 @@ def flash_cv_card_against_cpu(seed: int, B: int = 1, S: int = 1024) -> dict:
 
 
 def train_qwen2_consistency(seed: int, S: int = 1024) -> dict:
-    """Gradients of Qwen2-1.5B (float32, full width and depth, wq and wk at
-    fan-in d, B=1 x S) under four variants of the same loss: remat on (kept
-    on the host), remat off, flash_cv, attn_remat.  Every leaf to
-    TRAIN_CONSIST."""
+    """Gradients of Qwen2-1.5B (float32, full width, TRAIN_CONSIST_LAYERS
+    layers, wq and wk at fan-in d, B=1 x S) under four variants of the same
+    loss: remat on (kept on the host), remat off, flash_cv, attn_remat.
+    Every leaf to TRAIN_CONSIST."""
     from repro_torch.configs import ARCHS
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.models.transformer import init_params
     from repro_torch.train.step import TrainConfig, value_and_grad
-    cfg = dataclasses.replace(ARCHS["qwen2_1_5b"], param_dtype="float32",
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(ARCHS["qwen2_1_5b"], n_layers=TRAIN_CONSIST_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
     model = init_params(cfg, seed, device="cuda")
     qk_fan_in_d(cfg, model)
     b = TokenPipeline(vocab=cfg.vocab, batch=1, seq=S, seed=seed).batch_at(0)
@@ -2894,7 +2909,8 @@ def train_qwen2_consistency(seed: int, S: int = 1024) -> dict:
     variants = {"remat": TrainConfig(remat=True), "no_remat": TrainConfig(remat=False),
                 "flash_cv": TrainConfig(remat=True, flash_cv=True),
                 "attn_remat": TrainConfig(remat=True, attn_remat=True)}
-    rec, base, base_loss = {"batch": 1, "seq": S, "tolerance": TRAIN_CONSIST}, None, None
+    rec, base, base_loss = {"layers": cfg.n_layers, "batch": 1, "seq": S,
+                            "tolerance": TRAIN_CONSIST}, None, None
     for name, tcfg in variants.items():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2949,7 +2965,7 @@ def profile_train_step(step, name: str) -> dict:
 
 
 def train_qwen2_bf16(seed: int, B: int = TRAIN_BF16[0], S: int = TRAIN_BF16[1],
-                     steps: int = 5) -> dict:
+                     steps: int = TRAIN_BF16_STEPS) -> dict:
     """Qwen2-1.5B, the published config at full depth in bf16: ``steps``
     train steps of B x S tokens from the token pipeline with
     ``TrainConfig(remat=True, flash_cv=True)``; the loss, grad norm and every
@@ -3014,8 +3030,8 @@ def train_qwen2_bf16(seed: int, B: int = TRAIN_BF16[0], S: int = TRAIN_BF16[1],
     rec = {"layers": cfg.n_layers, "batch": B, "seq": S, "tokens_per_step": B * S,
            "n_params": n_params, "reference_init": raw, "qk_fan_in_d": True,
            "losses": losses, "grad_norms": norms,
-           "step_ms": times, "step_ms_median_2_5": float(np.median(warm)),
-           "step_ms_min_max_2_5": [min(warm), max(warm)],
+           "step_ms": times, "step_ms_median_warm": float(np.median(warm)),
+           "step_ms_min_max_warm": [min(warm), max(warm)],
            "tokens_per_s": B * S / (float(np.median(warm)) / 1e3),
            "max_memory_allocated": peak, "resident_before_bytes": resident,
            "leaves_moved": len(moved), "leaves": n_leaves,
@@ -3122,7 +3138,7 @@ def phase_train(seed: int, cost: dict) -> None:
     consistency = train_qwen2_consistency(seed)
     bf16 = train_qwen2_bf16(seed)
     bf16["against_dry_run"] = against_record(
-        cost["qwen2_train"], bf16["step_ms_median_2_5"] / 1e3, bf16["max_memory_allocated"])
+        cost["qwen2_train"], bf16["step_ms_median_warm"] / 1e3, bf16["max_memory_allocated"])
     (ROOT / "build").mkdir(exist_ok=True)
     workdir = Path(tempfile.mkdtemp(prefix="chip-smoke-train-", dir=ROOT / "build"))
     try:
@@ -3147,9 +3163,13 @@ def phase_train(seed: int, cost: dict) -> None:
 # distributed.fsdp, layers.make_tp_moe_fn); no graph kernel on its path
 # ---------------------------------------------------------------------------
 
-MESH_LAYERS = 2            # both configs' depth cut; every width published
+MESH_LAYERS = 2            # Qwen2's and deepseek's depth cut; every width published
 MESH_TRAIN = (4, 2048, 3)  # Qwen2-1.5B: batch, sequence, bf16 train steps
 MESH_MOE = (2, 2048)       # deepseek-moe-16b: batch, sequence (forward)
+MESH_SERVE = (4, 2048, 8, 2064)  # Qwen2-1.5B: batch, prompt, greedy steps, s_max
+MESH_RG = (3, 2, 2048, 2)  # recurrentgemma-9b: layers (r, r, local), batch,
+                           # sequence, bf16 train steps; served at MESH_SERVE's
+                           # greedy steps and s_max
 # Where the sharded step is not bit-equal to the unsharded one (wq and wk
 # at fan-in d), its losses and grad norms must agree to these (readings on
 # two and four H100s: losses 2.1e-6 and 7.5e-6, grad norms 6.1e-5 and
@@ -3163,16 +3183,26 @@ MESH_MOE = (2, 2048)       # deepseek-moe-16b: batch, sequence (forward)
 # near one-hot attention grows rounding over the later steps.  The
 # expert-parallel forward's logits (over their largest magnitude) and aux
 # loss to logit_rel and aux_rtol (its combine sums float32 partials with
-# index_add_, whose order on the card varies).
+# index_add_, whose order on the card varies); so are the sharded prefill
+# and decode logits, whose greedy tokens must equal one card's.  A
+# tensor-parallel step rounds each row-parallel product's bf16 partial
+# sums before adding them, where one card rounds the whole sum once: its
+# grad norm is held to tp_grad_norm_rtol and m to tp_m_rel (readings on
+# "NVIDIA H100 80GB HBM3, 700.00 W": grad norms 2.1e-4 at (1, 2), 3.1e-4
+# and 3.1e-4 at (1, 4) for Qwen2-1.5B and recurrentgemma-9b, 3.0e-4 at
+# (2, 2); m 4.4e-2, 2.8e-2, 3.2e-2 and 1.5e-2, in w_gate and ln2), its
+# loss and parameters as above (losses 2.7e-5 at most).
 MESH_TOL = {"loss_rtol": 5e-5, "grad_norm_rtol": 3e-4, "m_rel": 2e-2, "param_ulps": 3,
-            "raw_step0_rtol": 1e-5, "logit_rel": 2e-2, "aux_rtol": 1e-3}
+            "raw_step0_rtol": 1e-5, "logit_rel": 2e-2, "aux_rtol": 1e-3,
+            "tp_grad_norm_rtol": 1e-3, "tp_m_rel": 8e-2}
 MESH_BUDGET_S = 60.0
 
 
 def mesh_cfgs() -> tuple:
     from repro_torch.configs import ARCHS
     return (dataclasses.replace(ARCHS["qwen2_1_5b"], n_layers=MESH_LAYERS),
-            dataclasses.replace(ARCHS["deepseek_moe_16b"], n_layers=MESH_LAYERS))
+            dataclasses.replace(ARCHS["deepseek_moe_16b"], n_layers=MESH_LAYERS),
+            dataclasses.replace(ARCHS["recurrentgemma_9b"], n_layers=MESH_RG[0]))
 
 
 def tensor_bytes(ts) -> int:
@@ -3186,21 +3216,58 @@ def mesh_batches(cfg, B: int, S: int, n: int, seed: int, dev) -> list:
             for i in range(n)]
 
 
-def mesh_train(cfg, batches: list, seed: int, dev, mesh=None, *,
-               fan_in_d: bool = True) -> tuple:
-    """``len(batches)`` bf16 train steps of Qwen2 from ``init_params(seed)``,
-    wq and wk at fan-in d unless ``fan_in_d`` is off (see
-    lm_qwen2_consistency: the raw init's near one-hot attention turns
-    rounding into gradient differences): FSDP-sharded over ``mesh`` (each
-    rank fed its rows) or, with no mesh, ``train.make_train_step`` on the
-    card.  (record, {"params", "m"}: whole leaves)."""
-    from repro_torch.distributed import fsdp
+def mesh_model(cfg, seed: int, dev, fan_in_d: bool = True):
     from repro_torch.models.transformer import init_params
-    from repro_torch.train import TrainConfig, init_opt_state, make_train_step
-    tcfg = TrainConfig(remat=True, flash_cv=True)
     model = init_params(cfg, seed, device=dev)
     if fan_in_d:
         qk_fan_in_d(cfg, model)
+    return model
+
+
+def spec_parts(spec, mesh) -> int:
+    """Into how many blocks a spec cuts a leaf on ``mesh``."""
+    from repro_torch.launch.sharding import spec_axes
+    n = 1
+    for e in spec:
+        for a in spec_axes(e):
+            n *= mesh.shape[a]
+    return n
+
+
+def cut_bytes(model) -> tuple:
+    """(this rank's bytes of the parameters the mesh cuts, the same leaves'
+    whole bytes, how many leaves are cut)."""
+    from repro_torch.distributed import fsdp
+    plan = fsdp.plan_of(model)
+    cut = [(n, p) for n, p in model.named_parameters() if spec_parts(plan.specs[n], plan.mesh) > 1]
+    return (tensor_bytes(p for _, p in cut),
+            sum(tensor_bytes([p]) * spec_parts(plan.specs[n], plan.mesh) for n, p in cut), len(cut))
+
+
+def gather_logits(logits, cfg, mesh, B: int):
+    """This rank's [B_local, V/M] logits -> the whole [B, V]."""
+    from repro_torch.distributed import comm, tp
+    from repro_torch.launch.sharding import _batch_dim_spec
+    lg = tp.whole_logits(logits, mesh, cfg.vocab)
+    if _batch_dim_spec(mesh, B) is not None:
+        with torch.no_grad():
+            lg = comm.all_gather(lg, 0, mesh.group("data"))
+    return lg
+
+
+def mesh_train(cfg, batches: list, seed: int, dev, mesh=None, *,
+               fan_in_d: bool = True) -> tuple:
+    """``len(batches)`` bf16 train steps from ``init_params(seed)``, wq and
+    wk at fan-in d unless ``fan_in_d`` is off (see lm_qwen2_consistency:
+    the raw init's near one-hot attention turns rounding into gradient
+    differences): sharded over ``mesh`` by its specs (FSDP over data,
+    tensor parallel over model; each rank fed its rows) or, with no mesh,
+    ``train.make_train_step`` on the card.  (record, {"params", "m"}:
+    whole leaves)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.train import TrainConfig, init_opt_state, make_train_step
+    tcfg = TrainConfig(remat=True, flash_cv=True)
+    model = mesh_model(cfg, seed, dev, fan_in_d)
     B = batches[0]["tokens"].shape[0]
     if mesh is None:
         step_fn, feed = make_train_step(cfg, tcfg), batches
@@ -3214,10 +3281,9 @@ def mesh_train(cfg, batches: list, seed: int, dev, mesh=None, *,
            "opt_bytes": tensor_bytes([*opt["m"].values(), *opt["v"].values()]),
            "losses": [], "grad_norms": [], "lrs": [], "step_s": []}
     if mesh is not None:
-        plan = fsdp.plan_of(model)
-        rec["sharded_leaves"] = sum(d is not None for d in plan.dims.values())
-        rec["sharded_param_bytes"] = tensor_bytes(p for n, p in model.named_parameters()
-                                                  if plan.dims[n] is not None)
+        rec["mesh"] = [mesh.shape["data"], mesh.shape["model"]]
+        rec["sharded_param_bytes"], rec["sharded_whole_bytes"], rec["sharded_leaves"] = \
+            cut_bytes(model)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     for b in feed:
@@ -3236,11 +3302,13 @@ def mesh_train(cfg, batches: list, seed: int, dev, mesh=None, *,
 
 
 def mesh_same_train(got: dict, want: dict, got_state: dict, want_state: dict, *,
-                    raw_init: bool = False) -> dict:
-    """Bit-equal, or each difference against MESH_TOL; at the raw init the
-    first step's loss and grad norm only.  ``m_rel`` is the largest leaf's
-    error over its scale, ``param_excess`` the largest amount by which a
-    parameter element passes its bound (<= 0)."""
+                    raw_init: bool = False, tp: bool = False, tol: dict = MESH_TOL) -> dict:
+    """Bit-equal, or each difference against ``tol`` (``ok``; its tp_
+    entries for a tensor-parallel step); at the raw init the first step's
+    loss and grad norm only.  ``m_rel`` is the
+    largest leaf's error over its scale, ``param_excess`` the largest
+    amount by which a parameter element passes its bound (<= 0; the ulps
+    are the parameters' dtype's)."""
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
     gp, wp, gm, wm = (got_state["params"], want_state["params"], got_state["m"],
                       want_state["m"])
@@ -3248,7 +3316,7 @@ def mesh_same_train(got: dict, want: dict, got_state: dict, want_state: dict, *,
                and all(torch.equal(gp[n], w) for n, w in wp.items())
                and all(torch.equal(gm[n], w) for n, w in wm.items()))
     lrs = 2 * sum(want["lrs"])
-    ulp = MESH_TOL["param_ulps"] * 2.0 ** -7
+    ulp = lambda w: tol["param_ulps"] * torch.finfo(w.dtype).eps
     diff = lambda n, w: (gp[n].float() - w.float()).abs()
     top = max(float(w.abs().max()) for w in wm.values())
     m_rel = {n: float((gm[n] - w).abs().max()) / max(float(w.abs().max()), 1e-6 * top, 1e-30)
@@ -3262,15 +3330,93 @@ def mesh_same_train(got: dict, want: dict, got_state: dict, want_state: dict, *,
            "step0_grad_norm_rel": rel(got["grad_norms"][0], want["grad_norms"][0]),
            "m_rel": m_rel[worst], "m_rel_leaf": worst,
            "param_abs_max": max(float(diff(n, w).max()) for n, w in wp.items()),
-           "param_excess": max(float((diff(n, w) - lrs - ulp * w.float().abs()).max())
+           "param_excess": max(float((diff(n, w) - lrs - ulp(w) * w.float().abs()).max())
                                for n, w in wp.items())}
     if raw_init:
-        ok = max(out["step0_loss_rel"], out["step0_grad_norm_rel"]) <= MESH_TOL["raw_step0_rtol"]
+        ok = max(out["step0_loss_rel"], out["step0_grad_norm_rel"]) <= tol["raw_step0_rtol"]
     else:
-        ok = bitwise or (out["loss_rel"] <= MESH_TOL["loss_rtol"]
-                         and out["grad_norm_rel"] <= MESH_TOL["grad_norm_rtol"]
-                         and out["m_rel"] <= MESH_TOL["m_rel"] and out["param_excess"] <= 0)
-    check(ok, f"lm_mesh: the sharded step differs {out}")
+        pre = "tp_" if tp else ""
+        ok = bitwise or (out["loss_rel"] <= tol["loss_rtol"]
+                         and out["grad_norm_rel"] <= tol[pre + "grad_norm_rtol"]
+                         and out["m_rel"] <= tol[pre + "m_rel"] and out["param_excess"] <= 0)
+    out["ok"] = bool(ok)
+    return out
+
+
+def mesh_serve(cfg, seed: int, dev, B: int, S: int, new: int, s_max: int, mesh=None,
+               tokens=None) -> tuple:
+    """A prefill of B x S prompt tokens and ``new`` decode steps of the bf16
+    model (wq and wk at fan-in d): unsharded (``serving.decode``, the
+    caches grown to ``s_max``) or on ``mesh`` (``distributed.tp``'s
+    programs, each rank its rows and blocks).  Each step feeds ``tokens``
+    (one card's greedy choices, teacher-forced so that a tie broken the
+    other way does not fork the run) when given, else its own argmax.
+    (record, {"logits": the whole [B, V] of the prefill and each step, on
+    the host, "tokens": the argmax of each})."""
+    from repro_torch.distributed import fsdp, tp
+    from repro_torch.serving.decode import decode_step, grow_caches, prefill
+    model = mesh_model(cfg, seed, dev)
+    batch = {"tokens": mesh_batches(cfg, B, S, 1, seed, dev)[0]["tokens"]}
+    if mesh is None:
+        run_prefill = lambda: prefill(model, cfg, batch)
+        step = lambda caches, tok, pos: decode_step(model, cfg, caches, {"token": tok}, pos)
+    else:
+        fsdp.shard_model(model, mesh)
+        local = fsdp.local_batch(batch, mesh)
+        pre, dec = tp.make_prefill(cfg, mesh, B, s_max), tp.make_decode_step(cfg, mesh, B, s_max)
+        run_prefill = lambda: pre(model, local)
+        step = lambda caches, tok, pos: dec(model, caches,
+                                            fsdp.local_batch({"token": tok}, mesh), pos)
+    rec = {"batch": B, "prompt": S, "new": new, "s_max": s_max,
+           "param_bytes": tensor_bytes(model.parameters())}
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, caches = run_prefill()
+        torch.cuda.synchronize(dev)
+        rec["prefill_s"] = time.perf_counter() - t0
+        if mesh is None:
+            caches = grow_caches(cfg, caches, s_max - S)
+        rec["cache_bytes"] = tensor_bytes(t for c in caches for t in c.values())
+        rec["logit_bytes"] = tensor_bytes([last])
+        if mesh is not None:
+            from repro_torch.launch.sharding import cache_shardings
+            specs = cache_shardings(cfg, mesh, B, s_max)
+            rec["cache_whole_bytes"] = sum(tensor_bytes([t]) * spec_parts(specs[i][k], mesh)
+                                           for i, c in enumerate(caches) for k, t in c.items())
+            rec["logit_whole_bytes"] = tensor_bytes([last]) * spec_parts(
+                tp.logits_spec(mesh, B, cfg.vocab), mesh)
+        out = {"logits": [], "tokens": []}
+        step_s = []
+        for i in range(new + 1):
+            lg = last if mesh is None else gather_logits(last, cfg, mesh, B)
+            out["logits"].append(lg.float().cpu())
+            out["tokens"].append(lg.argmax(-1).cpu())
+            if i == new:
+                break
+            tok = (tokens[i] if tokens is not None else out["tokens"][i]).to(dev)
+            t1 = time.perf_counter()
+            last, caches = step(caches, tok, S + i)
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t1)
+    rec["decode_token_s"] = step_s
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    check(all(bool(torch.isfinite(l).all()) for l in out["logits"]),
+          "lm_mesh: non-finite serving logits")
+    return rec, out
+
+
+def mesh_same_serve(got: dict, want: dict, tol: dict = MESH_TOL) -> dict:
+    """A sharded serving run against one card's (``ok``): every step's
+    whole logits within ``tol``'s logit_rel and its greedy tokens equal
+    one card's."""
+    out = {"bitwise": all(torch.equal(g, w) for g, w in zip(got["logits"], want["logits"])),
+           "logit_rel": [lm_err(g, w) for g, w in zip(got["logits"], want["logits"])],
+           "tokens_differing": sum(int((g != w).sum()) for g, w in
+                                   zip(got["tokens"], want["tokens"]))}
+    out["tokens_equal"] = out["tokens_differing"] == 0
+    out["ok"] = max(out["logit_rel"]) <= tol["logit_rel"] and out["tokens_equal"]
     return out
 
 
@@ -3308,18 +3454,53 @@ def mesh_moe(cfg, mesh, seed: int, dev, *, dense: bool) -> dict:
     return rec
 
 
+def mesh_on_cards(cfg, seed: int, dev, mesh, rank: int, *, train: tuple, serve: tuple,
+                  one: dict, tol: dict = MESH_TOL) -> dict:
+    """One config tensor parallel on ``mesh`` (every rank calls): its
+    train steps and its serving run, each against one card's within
+    ``tol`` (computed by rank 0 into ``one`` first, once per config; the
+    one card's greedy tokens are broadcast and teacher-forced, so that a
+    differing token shows at its step alone).  Rank 0 checks and records
+    the comparisons."""
+    B, S, steps = train
+    batches = mesh_batches(cfg, B, S, steps, seed, dev)
+    if rank == 0 and "train" not in one:
+        one["train"], one["state"] = mesh_train(cfg, batches, seed, dev)
+        one["serve"], one["served"] = mesh_serve(cfg, seed, dev, *serve)
+        free_cuda()
+    torch.distributed.barrier()
+    rec = {}
+    rec["train"], full = mesh_train(cfg, batches, seed, dev, mesh)
+    if rank == 0:
+        rec["train_vs_one_card"] = mesh_same_train(rec["train"], one["train"], full, one["state"],
+                                                   tp=True, tol=tol)
+    del full
+    free_cuda()
+    tokens = torch.stack(one["served"]["tokens"]).to(dev) if rank == 0 else \
+        torch.zeros((serve[2] + 1, serve[0]), dtype=torch.int64, device=dev)
+    torch.distributed.broadcast(tokens, src=0)
+    rec["serve"], got = mesh_serve(cfg, seed, dev, *serve, mesh=mesh, tokens=tokens.cpu())
+    if rank == 0:
+        rec["serve_vs_one_card"] = mesh_same_serve(got, one["served"], tol)
+    free_cuda()
+    torch.distributed.barrier()
+    return rec
+
+
 def mesh_rank(rank: int, world: int, workdir: str, seed: int) -> None:
     """One card of the multi-card ``lm_mesh`` run (a spawned process):
-    Qwen2-1.5B's step on (world, 1) and deepseek's moe_fn on (1, world);
-    rank 0 also runs both on its own card alone and writes the record.
-    The Qwen2 step runs twice: wq and wk at fan-in d (every step, m and
-    the parameters checked against one card) and at the raw init (its
+    Qwen2-1.5B's step on (world, 1), deepseek's moe_fn on (1, world), then
+    tensor parallelism on (1, world): Qwen2-1.5B and recurrentgemma-9b
+    trained and served; with four cards Qwen2's step on (2, 2) too.  Rank
+    0 also runs each on its own card alone and writes the record.  The
+    (world, 1) Qwen2 step runs twice: wq and wk at fan-in d (every step,
+    m and the parameters checked against one card) and at the raw init (its
     first step checked: its near one-hot attention makes the later
     gradients depend on the rows' split, as on one card)."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     from repro_torch.launch.mesh import close_world, init_world, make_test_mesh
     dev = init_world("cuda", init_method=f"file://{workdir}/store")
-    qwen, deepseek = mesh_cfgs()
+    qwen, deepseek, rg = mesh_cfgs()
     B, S, steps = MESH_TRAIN
     batches = mesh_batches(qwen, B, S, steps, seed, dev)
     rec = {"rank": rank, "device": str(dev)}
@@ -3336,8 +3517,27 @@ def mesh_rank(rank: int, world: int, workdir: str, seed: int) -> None:
         del full
         free_cuda()
         torch.distributed.barrier()
-    rec["moe"] = mesh_moe(deepseek, make_test_mesh((1, world), device=dev), seed, dev,
-                          dense=rank == 0)
+    tp_mesh = make_test_mesh((1, world), device=dev)
+    rec["moe"] = mesh_moe(deepseek, tp_mesh, seed, dev, dense=rank == 0)
+    free_cuda()
+    t0 = time.perf_counter()
+    one_qwen, one_rg = {}, {}
+    rec["tp_qwen2"] = mesh_on_cards(qwen, seed, dev, tp_mesh, rank, train=MESH_TRAIN,
+                                    serve=MESH_SERVE, one=one_qwen)
+    rg_serve = (MESH_RG[1], MESH_RG[2], MESH_SERVE[2], MESH_SERVE[3])
+    rec["tp_recurrentgemma"] = mesh_on_cards(rg, seed, dev, tp_mesh, rank, train=MESH_RG[1:],
+                                             serve=rg_serve, one=one_rg)
+    one_rg.pop("state", None)
+    free_cuda()
+    if world == 4:
+        m22 = make_test_mesh((2, 2), device=dev)
+        rec["tp_qwen2_2x2"] = mesh_on_cards(qwen, seed, dev, m22, rank, train=MESH_TRAIN,
+                                            serve=MESH_SERVE, one=one_qwen)
+    if rank == 0:
+        rec["tp_one_card"] = {"qwen2": {k: one_qwen[k] for k in ("train", "serve")},
+                              "recurrentgemma": {k: one_rg[k] for k in ("train", "serve")}}
+    rec["tp_s"] = time.perf_counter() - t0
+    del one_qwen, one_rg
     free_cuda()
     Path(workdir, f"rank{rank}.json").write_text(json.dumps(rec))
     close_world()
@@ -3346,13 +3546,17 @@ def mesh_rank(rank: int, world: int, workdir: str, seed: int) -> None:
 def phase_lm_mesh(seed: int) -> None:
     """The LM mesh on one card in a one-rank NCCL group made in this
     process: Qwen2-1.5B at published width (2 layers; wq and wk at fan-in
-    d) for MESH_TRAIN's bf16 steps on ``make_test_mesh((1, 1))`` (FSDP
-    path) against ``make_train_step`` unsharded; deepseek-moe-16b at
-    published width (2 layers: the dense head layer and one MoE layer)
-    forward with ``make_tp_moe_fn`` over a one-rank model group against
-    the dense ``moe_ffn``.  With two or more cards, one NCCL process per
-    card (up to four): the Qwen2 step on (D, 1) and deepseek on (1, D)
-    against one card."""
+    d) for MESH_TRAIN's bf16 steps on ``make_test_mesh((1, 1))`` (the
+    FSDP / tensor-parallel step) against ``make_train_step`` unsharded,
+    and its prefill and greedy decode through ``distributed.tp`` on
+    (1, 1) against ``serving.decode`` (bit-equal: a one-rank mesh cuts no
+    leaf); deepseek-moe-16b at published width (2 layers: the dense head
+    layer and one MoE layer) forward with ``make_tp_moe_fn`` over a
+    one-rank model group against the dense ``moe_ffn``.  With two or more
+    cards, one NCCL process per card (up to four): the Qwen2 step on
+    (D, 1), deepseek on (1, D), and tensor parallelism on (1, D) for
+    Qwen2-1.5B and recurrentgemma-9b (3 layers), each against one card;
+    with four, Qwen2 on (2, 2) too."""
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import close_world, init_world, make_test_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3361,7 +3565,7 @@ def phase_lm_mesh(seed: int) -> None:
     free_cuda()
     launches0 = dict(build.LAUNCHES)
     t0 = time.perf_counter()
-    qwen, deepseek = mesh_cfgs()
+    qwen, deepseek, rg = mesh_cfgs()
     B, S, steps = MESH_TRAIN
     dev = init_world("cuda")
     try:
@@ -3371,7 +3575,16 @@ def phase_lm_mesh(seed: int) -> None:
         free_cuda()
         sharded, got = mesh_train(qwen, batches, seed, dev, mesh)
         same = mesh_same_train(sharded, plain, got, want)
+        check(same["ok"], f"lm_mesh: the sharded step differs {same}")
         del want, got
+        free_cuda()
+        serve_plain, served = mesh_serve(qwen, seed, dev, *MESH_SERVE)
+        free_cuda()
+        serve_1x1, got = mesh_serve(qwen, seed, dev, *MESH_SERVE, mesh=mesh)
+        serve_same = mesh_same_serve(got, served)
+        check(serve_same["bitwise"] and serve_same["tokens_equal"],
+              f"lm_mesh: (1, 1) serving is not the unsharded serving {serve_same}")
+        del served, got
         free_cuda()
         moe = mesh_moe(deepseek, mesh, seed, dev, dense=True)
         free_cuda()
@@ -3392,18 +3605,32 @@ def phase_lm_mesh(seed: int) -> None:
             multi["ranks"] = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
+    emit("lm_mesh", layers=MESH_LAYERS, train_shape=MESH_TRAIN, moe_shape=MESH_MOE,
+         serve_shape=MESH_SERVE, recurrentgemma_shape=MESH_RG,
+         tolerances=MESH_TOL, qwen2_unsharded=plain, qwen2_sharded_1x1=sharded,
+         qwen2_sharded_vs_unsharded=same, qwen2_serve_unsharded=serve_plain,
+         qwen2_serve_1x1=serve_1x1, qwen2_serve_1x1_vs_unsharded=serve_same,
+         deepseek_moe_fn_vs_dense=moe, one_card_s=one_card_s, multi_card=multi,
+         graph_kernel_launches=launched, seconds=time.perf_counter() - t0)
+    check(not any(launched.values()), f"lm_mesh: a graph kernel launched {launched}")
+    if n >= 2:          # checked after the line is printed, so a failure shows its numbers
         devices = {r["device"] for r in multi["ranks"]}
         check(len(devices) == n, f"lm_mesh: ranks on {devices}")
+        r0 = multi["ranks"][0]
+        for key, cmp in [(k, r0[k]) for k in ("train_vs_one_card", "raw_init_vs_one_card")] + [
+                (f"{k}.{c}", r0[k][c]) for k in ("tp_qwen2", "tp_recurrentgemma", "tp_qwen2_2x2")
+                if k in r0 for c in ("train_vs_one_card", "serve_vs_one_card")]:
+            check(cmp["ok"], f"lm_mesh: {key} differs from one card {cmp}")
         for r in multi["ranks"]:
             check(r["moe"]["experts_per_card"] == deepseek.n_experts // n,
                   f"lm_mesh: rank {r['rank']} computed {r['moe']['experts_per_card']} experts")
-    launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
-    check(not any(launched.values()), f"lm_mesh: a graph kernel launched {launched}")
-    emit("lm_mesh", layers=MESH_LAYERS, train_shape=MESH_TRAIN, moe_shape=MESH_MOE,
-         tolerances=MESH_TOL, qwen2_unsharded=plain, qwen2_sharded_1x1=sharded,
-         qwen2_sharded_vs_unsharded=same, deepseek_moe_fn_vs_dense=moe,
-         one_card_s=one_card_s, multi_card=multi, graph_kernel_launches=launched,
-         seconds=time.perf_counter() - t0)
+            for key in ("tp_qwen2", "tp_recurrentgemma"):       # (1, D): 1/D a card
+                t, s = r[key]["train"], r[key]["serve"]
+                check(t["sharded_param_bytes"] * n == t["sharded_whole_bytes"]
+                      and s["cache_bytes"] * n == s["cache_whole_bytes"]
+                      and s["logit_bytes"] * n == s["logit_whole_bytes"],
+                      f"lm_mesh: rank {r['rank']} {key} holds other than 1/{n}")
 
 
 # ---------------------------------------------------------------------------

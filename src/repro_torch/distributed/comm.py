@@ -12,6 +12,14 @@ ranks' partial cotangents.
                                      or slices it when ``reduce`` is off
                                      (every rank computed the same thing)
   reduce_sum(t, group)               all-reduce (sum); backward identity
+  reduce_scatter(t, dim, group)      the sum of the ranks' tensors, this rank's
+                                     block of it along ``dim``; backward
+                                     all-gathers the blocks' cotangents
+  split(t, dim, group)               this rank's block of a tensor every rank
+                                     holds alike; backward all-gathers
+  all_max(t, group)                  all-reduce (max), outside autograd (the
+                                     log-sum-exp's shift, which carries no
+                                     gradient)
   copy_to(t, group)                  identity; backward all-reduce (sum)
   mean(t, group, scale_grad)         all-reduce mean; backward divides the
                                      cotangent by the group's size when
@@ -71,6 +79,30 @@ class _ReduceSum(Function):
         return g, None
 
 
+class _ReduceScatter(Function):
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.args = (dim, group)
+        return _scatter(t, dim, group, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None
+
+
+class _Split(Function):
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.args = (dim, group)
+        return _scatter(t, dim, group, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None
+
+
 class _CopyTo(Function):
 
     @staticmethod
@@ -118,6 +150,21 @@ def all_gather(t: torch.Tensor, dim: int, group, reduce: bool = True) -> torch.T
 
 def reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     return _ReduceSum.apply(t, group)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _ReduceScatter.apply(t, dim, group)
+
+
+def split(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _Split.apply(t, dim, group)
+
+
+@torch.no_grad()
+def all_max(t: torch.Tensor, group) -> torch.Tensor:
+    out = t.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
 
 
 def copy_to(t: torch.Tensor, group) -> torch.Tensor:

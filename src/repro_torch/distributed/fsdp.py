@@ -1,21 +1,25 @@
-"""Data-parallel FSDP on a (D, 1) mesh: the JAX package's train CLI layout
-(``make_test_mesh((jax.device_count(), 1))`` with ``param_shardings`` and
-``opt_shardings``) over ``torch.distributed``.
+"""FSDP over ``data`` with dense tensor parallelism over ``model`` on a
+(D, M) mesh: the JAX package's ``param_shardings`` / ``opt_shardings``
+layout (its train CLI's ``make_test_mesh((jax.device_count(), 1))``, its
+``build_cell`` train program) over ``torch.distributed``.
 
 Placement.  ``shard_model`` keeps, of every parameter, the block its
-resolved spec gives this rank: a leaf whose ``embed`` dim the ``data``
-axis divides is cut along that dim (the reference's ``addressable_shards``),
-any other leaf stays whole on every rank.  ``shard_opt_state`` cuts ``m``
-and ``v`` the same way; ``init_opt_state`` of a sharded model gives the
-same zeros.  AdamW runs on the local blocks.
+resolved spec gives this rank (the reference's ``addressable_shards``): a
+leaf is cut along its ``embed`` dim where the ``data`` axis divides it and
+along its heads / mlp / vocab / experts / lru dim where the ``model`` axis
+divides it; any other dim stays whole on every rank.  ``shard_opt_state``
+cuts ``m`` and ``v`` the same way; ``init_opt_state`` of a sharded model
+gives the same zeros.  AdamW runs on the local blocks.  ``distributed.tp``
+says how the blocks run over ``model``; this module handles ``data``.
 
 The step.  The forward reads the model through a view whose every
-parameter read all-gathers the whole leaf (``comm.all_gather``, one
-layer's weights at a time; a checkpointed body period gathers again in
-its recompute) and whose backward reduce-scatters the gradient back to
-the block.  This is FSDP written out: an all-gather / reduce-scatter
-``autograd.Function`` around each leaf instead of ``fully_shard``, so that
-each reduction is the one the math needs, on gloo and NCCL alike.
+parameter read all-gathers the leaf over ``data`` (``comm.all_gather``,
+one layer's weights at a time; a checkpointed body period gathers again
+in its recompute; the ``model`` block stays local) and whose backward
+reduce-scatters the gradient back to the block.  This is FSDP written
+out: an all-gather / reduce-scatter ``autograd.Function`` around each leaf
+instead of ``fully_shard``, so that each reduction is the one the math
+needs, on gloo and NCCL alike.
 
 ``jit`` with shardings never changes the reference's math, so the
 sharded step computes what the one-process step computes; every
@@ -27,14 +31,20 @@ operation that mixes the batch is combined across ``data``:
   * the dense ``moe_ffn`` routes, sorts, drops by capacity and computes its
     aux loss over the whole batch: each MoE layer all-gathers its tokens
     over ``data``, runs on all of them, and keeps its own rows (the aux
-    loss, replicated, sends 1/D of its cotangent from each rank);
-  * the global gradient norm adds each sharded leaf's block sums of squares
-    across ranks and each replicated leaf's once;
+    loss, replicated, sends 1/D of its cotangent from each rank;
+    ``tp.whole_batch_moe``), unless ``make_train_step`` is given a
+    ``moe_fn`` (``layers.make_tp_moe_fn``: capacity and aux per data
+    shard, as in the reference's step with its ``moe_fn``);
+  * the global gradient norm adds each leaf's block sums of squares across
+    the axes that cut it, and each replicated leaf's once;
   * a batch that ``data`` does not divide is replicated
     (``_batch_dim_spec`` is None): every rank runs the whole batch, and no
     gradient is summed.
-A one-rank mesh replicates every leaf (the resolver shards only over an
-axis wider than 1), so its step is the one-process step's, bit for bit.
+Over ``model`` every operation is combined inside the forward and its
+backward (``distributed.tp``), so the losses and the gradients of the
+blocks are the same on every model rank.  A one-rank mesh replicates
+every leaf (the resolver shards only over an axis wider than 1), so its
+step is the one-process step's, bit for bit.
 """
 from __future__ import annotations
 
@@ -47,26 +57,28 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from ..convert import lm_named_from_tree, lm_tree_from_named
-from ..launch.sharding import (DENSE_TP, NamedSharding, ShardingRules, Spec,
-                               _batch_dim_spec, act_constraint,
-                               logit_constraint, named_specs, spec_axes)
+from ..launch.sharding import (NamedSharding, ShardingRules, Spec, _batch_dim_spec,
+                               act_constraint, logit_constraint, named_specs, spec_axes,
+                               spec_dim)
 from ..models.config import ModelConfig
-from ..models.layers import moe_ffn
 from ..models.transformer import Model
 from ..train.optimizer import OptState, adamw_update
 from ..train.step import TrainConfig, grads_of, loss_fn
 from . import comm
 from .checkpoint import map_tree
+from .tp import model_axis, whole_batch_moe
 
 
 @dataclasses.dataclass
 class MeshPlan:
-    """Where a sharded model's leaves lie: each parameter's spec and the dim
-    cut over ``data`` (None where the spec replicates the leaf)."""
+    """Where a sharded model's leaves lie: each parameter's spec, the dim
+    cut over ``data`` and the dim cut over ``model`` (None where the spec
+    puts that axis nowhere)."""
 
     mesh: Any
     specs: Dict[str, Spec]
     dims: Dict[str, Optional[int]]
+    mdims: Dict[str, Optional[int]]
 
     @property
     def group(self):
@@ -81,17 +93,16 @@ class MeshPlan:
 
 
 def _check_mesh(mesh) -> None:
-    if "data" not in mesh.axis_names:
-        raise ValueError(f"a data-parallel mesh needs a 'data' axis: {mesh.axis_names}")
-    wide = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+    if "data" not in mesh.axis_names or "model" not in mesh.axis_names:
+        raise ValueError(f"the mesh needs 'data' and 'model' axes: {mesh.axis_names}")
+    wide = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
     if wide:
-        raise NotImplementedError(f"mesh axes {wide}: the trainer runs on (D, 1); "
-                                  + DENSE_TP)
+        raise NotImplementedError(f"mesh axes {wide}: the trainer runs on "
+                                  "('data', 'model') meshes")
 
 
-def _data_dim(spec: Spec) -> Optional[int]:
-    dims = [d for d, e in enumerate(spec) if "data" in spec_axes(e)]
-    return dims[0] if dims else None
+def _cut(plan: MeshPlan, name: str) -> bool:
+    return plan.dims[name] is not None or plan.mdims[name] is not None
 
 
 def plan_of(model: nn.Module) -> MeshPlan:
@@ -108,10 +119,11 @@ def shard_model(model: Model, mesh) -> Model:
     _check_mesh(mesh)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     specs = named_specs(shapes, ShardingRules(mesh))
-    plan = MeshPlan(mesh, specs, {n: _data_dim(s) for n, s in specs.items()})
+    plan = MeshPlan(mesh, specs, {n: spec_dim(s, "data") for n, s in specs.items()},
+                    {n: spec_dim(s, "model") for n, s in specs.items()})
     with torch.no_grad():
         for n, p in model.named_parameters():
-            if plan.dims[n] is not None:
+            if _cut(plan, n):
                 p.data = plan.sharding(n).shard(p.data)
     model.mesh_plan = plan
     return model
@@ -124,7 +136,7 @@ def shard_opt_state(opt: OptState, model: Model, mesh) -> OptState:
         raise ValueError("the model was sharded over another mesh")
     out = {"step": opt["step"]}
     for key in ("m", "v"):
-        out[key] = {n: t if plan.dims[n] is None else plan.sharding(n).shard(t)
+        out[key] = {n: plan.sharding(n).shard(t) if _cut(plan, n) else t
                     for n, t in opt[key].items()}
     return out
 
@@ -133,14 +145,19 @@ def full_leaves(model: Model, leaves: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
     """{name: the whole leaf} of name-keyed blocks laid out like the
     model's parameters (by default the parameters; or ``m``, ``v``),
-    gathered over ``data``; every rank calls."""
+    gathered over ``data`` and ``model``; every rank calls."""
     plan = plan_of(model)
     if leaves is None:
         leaves = dict(model.named_parameters())
+    out = {}
     with torch.no_grad():
-        return {n: t.detach() if plan.dims[n] is None
-                else comm.all_gather(t.detach(), plan.dims[n], plan.group)
-                for n, t in leaves.items()}
+        for n, t in leaves.items():
+            t = t.detach()
+            for dim, axis in ((plan.dims[n], "data"), (plan.mdims[n], "model")):
+                if dim is not None:
+                    t = comm.all_gather(t, dim, plan.mesh.group(axis))
+            out[n] = t
+    return out
 
 
 def checkpoint_state(cfg: ModelConfig, model: Model, opt: OptState) -> Dict[str, Any]:
@@ -209,8 +226,10 @@ def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
 
 
 class _Gathered:
-    """A sharded module seen whole: a parameter read all-gathers its leaf
-    (a replicated leaf is read as it is); submodules are viewed alike."""
+    """A sharded module seen whole over ``data``: a parameter read
+    all-gathers its leaf over ``data`` (a leaf ``data`` does not cut is read
+    as it is; the ``model`` block stays this rank's); submodules are viewed
+    alike."""
 
     __slots__ = ("_module", "_plan", "_prefix", "_reduce")
 
@@ -231,51 +250,39 @@ class _Gathered:
         return v
 
 
-def _whole_batch_moe(cfg: ModelConfig, group) -> Callable:
-    """``moe_fn`` for the dense ``moe_ffn`` on a data shard: route the whole
-    batch's tokens, as the one-process step does, and keep this rank's."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-
-    def moe_fn(p, x):
-        b, S, d = x.shape
-        xs = comm.all_gather(x, 0, group)                 # [n*b, S, d]
-        y, aux = moe_ffn(xs.reshape(n * b * S, d), p.router, p.e_gate, p.e_up,
-                         p.e_down, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
-        return y.reshape(n * b, S, d)[r * b:(r + 1) * b], comm.scale_grad(aux, 1.0 / n)
-    return moe_fn
-
-
 def global_norm(grads: Dict[str, torch.Tensor], plan: MeshPlan) -> torch.Tensor:
-    """The whole model's gradient norm from this rank's blocks: a sharded
-    leaf's sum of squares is added across ``data``, a replicated leaf's
-    counted once (``optimizer.global_norm``'s order)."""
+    """The whole model's gradient norm from this rank's blocks: a leaf's
+    sum of squares is added across each axis that cuts it, a replicated
+    leaf's counted once (``optimizer.global_norm``'s order)."""
     sq = {n: torch.sum(torch.square(g.float())) for n, g in grads.items()}
-    cut = [n for n in sq if plan.dims[n] is not None]
-    if cut:
-        v = torch.stack([sq[n] for n in cut])
-        dist.all_reduce(v, op=dist.ReduceOp.SUM, group=plan.group)
-        sq.update(zip(cut, v.unbind()))
+    for axis, dims in (("data", plan.dims), ("model", plan.mdims)):
+        cut = [n for n in sq if dims[n] is not None]
+        if cut:
+            v = torch.stack([sq[n] for n in cut])
+            dist.all_reduce(v, op=dist.ReduceOp.SUM, group=plan.mesh.group(axis))
+            sq.update(zip(cut, v.unbind()))
     return torch.sqrt(sum(sq.values()))
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int) -> Callable:
-    """``train_step(model, opt_state, local) -> metrics`` on a (D, 1) mesh
-    for global batches of ``batch`` rows: ``model`` went through
-    ``shard_model``, ``opt_state`` is its blocks' state, and ``local`` is
-    this rank's rows (``local_batch``).  The metrics are the whole batch's,
-    the same on every rank."""
+def make_value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int,
+                        moe_fn=None) -> Callable:
+    """``value_and_grad(model, local) -> (total, {"nll", "aux"}, grads)`` on
+    ``mesh`` for global batches of ``batch`` rows: the whole batch's loss
+    terms (the same on every rank) and the gradient of each of this rank's
+    blocks (``train.step.value_and_grad`` of the one-process model, cut).
+    ``moe_fn`` replaces the whole-batch MoE (``make_train_step``)."""
     _check_mesh(mesh)
-    act = act_constraint(mesh, batch, tp_act=tcfg.tp_act)
+    act = act_constraint(mesh, batch, tp_act=tcfg.tp_act, d_model=cfg.d_model)
     logit = logit_constraint(mesh, batch, cfg.vocab)
+    tp = model_axis(mesh, cfg, tp_act=tcfg.tp_act)
+    routed = moe_fn if moe_fn is not None else whole_batch_moe(cfg, mesh, batch)
     sharded = _batch_dim_spec(mesh, batch) is not None
 
-    def train_step(model: Model, opt_state: OptState,
-                   local: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def value_and_grad(model: Model, local: Dict[str, torch.Tensor]):
         plan = plan_of(model)
         if plan.mesh is not mesh:
             raise ValueError("the model was sharded over another mesh")
         group = plan.group
-        routed = _whole_batch_moe(cfg, group) if cfg.is_moe and sharded else None
         mask = local.get("loss_mask")
         count = (mask.float().sum() if mask is not None else
                  torch.tensor(float(local["labels"].numel()), device=local["labels"].device))
@@ -284,7 +291,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int) -> Ca
         view = _Gathered(model, plan, "", sharded)
         total, parts, grads = grads_of(
             dict(model.named_parameters()),
-            lambda: loss_fn(view, cfg, local, tcfg, act, logit, routed, count=count))
+            lambda: loss_fn(view, cfg, local, tcfg, act, logit, routed, count=count, tp=tp))
         if sharded:
             for n, g in grads.items():
                 if plan.dims[n] is None:
@@ -295,7 +302,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int) -> Ca
             dist.all_reduce(ln, op=dist.ReduceOp.SUM, group=group)
             aux_term = tcfg.aux_loss_weight * parts["aux"]
             total, parts["nll"] = ln[0] - (plan.size - 1) * aux_term, ln[1]
+        return total, parts, grads
+    return value_and_grad
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int,
+                    moe_fn=None) -> Callable:
+    """``train_step(model, opt_state, local) -> metrics`` on a (D, M) mesh
+    for global batches of ``batch`` rows: ``model`` went through
+    ``shard_model``, ``opt_state`` is its blocks' state, and ``local`` is
+    this rank's rows (``local_batch``).  The metrics are the whole batch's,
+    the same on every rank.  ``moe_fn`` (``layers.make_tp_moe_fn``)
+    replaces the dense MoE's whole-batch routing."""
+    grad_fn = make_value_and_grad(cfg, tcfg, mesh, batch, moe_fn)
+
+    def train_step(model: Model, opt_state: OptState,
+                   local: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        total, parts, grads = grad_fn(model, local)
         opt_metrics = adamw_update(tcfg.opt, model, grads, opt_state,
-                                   gnorm=global_norm(grads, plan))
+                                   gnorm=global_norm(grads, plan_of(model)))
         return {"loss": total, **parts, **opt_metrics}
     return train_step

@@ -142,7 +142,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"],
                     help="single only: the multi-chip mesh's cost records "
-                         "wait for dense tensor parallelism")
+                         "wait for the slice after dense tensor parallelism")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--smoke", action="store_true",
@@ -162,7 +162,8 @@ def parser() -> argparse.ArgumentParser:
                     help="flash_attention_cv's hand-written backward")
     for flag in REJECTED.values():
         ap.add_argument(flag, action="store_true",
-                        help="rejected: waits for dense tensor parallelism")
+                        help="rejected: waits for the slice after dense tensor "
+                             "parallelism")
     return ap
 
 

@@ -22,9 +22,10 @@ that leading None.  Specs are keyed by the port's parameter names
 by layer (``serving.decode``'s list of dicts).
 
 ``act_constraint`` and ``logit_constraint`` return closures that check a
-tensor is this rank's batch shard and hand it back; dense tensor
-parallelism over ``model`` (heads, mlp, vocab, lru, ``tp_act``) is the next
-slice of the port, and asking for it raises ``NotImplementedError``.
+tensor is this rank's block and hand it back: the reference's
+``with_sharding_constraint`` asks XLA for a layout, and the port's
+programs (``distributed.fsdp``, ``distributed.tp``) compute in that
+layout, so the closure checks it.
 """
 from __future__ import annotations
 
@@ -41,9 +42,6 @@ from .mesh import dp_axes
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
-
-DENSE_TP = ("dense tensor parallelism over the 'model' axis (heads, kv_heads, "
-            "mlp, vocab, lru, tp_act) is the next slice of the port")
 
 # leaf name -> logical axis per (trailing) dim
 AXES_BY_NAME: Dict[str, Tuple[Optional[str], ...]] = {
@@ -127,6 +125,12 @@ def spec_axes(entry: Entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dim a spec puts on ``axis`` (None where it puts it nowhere)."""
+    dims = [d for d, e in enumerate(spec) if axis in spec_axes(e)]
+    return dims[0] if dims else None
 
 
 @dataclasses.dataclass
@@ -293,36 +297,39 @@ def local_batch_size(mesh, batch: int) -> int:
     return batch // n
 
 
-def _no_model_axis(mesh, what: str) -> None:
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(f"{what} on a model axis of {mesh.shape['model']}: "
-                                  + DENSE_TP)
+def _last_dim(mesh, n: Optional[int], cut: bool) -> Optional[int]:
+    """This rank's share of a last dim of ``n`` entries: n / M where
+    ``cut`` and the model axis M divides n, else n (None: not checked)."""
+    M = mesh.shape.get("model", 1)
+    if n is None or not cut or n % M:
+        return n
+    return n // M
 
 
-def _batch_check(mesh, batch: int, what: str):
+def _block_check(mesh, batch: int, last: Optional[int], what: str):
     rows = local_batch_size(mesh, batch)
 
     def constrain(x):
-        if x.ndim == 3 and x.shape[0] != rows:
-            raise ValueError(f"{what}: {tuple(x.shape)} is not this rank's "
-                             f"{rows} of {batch} rows")
+        if x.ndim == 3 and (x.shape[0] != rows
+                            or (last is not None and x.shape[-1] != last)):
+            raise ValueError(f"{what}: {tuple(x.shape)} is not this rank's block "
+                             f"[{rows} of {batch} rows, S, {last}]")
         return x
     return constrain
 
 
 def logit_constraint(mesh, batch: int, vocab: int):
-    """The [B, S, V] logits' closure: batch over dp (the rank's shard), vocab
-    replicated.  The reference shards vocab over ``model``; that is dense
-    tensor parallelism and raises here."""
-    _no_model_axis(mesh, "logit_constraint")
-    return _batch_check(mesh, batch, "logits")
+    """The [B, S, V] logits' closure: batch over dp, vocab over ``model``
+    where M divides it; it checks x is this rank's [B_local, S, V/M] block
+    (V where the vocab is whole)."""
+    return _block_check(mesh, batch, _last_dim(mesh, vocab, True), "logits")
 
 
-def act_constraint(mesh, batch: int, *, tp_act: bool = False):
-    """The [B, S, d] block activations' closure: batch over dp (the rank's
-    shard), d replicated.  ``tp_act`` (d over ``model``) and a model axis
-    wider than 1 are dense tensor parallelism and raise."""
-    if tp_act:
-        raise NotImplementedError("tp_act: " + DENSE_TP)
-    _no_model_axis(mesh, "act_constraint")
-    return _batch_check(mesh, batch, "activations")
+def act_constraint(mesh, batch: int, *, tp_act: bool = False,
+                   d_model: Optional[int] = None):
+    """The [B, S, d] block activations' closure: batch over dp, d
+    replicated, or with ``tp_act`` over ``model`` where M divides it.  It
+    checks x is this rank's [B_local, S, d] block ([B_local, S, d/M] under
+    ``tp_act``); the last dim only when ``d_model`` is given (the
+    reference's closure takes no width)."""
+    return _block_check(mesh, batch, _last_dim(mesh, d_model, tp_act), "activations")

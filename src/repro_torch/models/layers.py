@@ -65,6 +65,74 @@ class Leaves(nn.Module):
             t.copy_(init(t.shape, gen, t.device))    # float32 -> leaf dtype
 
 
+class Whole:
+    """The ``model`` axis as the block code reads it, here for one process:
+    every leaf is whole and every collective is the identity, so the block
+    code runs the one-process math op for op.  ``distributed.tp.ModelAxis``
+    is the same interface over a mesh's ``model`` group, where a leaf may
+    be this rank's block (``cut``) and the collectives are ``comm``'s.
+
+    A tensor is *replicated* (every rank holds it alike, with the same
+    cotangent), *partial* (this rank's share of a sum) or this rank's
+    *block* of a dim.  The residual stream is replicated, or under
+    ``act`` (``tp_act``) this rank's block of d."""
+
+    size, rank, act, seq_len = 1, 0, False, None
+
+    def cut(self, local: int, full: int) -> bool:
+        """Whether a dim of ``full`` entries is held as this rank's block."""
+        return local != full
+
+    def offset(self, full: int) -> int:
+        """Where this rank's block of a dim of ``full`` entries starts."""
+        return self.rank * (full // self.size)
+
+    def cols(self, x):
+        """A replicated input to a product with cut columns."""
+        return x
+
+    def part(self, w):
+        """A replicated leaf of which each rank uses its own part: its
+        gradient is summed over the ranks."""
+        return w
+
+    def reduce(self, y):
+        """Partial -> replicated (the sum)."""
+        return y
+
+    def scatter(self, y, dim: int):
+        """Partial -> this rank's block of the sum along ``dim``."""
+        return y
+
+    def split(self, y, dim: int):
+        """Replicated -> this rank's block along ``dim``."""
+        return y
+
+    def gather(self, t, dim: int):
+        """Blocks along ``dim`` -> the whole tensor (every rank computed
+        the same thing: the backward slices)."""
+        return t
+
+    def max(self, t):
+        """The elementwise max over the ranks, with no gradient."""
+        return t
+
+    def enter(self, x):
+        """The residual stream -> replicated (a block's input)."""
+        return x
+
+    def exit(self, y):
+        """A block's partial output -> the residual stream's layout."""
+        return y
+
+    def exit_whole(self, y):
+        """A block's replicated output -> the residual stream's layout."""
+        return y
+
+
+WHOLE = Whole()
+
+
 def zeros(shape, gen, device):
     return torch.zeros(tuple(shape), dtype=torch.float32, device=device)
 

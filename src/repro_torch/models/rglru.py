@@ -9,6 +9,12 @@ The JAX package's ``models/rglru.py`` in PyTorch.  Prefill evaluates the
 recurrence with a log-depth scan over S (Hillis–Steele doubling with the
 reference's ``combine``, in place of ``jax.lax.associative_scan``);
 decode is the exact single step.  State is O(1) in sequence length.
+
+Over a mesh's ``model`` axis (``tp``) the lru width is cut: ``w_in``,
+``w_gate_branch``, ``conv_w``, ``lam`` and ``w_out``'s rows are this rank's
+block, the gates' [w, w] products sum each rank's rows and keep its
+columns (a reduce-scatter), the scan and the state run on the local
+width, and ``w_out``'s partial output is summed.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ from typing import Dict
 
 import torch
 
-from .layers import Leaves, gelu, matmul, normal, rms_norm, zeros
+from .layers import WHOLE, Leaves, gelu, matmul, normal, rms_norm, zeros
 from .xlstm import _causal_conv1d
 
 _C = 8.0  # the paper's fixed gate sharpness
@@ -53,9 +59,9 @@ def rglru_state_init(batch: int, width: int, conv_width: int = 4,
     }
 
 
-def _gates(params, xc):
-    r = torch.sigmoid(xc.float() @ params.w_rgate.float())
-    i = torch.sigmoid(xc.float() @ params.w_igate.float())
+def _gates(params, xc, tp=WHOLE):
+    r = torch.sigmoid(tp.scatter(xc.float() @ params.w_rgate.float(), -1))
+    i = torch.sigmoid(tp.scatter(xc.float() @ params.w_igate.float(), -1))
     softplus = torch.logaddexp(params.lam, torch.zeros_like(params.lam))
     log_a = -_C * softplus * r
     a = torch.exp(log_a)
@@ -79,19 +85,24 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_apply(params, x, state=None):
+def rglru_apply(params, x, state=None, *, tp=WHOLE):
     """x [B,S,d]; returns (y [B,S,d], new_state).  Log-depth scan over S for
     S > 1; exact single step for S == 1 (decode).  The conv state comes
-    back rounded to bf16 in every config, as in the reference."""
-    B, S, d = x.shape
+    back rounded to bf16 in every config, as in the reference.  Under
+    ``tp`` x and y are in the residual stream's layout, and the state is
+    on the local width."""
+    B, S = x.shape[:2]
     width = params.w_in.shape[1]
+    cut = tp.cut(width, params.w_rgate.shape[1])      # this rank's block of the lru width
     if state is None:
         state = rglru_state_init(B, width, params.conv_w.shape[0], x.device)
-    xn = rms_norm(x, params.norm)
+    xn = rms_norm(tp.enter(x), params.norm)
+    if cut:
+        xn = tp.cols(xn)
     xi = matmul(xn, params.w_in)                        # [B,S,w]
     xg = gelu(matmul(xn, params.w_gate_branch))        # gate branch
     xc, conv_cache = _causal_conv1d(xi, params.conv_w, state["conv"])
-    a, gx = _gates(params, xc)                          # [B,S,w] f32
+    a, gx = _gates(params, xc, tp if cut else WHOLE)    # [B,S,w] f32
 
     if S == 1:
         h = a[:, 0] * state["h"] + gx[:, 0]
@@ -103,5 +114,6 @@ def rglru_apply(params, x, state=None):
         h = hs[:, -1]
 
     y = matmul(hs.to(x.dtype) * xg, params.w_out)
+    y = tp.exit(y) if cut else tp.exit_whole(y)
     return x + y, {"h": h, "conv": conv_cache.to(torch.bfloat16)}
 

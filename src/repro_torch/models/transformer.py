@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from .config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MLSTM,
                      BLOCK_RECURRENT, BLOCK_SLSTM, FAMILY_AUDIO, FAMILY_VLM,
                      ModelConfig)
-from .layers import (Leaves, apply_rope, dense, einsum, flash_attention,
+from .layers import (WHOLE, Leaves, apply_rope, dense, einsum, flash_attention,
                      flash_attention_cv, gelu, local_attention, moe_ffn, rms_norm,
                      swiglu, zeros)
 from . import rglru as rg
@@ -206,24 +206,70 @@ def abstract_params(cfg: ModelConfig) -> Model:
 # Block application (shared by forward / prefill / decode)
 # ---------------------------------------------------------------------------
 
-def _qkv(p, cfg: ModelConfig, x):
-    """x [B,S,d] -> q [B,S,H,hd], k/v [B,S,Hkv,hd] with bias/qk-norm."""
+def heads_cut(p, cfg: ModelConfig, tp=WHOLE) -> bool:
+    """Whether the block holds this rank's query heads only."""
+    return tp.cut(p.wq.shape[1], cfg.n_heads)
+
+
+def _qkv(p, cfg: ModelConfig, x, tp=WHOLE):
+    """x [B,S,d] (replicated) -> q [B,S,H,hd], k/v [B,S,Hkv,hd] with
+    bias/qk-norm.  With the heads cut, q holds this rank's heads and k/v
+    this rank's kv heads, or all of them where ``kv_heads`` is replicated
+    (``kv_for_heads`` then picks the ones the local q heads read)."""
+    wk, wv, bk, bv = p.wk, p.wv, p.bk if cfg.qkv_bias else None, \
+        p.bv if cfg.qkv_bias else None
+    q_norm = k_norm = None
+    if cfg.qk_norm:
+        q_norm, k_norm = p.q_norm, p.k_norm
+    if heads_cut(p, cfg, tp):
+        x = tp.cols(x)
+        # replicated leaves each rank uses for its own heads only
+        part = lambda w: None if w is None else tp.part(w)
+        if not tp.cut(wk.shape[1], cfg.n_kv_heads):
+            wk, wv, bk, bv = part(wk), part(wv), part(bk), part(bv)
+        q_norm, k_norm = part(q_norm), part(k_norm)
     q = einsum("bsd,dhk->bshk", x, p.wq)
-    k = einsum("bsd,dhk->bshk", x, p.wk)
-    v = einsum("bsd,dhk->bshk", x, p.wv)
+    k = einsum("bsd,dhk->bshk", x, wk)
+    v = einsum("bsd,dhk->bshk", x, wv)
     if cfg.qkv_bias:
         q = q + p.bq.to(q.dtype)
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
+        k = k + bk.to(k.dtype)
+        v = v + bv.to(v.dtype)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     return q, k, v
 
 
-def _apply_ffn(p, cfg: ModelConfig, x, layer_is_moe: bool, moe_fn=None):
-    """x [B,S,d] -> (y, aux_loss).  ``moe_fn`` (optional) overrides the
-    routed-expert implementation (e.g. ``layers.make_tp_moe_fn``)."""
+def kv_for_heads(cfg: ModelConfig, tp, n_local: int, k, v):
+    """The kv heads this rank's ``n_local`` query heads read (GQA: q head
+    h reads kv head h // (H / Hkv)), where k/v hold all ``n_kv_heads``
+    and the q heads are cut: a contiguous range when the local heads
+    cover whole groups or lie in one, else one kv head per q head."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if n_local == H or k.shape[2] != Hkv:
+        return k, v
+    G, lo = H // Hkv, tp.offset(H)
+    if n_local % G == 0 or G % n_local == 0:
+        first, n = lo // G, max(n_local // G, 1)
+        return k[:, :, first:first + n], v[:, :, first:first + n]
+    idx = torch.tensor([(lo + h) // G for h in range(n_local)], device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _swiglu(x, w_gate, w_up, w_down, full: int, tp=WHOLE):
+    """SwiGLU of a replicated x -> the residual stream's layout: column-
+    then row-parallel where the ``full``-wide hidden dim is cut."""
+    if tp.cut(w_gate.shape[-1], full):
+        return tp.exit(swiglu(tp.cols(x), w_gate, w_up, w_down))
+    return tp.exit_whole(swiglu(x, w_gate, w_up, w_down))
+
+
+def _apply_ffn(p, cfg: ModelConfig, x, layer_is_moe: bool, moe_fn=None, tp=WHOLE):
+    """x [B,S,d] (replicated) -> (y in the residual stream's layout,
+    aux_loss).  ``moe_fn`` (optional) overrides the routed-expert
+    implementation (e.g. ``layers.make_tp_moe_fn``); it takes and gives
+    replicated tokens."""
     if layer_is_moe:
         B, S, d = x.shape
         if moe_fn is not None:
@@ -233,24 +279,36 @@ def _apply_ffn(p, cfg: ModelConfig, x, layer_is_moe: bool, moe_fn=None):
                              p.e_down, top_k=cfg.top_k,
                              capacity_factor=cfg.capacity_factor)
             y = y.reshape(B, S, d)
+        y = tp.exit_whole(y)
         if cfg.n_shared_experts:
-            y = y + swiglu(x, p.s_gate, p.s_up, p.s_down)
+            y = y + _swiglu(x, p.s_gate, p.s_up, p.s_down,
+                            cfg.n_shared_experts * cfg.expert_d_ff, tp)
         return y, aux
-    return swiglu(x, p.w_gate, p.w_up, p.w_down), _zero(x)
+    ff = cfg.dense_d_ff if (cfg.is_moe and cfg.dense_d_ff) else cfg.d_ff
+    return _swiglu(x, p.w_gate, p.w_up, p.w_down, ff, tp), _zero(x)
 
 
 def _zero(x) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def attn_out(p, cfg: ModelConfig, attn, tp=WHOLE):
+    """The output projection of attention over the block's q heads -> the
+    residual stream's layout (row-parallel where the heads are cut)."""
+    o = einsum("bshk,hkd->bsd", attn, p.wo)
+    return tp.exit(o) if heads_cut(p, cfg, tp) else tp.exit_whole(o)
+
+
 def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
                      layer_is_moe: bool, q_chunk: int = 512,
                      kv_chunk: int = 512, causal_skip: bool = False,
-                     moe_fn=None, attn_remat: bool = False, flash_cv: bool = False):
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
-    q, k, v = _qkv(p, cfg, h)
+                     moe_fn=None, attn_remat: bool = False, flash_cv: bool = False,
+                     tp=WHOLE):
+    h = rms_norm(tp.enter(x), p.ln1, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = kv_for_heads(cfg, tp, q.shape[2], k, v)
     S = x.shape[1]
     qc = min(q_chunk, S)
     kc = min(kv_chunk, S)
@@ -261,16 +319,25 @@ def apply_attn_block(p, cfg: ModelConfig, x, positions, *, local: bool,
     else:
         attn = flash_attention(q, k, v, causal=True, q_chunk=qc, kv_chunk=kc,
                                causal_skip=causal_skip, remat_qchunk=attn_remat)
-    x = x + einsum("bshk,hkd->bsd", attn, p.wo)
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, aux = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn)
+    x = x + attn_out(p, cfg, attn, tp)
+    h2 = rms_norm(tp.enter(x), p.ln2, cfg.norm_eps)
+    y, aux = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn, tp)
     return x + y, aux
+
+
+def rglru_ffn(p, cfg: ModelConfig, y, tp=WHOLE):
+    """The recurrent block's FFN on its RG-LRU output (residual layout)."""
+    if cfg.d_ff:
+        h2 = rms_norm(tp.enter(y), p.ln2, cfg.norm_eps)
+        f, _aux = _apply_ffn(p.ffn, cfg, h2, False, tp=tp)
+        y = y + f
+    return y
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                 layer_is_moe: bool, q_chunk: int = 512, kv_chunk: int = 512,
                 causal_skip: bool = False, moe_fn=None, attn_remat: bool = False,
-                flash_cv: bool = False):
+                flash_cv: bool = False, tp=WHOLE):
     """Full-sequence application with no carried state."""
     if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
         return apply_attn_block(p, cfg, x, positions,
@@ -278,20 +345,16 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
                                 layer_is_moe=layer_is_moe, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk, causal_skip=causal_skip,
                                 moe_fn=moe_fn, attn_remat=attn_remat,
-                                flash_cv=flash_cv)
+                                flash_cv=flash_cv, tp=tp)
     if kind == BLOCK_RECURRENT:
-        y, _ = rg.rglru_apply(p, x)
-        if cfg.d_ff:
-            h2 = rms_norm(y, p.ln2, cfg.norm_eps)
-            f, _aux = _apply_ffn(p.ffn, cfg, h2, False)
-            y = y + f
-        return y, _zero(x)
+        y, _ = rg.rglru_apply(p, x, tp=tp)
+        return rglru_ffn(p, cfg, y, tp), _zero(x)
     if kind == BLOCK_MLSTM:
-        y, _ = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk)
+        y, _ = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk, tp=tp)
         return y, _zero(x)
     if kind == BLOCK_SLSTM:
         y, _ = xl.slstm_apply(p, x, n_heads=cfg.n_heads,
-                              remat_chunk=cfg.mlstm_chunk)
+                              remat_chunk=cfg.mlstm_chunk, tp=tp)
         return y, _zero(x)
     raise ValueError(kind)
 
@@ -300,28 +363,49 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, positions, *,
 # Full forward (scoring)
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Token/frontend embedding -> [B,S,d] activations."""
+def embed_tokens(params: Model, cfg: ModelConfig, tokens, tp=WHOLE):
+    """Token ids -> embeddings in the compute dtype, in the residual
+    stream's layout.  With the vocab cut, each rank looks up the ids its
+    rows hold, zero for the others, and the ranks' rows are summed (one
+    rank holds each id, so the sum is exact)."""
+    dt = _dtype(cfg.compute_dtype)
+    tokens = tokens.long()
+    n = params.embed.shape[0]
+    if not tp.cut(n, cfg.vocab):
+        return tp.exit_whole(params.embed[tokens].to(dt))
+    t = tokens - tp.offset(cfg.vocab)
+    mine = (t >= 0) & (t < n)
+    rows = params.embed[torch.where(mine, t, 0)]
+    return tp.exit(torch.where(mine[..., None], rows, 0).to(dt))
+
+
+def embed_inputs(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                 tp=WHOLE):
+    """Token/frontend embedding -> [B,S,d] activations (the residual
+    stream's layout)."""
     dt = _dtype(cfg.compute_dtype)
     if cfg.family == FAMILY_AUDIO:
         # precomputed EnCodec frame embeddings [B,S,d_frame] (frontend stub)
-        return batch["frame_embeds"].to(dt) @ params.in_proj.to(dt)
-    x = params.embed[batch["tokens"].long()].to(dt)
+        return tp.exit_whole(batch["frame_embeds"].to(dt) @ params.in_proj.to(dt))
+    x = embed_tokens(params, cfg, batch["tokens"], tp)
     if cfg.family == FAMILY_VLM and "image_embeds" in batch:
         # anyres patch embeddings [B,F,dv] (frontend stub) -> 2-layer projector
         img = batch["image_embeds"].to(dt)
         img = gelu(img @ params.img_proj_w1.to(dt))
-        img = img @ params.img_proj_w2.to(dt)
+        img = tp.exit_whole(img @ params.img_proj_w2.to(dt))
         F = img.shape[1]
         # image tokens occupy the first F positions (anyres prefix layout)
         x = torch.cat([img, x[:, F:]], dim=1)
     return x
 
 
-def unembed(params: Model, cfg: ModelConfig, x) -> torch.Tensor:
-    """Final norm and the (tied or untied) output head; logits in float32."""
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+def unembed(params: Model, cfg: ModelConfig, x, tp=WHOLE) -> torch.Tensor:
+    """Final norm and the (tied or untied) output head; logits in float32,
+    this rank's vocab block where the vocab is cut."""
+    x = rms_norm(tp.enter(x), params.final_norm, cfg.norm_eps)
     w_out = params.embed.T if cfg.tie_embeddings else params.lm_head
+    if tp.cut(w_out.shape[1], cfg.vocab):
+        x = tp.cols(x)
     return torch.einsum("bsd,dv->bsv", x, w_out.to(x.dtype)).float()
 
 
@@ -329,7 +413,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
             causal_skip: bool = False, act_shard=None, logit_shard=None,
             moe_fn=None, attn_remat: bool = False,
-            flash_cv: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+            flash_cv: bool = False, tp=WHOLE) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B,S,vocab] f32, aux_loss scalar).
 
     ``remat``: each body period is checkpointed (its activations recomputed
@@ -340,13 +424,15 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     does: per layer in the head and tail, per period in the body.
     ``act_shard`` is applied to every layer's output, ``logit_shard`` to
     the float32 logits, and ``moe_fn`` replaces each MoE layer's routed
-    experts."""
-    x = embed_inputs(params, cfg, batch)
+    experts.  ``tp`` is the model axis (``distributed.tp.ModelAxis``) of
+    a model whose leaves are this rank's blocks; the logits are then this
+    rank's vocab block (all of it where the vocab is not cut)."""
+    x = embed_inputs(params, cfg, batch, tp)
     B, S, d = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     head, body, tail = stack_segments(cfg)
     opts = dict(q_chunk=q_chunk, kv_chunk=kv_chunk, causal_skip=causal_skip,
-                moe_fn=moe_fn, attn_remat=attn_remat, flash_cv=flash_cv)
+                moe_fn=moe_fn, attn_remat=attn_remat, flash_cv=flash_cv, tp=tp)
     constrain = act_shard if act_shard is not None else (lambda t: t)
 
     def run(x, layers):
@@ -371,7 +457,7 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     for li in tail:
         x, aux = run(x, [li])
         aux_total = aux_total + aux
-    logits = unembed(params, cfg, x)
+    logits = unembed(params, cfg, x, tp)
     if logit_shard is not None:
         logits = logit_shard(logits)
     return logits, aux_total

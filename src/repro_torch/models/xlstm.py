@@ -11,6 +11,16 @@ projections are dense per head; sLSTM omits the post-block projection
 factor, mLSTM uses projection factor 2.  sLSTM's ``remat_chunk``
 checkpoints each chunk of steps while autograd records; it changes what
 the backward stashes, not the numbers.
+
+Over a mesh's ``model`` axis (``tp``): mLSTM's up width is cut
+(``w_up``, ``w_gate``, ``conv_w`` column-parallel; ``w_q``, ``w_k``,
+``w_v``, ``w_i`` and ``w_f`` take the cut width as their input, so their
+partial products are summed), the recurrence runs whole on every rank,
+and each rank keeps its columns of h for the row-parallel ``w_down``.
+sLSTM's heads are cut (``w_x``'s columns and ``r_h``: the recurrence is
+per head) and ``w_out`` is row-parallel; where ``w_x``'s columns are cut
+but the heads are not, the gate inputs are gathered and the recurrence
+runs whole.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import Leaves, const, matmul, normal, rms_norm, zeros
+from .layers import WHOLE, Leaves, const, matmul, normal, rms_norm, zeros
 
 
 def _causal_conv1d(x, w, cache=None):
@@ -100,31 +110,39 @@ def _mlstm_step(state, qkvif):
     return (C_new, n_new, m_new), h
 
 
-def mlstm_apply(params, x, state=None, *, n_heads: int, chunk: int = 0):
+def mlstm_apply(params, x, state=None, *, n_heads: int, chunk: int = 0, tp=WHOLE):
     """x [B,S,d] (S may be 1 for decode).  Returns (y [B,S,d], new_state).
 
     ``chunk > 0`` selects the exact chunkwise-parallel evaluation of the
     same recurrence.  The conv state comes back rounded to bf16 in every
-    config, as in the reference.
+    config, as in the reference.  Under ``tp`` x and y are in the residual
+    stream's layout; C, n and m are whole and the conv state is on the
+    local up width.
     """
-    B, S, d = x.shape
+    xf = tp.enter(x)
+    B, S, d = xf.shape
     up = 2 * d
     hd = up // n_heads
+    cut = tp.cut(params.w_up.shape[1], up)
+    total = tp.reduce if cut else (lambda t: t)
     if state is None:
         state = mlstm_state_init(B, d, n_heads, params.conv_w.shape[0], x.device)
-    xn = rms_norm(x, params.norm)
+        state["conv"] = state["conv"][..., :params.conv_w.shape[1]]
+    xn = rms_norm(xf, params.norm)
+    if cut:
+        xn = tp.cols(xn)
     xu = matmul(xn, params.w_up)
     xz = matmul(xn, params.w_gate)
     xc, conv_cache = _causal_conv1d(xu, params.conv_w, state["conv"])
 
     def heads(t, w):
-        return matmul(t, w).reshape(B, S, n_heads, hd)
+        return total(matmul(t, w)).reshape(B, S, n_heads, hd)
 
     q = heads(xc, params.w_q).float() / math.sqrt(hd)
     k_ = heads(xc, params.w_k).float() / math.sqrt(hd)
     v = heads(xu, params.w_v).float()
-    logi = xu.float() @ params.w_i + params.b_i                  # [B,S,H]
-    logf = F.logsigmoid(xu.float() @ params.w_f + params.b_f)
+    logi = total(xu.float() @ params.w_i) + params.b_i           # [B,S,H]
+    logf = F.logsigmoid(total(xu.float() @ params.w_f) + params.b_f)
 
     carry = (state["C"], state["n"], state["m"])
     if chunk and S > 1 and S % min(chunk, S) == 0:
@@ -138,7 +156,10 @@ def mlstm_apply(params, x, state=None, *, n_heads: int, chunk: int = 0):
         (C, n, m), h = carry, torch.stack(hs, dim=1)            # [B,S,H,hd]
     h = h.reshape(B, S, up)
     h = rms_norm(h.to(x.dtype), params.out_norm)
+    if cut:
+        h = tp.split(h, -1)
     y = matmul(h * F.silu(xz), params.w_down)
+    y = tp.exit(y) if cut else tp.exit_whole(y)
     new_state = {"C": C, "n": n, "m": m, "conv": conv_cache.to(torch.bfloat16)}
     return x + y, new_state
 
@@ -229,21 +250,37 @@ def slstm_state_init(batch: int, d_model: int, n_heads: int,
             "h": z()}
 
 
-def slstm_apply(params, x, state=None, *, n_heads: int, remat_chunk: int = 0):
+def slstm_apply(params, x, state=None, *, n_heads: int, remat_chunk: int = 0,
+                tp=WHOLE):
     """Exact sequential sLSTM (recurrent gate connections force a true scan).
 
     ``remat_chunk > 0`` (and S a multiple of it, longer than it): each chunk
     of T steps is checkpointed, so the backward stashes per-chunk states
     instead of per-step ones.  The recurrence itself cannot be
-    parallelized, so only the stash shrinks, not the depth.
+    parallelized, so only the stash shrinks, not the depth.  Under ``tp``
+    x and y are in the residual stream's layout and the state holds the
+    block's heads (this rank's where they are cut).
     """
-    B, S, d = x.shape
+    xf = tp.enter(x)
+    B, S, d = xf.shape
     hd = d // n_heads
+    H = params.r_h.shape[0]
+    heads = tp.cut(H, n_heads)
+    cols = tp.cut(params.w_x.shape[1], 4 * d)
     if state is None:
-        state = slstm_state_init(B, d, n_heads, x.device)
-    xn = rms_norm(x, params.norm)
-    gx = matmul(xn, params.w_x).float() + params.b                # [B,S,4d]
-    gx = gx.reshape(B, S, n_heads, 4 * hd)
+        state = slstm_state_init(B, H * hd, H, x.device)
+    xn = rms_norm(xf, params.norm)
+    if cols:
+        xn = tp.cols(xn)
+    gx = matmul(xn, params.w_x).float()                          # [B,S,4d]
+    if heads:
+        # w_x's column block r is heads [r H/M, (r+1) H/M) of the [H, 4hd]
+        # reshape (M divides H): each rank's gate inputs are its heads'
+        gx = gx + tp.part(params.b).narrow(0, tp.offset(4 * d), gx.shape[-1])
+    else:
+        gx = tp.gather(gx, -1) if cols else gx
+        gx = gx + params.b
+    gx = gx.reshape(B, S, H, 4 * hd)
     r_h = params.r_h.float()
 
     def steps(carry, gxc):
@@ -278,5 +315,11 @@ def slstm_apply(params, x, state=None, *, n_heads: int, remat_chunk: int = 0):
     else:
         carry, hs = steps(carry, gx)
     c, n, m, h = carry
-    y = matmul(hs.reshape(B, S, d).to(x.dtype), params.w_out)
+    hs = hs.reshape(B, S, H * hd).to(x.dtype)
+    if heads:
+        y = tp.exit(matmul(hs, params.w_out))
+    elif tp.cut(params.w_out.shape[0], d):
+        y = tp.exit(matmul(tp.split(hs, -1), params.w_out))
+    else:
+        y = tp.exit_whole(matmul(hs, params.w_out))
     return x + y, {"c": c, "n": n, "m": m, "h": h}

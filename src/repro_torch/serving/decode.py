@@ -14,6 +14,16 @@ keys and values into the KV caches in place, replaces the recurrent
 states, and returns the same list.  A write at ``pos >= Smax`` raises (the
 reference's ``dynamic_update_slice`` clamps it to ``Smax - 1``): grow the
 caches first (``grow_caches``).
+
+Over a mesh's ``model`` axis (``tp``, a ``distributed.tp.ModelAxis``) the
+blocks hold this rank's heads, widths and vocab rows, and the caches go in
+and come out for the local batch: a recurrent state as its block's
+weights are cut (this rank's lru width, mLSTM up width or sLSTM heads),
+a KV cache with all kv heads and all positions or this rank's block of S
+(``tp.seq_len`` gives the full length, so that the decode step knows
+which positions it holds): the step then attends with all q heads over
+its positions and combines the ranks' partial softmax (flash-decode).
+``distributed.tp`` lays the caches out per ``cache_shardings``.
 """
 from __future__ import annotations
 
@@ -26,9 +36,11 @@ from ..models import rglru as rg
 from ..models import xlstm as xl
 from ..models.config import (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_MLSTM, BLOCK_RECURRENT,
                              BLOCK_SLSTM, FAMILY_AUDIO, ModelConfig)
-from ..models.layers import apply_rope, einsum, flash_attention, local_attention, rms_norm
-from ..models.transformer import (Model, _apply_ffn, _dtype, _qkv, embed_inputs,
-                                  layer_is_moe, unembed)
+from ..models.layers import (WHOLE, apply_rope, einsum, flash_attention, local_attention,
+                             rms_norm)
+from ..models.transformer import (Model, _apply_ffn, _dtype, _qkv, attn_out, embed_inputs,
+                                  embed_tokens, heads_cut, kv_for_heads, layer_is_moe,
+                                  rglru_ffn, unembed)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -99,85 +111,127 @@ def grow_caches(cfg: ModelConfig, caches: List[Cache], extra: int) -> List[Cache
 # Single-token block application
 # ---------------------------------------------------------------------------
 
-def _attend(p, cfg: ModelConfig, x, q, kc, vc, valid, layer_is_moe):
-    """Attention of the one-token q over the cache rows ``valid``, then the
-    output projection and the FFN."""
-    B = x.shape[0]
-    Hkv, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
-    G = H // Hkv
-    qg = q.reshape(B, Hkv, G, hd)
-    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), kc.float()) / math.sqrt(hd)
-    s = torch.where(valid[None, None, None, :], s, -math.inf)
-    pr = torch.softmax(s, dim=-1)
-    attn = torch.einsum("bhgs,bshd->bhgd", pr, vc.float())
-    attn = attn.reshape(B, 1, H, hd).to(x.dtype)
-    x = x + einsum("bshk,hkd->bsd", attn, p.wo)
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe)
+def _whole_heads(cfg: ModelConfig, tp, k, v):
+    """k/v [B,S,Hkv_local,hd] -> all ``n_kv_heads`` (a cache's layout)."""
+    if tp.cut(k.shape[2], cfg.n_kv_heads):
+        return tp.gather(k, 2), tp.gather(v, 2)
+    return k, v
+
+
+def _attend(p, cfg: ModelConfig, x, q, kc, vc, valid, layer_is_moe, tp=WHOLE,
+            moe_fn=None, seq_cut: bool = False):
+    """Attention of the one-token q (this rank's heads) over the cache
+    rows ``valid``, then the output projection and the FFN.  With
+    ``seq_cut`` the caches hold this rank's positions only: every rank
+    attends with all q heads, the partial max, sum and numerator are
+    combined over the ranks, and each keeps its own heads."""
+    B, hd = x.shape[0], cfg.hd
+    Hl = q.shape[2]
+    if seq_cut:
+        qa = tp.gather(q, 2) if heads_cut(p, cfg, tp) else q        # [B,1,H,hd]
+        Hkv = kc.shape[2]
+        qg = qa.reshape(B, Hkv, cfg.n_heads // Hkv, hd)
+        s = torch.einsum("bhgd,bshd->bhgs", qg.float(), kc.float()) / math.sqrt(hd)
+        s = torch.where(valid[None, None, None, :], s, -math.inf)
+        # a rank holding no valid position has an all -inf row: weight 0
+        m = tp.max(s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        pr = torch.where(valid[None, None, None, :], torch.exp(s - m_safe[..., None]), 0.0)
+        den = tp.reduce(pr.sum(dim=-1))
+        num = tp.reduce(torch.einsum("bhgs,bshd->bhgd", pr, vc.float()))
+        attn = (num / torch.clamp_min(den[..., None], 1e-30)).reshape(B, 1, cfg.n_heads, hd)
+        attn = attn.narrow(2, tp.offset(cfg.n_heads) if Hl != cfg.n_heads else 0, Hl)
+    else:
+        kc, vc = kv_for_heads(cfg, tp, Hl, kc, vc)
+        Hkv = kc.shape[2]
+        qg = q.reshape(B, Hkv, Hl // Hkv, hd)
+        s = torch.einsum("bhgd,bshd->bhgs", qg.float(), kc.float()) / math.sqrt(hd)
+        s = torch.where(valid[None, None, None, :], s, -math.inf)
+        pr = torch.softmax(s, dim=-1)
+        attn = torch.einsum("bhgs,bshd->bhgd", pr, vc.float()).reshape(B, 1, Hl, hd)
+    x = x + attn_out(p, cfg, attn.to(x.dtype), tp)
+    h2 = rms_norm(tp.enter(x), p.ln2, cfg.norm_eps)
+    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn, tp)
     return x + y
 
 
-def _rope_qkv(p, cfg: ModelConfig, x, pos: int):
+def _rope_qkv(p, cfg: ModelConfig, x, pos: int, tp=WHOLE):
     B = x.shape[0]
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
-    q, k, v = _qkv(p, cfg, h)                       # [B,1,H,hd]/[B,1,Hkv,hd]
+    h = rms_norm(tp.enter(x), p.ln1, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h, tp)                   # [B,1,H,hd]/[B,1,Hkv,hd]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     return apply_rope(q, posv, cfg.rope_theta), apply_rope(k, posv, cfg.rope_theta), v
 
 
-def _decode_full_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe):
+def _seq_block(tp, n_local: int, n_full: int):
+    """(whether the cache holds a block of its ``n_full`` positions, where
+    that block starts)."""
+    cut = tp.cut(n_local, n_full)
+    return cut, tp.offset(n_full) if cut else 0
+
+
+def _write(cache, row: int, lo: int, k, v) -> None:
+    """The new token's k/v (all kv heads) at cache row ``row``, on the rank
+    whose block [lo, lo + n) holds it."""
+    if lo <= row < lo + cache["k"].shape[1]:
+        cache["k"][:, row - lo] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, row - lo] = v[:, 0].to(cache["v"].dtype)
+
+
+def _decode_full_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe, tp=WHOLE,
+                      moe_fn=None):
     """x [B,1,d]; full-cache attention at absolute position ``pos``."""
-    S = cache["k"].shape[1]
+    n = cache["k"].shape[1]
+    S = tp.seq_len or n
     if not 0 <= pos < S:
         raise IndexError(f"decode at position {pos} past the KV cache's "
                          f"{S} positions; grow the caches first")
-    q, k, v = _rope_qkv(p, cfg, x, pos)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    valid = torch.arange(S, device=x.device) <= pos
-    return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe), cache
+    cut, lo = _seq_block(tp, n, S)
+    q, k, v = _rope_qkv(p, cfg, x, pos, tp)
+    _write(cache, pos, lo, *_whole_heads(cfg, tp, k, v))
+    valid = lo + torch.arange(n, device=x.device) <= pos
+    return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe, tp, moe_fn,
+                   cut), cache
 
 
-def _decode_local_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe):
+def _decode_local_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe, tp=WHOLE,
+                       moe_fn=None):
     """Ring-cache sliding-window attention (slot = pos mod W)."""
-    W = cache["k"].shape[1]
-    q, k, v = _rope_qkv(p, cfg, x, pos)
+    n = cache["k"].shape[1]
+    W = min(cfg.local_window, tp.seq_len) if tp.seq_len else n
+    cut, lo = _seq_block(tp, n, W)
+    q, k, v = _rope_qkv(p, cfg, x, pos, tp)
     slot = pos % W
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    _write(cache, slot, lo, *_whole_heads(cfg, tp, k, v))
     # absolute position stored in ring slot j
-    j = torch.arange(W, device=x.device)
+    j = lo + torch.arange(n, device=x.device)
     base = pos - slot
     abs_pos = torch.where(j <= slot, base + j, base - W + j)
     valid = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - cfg.local_window)
-    return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe), cache
+    return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe, tp, moe_fn,
+                   cut), cache
 
 
-def _decode_rglru(p, cfg: ModelConfig, x, cache):
-    y, st = rg.rglru_apply(p, x, {"h": cache["h"], "conv": cache["conv"]})
-    if cfg.d_ff:
-        h2 = rms_norm(y, p.ln2, cfg.norm_eps)
-        f, _ = _apply_ffn(p.ffn, cfg, h2, False)
-        y = y + f
+def _decode_rglru(p, cfg: ModelConfig, x, cache, tp=WHOLE):
+    y, st = rg.rglru_apply(p, x, {"h": cache["h"], "conv": cache["conv"]}, tp=tp)
     cache.update(h=st["h"], conv=st["conv"].to(cache["conv"].dtype))
-    return y, cache
+    return rglru_ffn(p, cfg, y, tp), cache
 
 
 def decode_block(p, cfg: ModelConfig, kind: str, x, cache: Cache, pos: int,
-                 layer_is_moe: bool):
+                 layer_is_moe: bool, tp=WHOLE, moe_fn=None):
     if kind == BLOCK_ATTN:
-        return _decode_full_attn(p, cfg, x, cache, pos, layer_is_moe)
+        return _decode_full_attn(p, cfg, x, cache, pos, layer_is_moe, tp, moe_fn)
     if kind == BLOCK_LOCAL_ATTN:
-        return _decode_local_attn(p, cfg, x, cache, pos, layer_is_moe)
+        return _decode_local_attn(p, cfg, x, cache, pos, layer_is_moe, tp, moe_fn)
     if kind == BLOCK_RECURRENT:
-        return _decode_rglru(p, cfg, x, cache)
+        return _decode_rglru(p, cfg, x, cache, tp)
     if kind == BLOCK_MLSTM:
-        y, ns = xl.mlstm_apply(p, x, cache, n_heads=cfg.n_heads)
-        cache.update(C=ns["C"], n=ns["n"], m=ns["m"],
-                     conv=ns["conv"].to(cache["conv"].dtype))
+        y, ns = xl.mlstm_apply(p, x, cache, n_heads=cfg.n_heads, tp=tp)
+        cache.update(C=ns["C"], n=ns["n"], m=ns["m"], conv=ns["conv"].to(cache["conv"].dtype))
         return y, cache
     if kind == BLOCK_SLSTM:
-        y, ns = xl.slstm_apply(p, x, cache, n_heads=cfg.n_heads)
+        y, ns = xl.slstm_apply(p, x, cache, n_heads=cfg.n_heads, tp=tp)
         cache.update(ns)
         return y, cache
     raise ValueError(kind)
@@ -188,21 +242,23 @@ def decode_block(p, cfg: ModelConfig, kind: str, x, cache: Cache, pos: int,
 # ---------------------------------------------------------------------------
 
 def decode_step(params: Model, cfg: ModelConfig, caches: List[Cache],
-                inputs: Dict[str, torch.Tensor], pos: int
-                ) -> Tuple[torch.Tensor, List[Cache]]:
+                inputs: Dict[str, torch.Tensor], pos: int, *, tp=WHOLE,
+                moe_fn=None) -> Tuple[torch.Tensor, List[Cache]]:
     """inputs: {"token": [B] int32} (or {"frame_embeds": [B, d_frontend]} for
     the audio family); ``pos`` the new token's position.  Returns (logits
-    [B, vocab] f32, the caches, updated in place)."""
+    [B, vocab] f32, the caches, updated in place).  ``tp`` and ``moe_fn``
+    as in ``forward`` (the logits are this rank's vocab block where the
+    vocab is cut)."""
     dt = _dtype(cfg.compute_dtype)
     pos = int(pos)
     if cfg.family == FAMILY_AUDIO:
-        x = inputs["frame_embeds"][:, None, :].to(dt) @ params.in_proj.to(dt)
+        x = tp.exit_whole(inputs["frame_embeds"][:, None, :].to(dt) @ params.in_proj.to(dt))
     else:
-        x = params.embed[inputs["token"][:, None].long()].to(dt)
+        x = embed_tokens(params, cfg, inputs["token"][:, None], tp)
     for li, p in enumerate(params.layers):
         x, caches[li] = decode_block(p, cfg, cfg.block_kind(li), x, caches[li],
-                                     pos, layer_is_moe(cfg, li))
-    return unembed(params, cfg, x)[:, 0], caches
+                                     pos, layer_is_moe(cfg, li), tp, moe_fn)
+    return unembed(params, cfg, x, tp)[:, 0], caches
 
 
 # ---------------------------------------------------------------------------
@@ -210,64 +266,65 @@ def decode_step(params: Model, cfg: ModelConfig, caches: List[Cache],
 # ---------------------------------------------------------------------------
 
 def _prefill_attn(p, cfg, x, positions, *, local: bool, layer_is_moe: bool,
-                  q_chunk: int, moe_fn=None):
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
-    q, k, v = _qkv(p, cfg, h)
+                  q_chunk: int, moe_fn=None, tp=WHOLE):
+    h = rms_norm(tp.enter(x), p.ln1, cfg.norm_eps)
+    q, k, v = _qkv(p, cfg, h, tp)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    kq, vq = kv_for_heads(cfg, tp, q.shape[2], k, v)
+    k, v = _whole_heads(cfg, tp, k, v)
     S = x.shape[1]
     qc = min(q_chunk, S)
     if local:
-        attn = local_attention(q, k, v, window=cfg.local_window, q_chunk=qc)
+        attn = local_attention(q, kq, vq, window=cfg.local_window, q_chunk=qc)
         W = min(cfg.local_window, S)
         # the last W positions, rolled so that slot = pos mod W
         shift = (S - W) % W
         cache = {"k": torch.roll(k[:, S - W:], shift, dims=1),
                  "v": torch.roll(v[:, S - W:], shift, dims=1)}
     else:
-        attn = flash_attention(q, k, v, causal=True, q_chunk=qc, kv_chunk=qc)
+        attn = flash_attention(q, kq, vq, causal=True, q_chunk=qc, kv_chunk=qc)
         cache = {"k": k, "v": v}
-    x = x + einsum("bshk,hkd->bsd", attn, p.wo)
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn)
+    x = x + attn_out(p, cfg, attn, tp)
+    h2 = rms_norm(tp.enter(x), p.ln2, cfg.norm_eps)
+    y, _ = _apply_ffn(p.ffn, cfg, h2, layer_is_moe, moe_fn, tp)
     return x + y, cache
 
 
 def prefill_block(p, cfg: ModelConfig, kind: str, x, positions,
-                  layer_is_moe: bool, q_chunk: int = 512, moe_fn=None):
+                  layer_is_moe: bool, q_chunk: int = 512, moe_fn=None, tp=WHOLE):
     if kind in (BLOCK_ATTN, BLOCK_LOCAL_ATTN):
         return _prefill_attn(p, cfg, x, positions, local=(kind == BLOCK_LOCAL_ATTN),
-                             layer_is_moe=layer_is_moe, q_chunk=q_chunk, moe_fn=moe_fn)
+                             layer_is_moe=layer_is_moe, q_chunk=q_chunk, moe_fn=moe_fn,
+                             tp=tp)
     dt = _dtype(cfg.compute_dtype)
     if kind == BLOCK_RECURRENT:
-        y, st = rg.rglru_apply(p, x)
-        if cfg.d_ff:
-            h2 = rms_norm(y, p.ln2, cfg.norm_eps)
-            f, _ = _apply_ffn(p.ffn, cfg, h2, False)
-            y = y + f
-        return y, {"h": st["h"], "conv": st["conv"].to(dt)}
+        y, st = rg.rglru_apply(p, x, tp=tp)
+        return rglru_ffn(p, cfg, y, tp), {"h": st["h"], "conv": st["conv"].to(dt)}
     if kind == BLOCK_MLSTM:
-        y, st = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk)
+        y, st = xl.mlstm_apply(p, x, n_heads=cfg.n_heads, chunk=cfg.mlstm_chunk, tp=tp)
         st["conv"] = st["conv"].to(dt)
         return y, st
     if kind == BLOCK_SLSTM:
-        return xl.slstm_apply(p, x, n_heads=cfg.n_heads)
+        return xl.slstm_apply(p, x, n_heads=cfg.n_heads, tp=tp)
     raise ValueError(kind)
 
 
 def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            q_chunk: int = 512, act_shard=None,
-            moe_fn=None) -> Tuple[torch.Tensor, List[Cache]]:
+            q_chunk: int = 512, act_shard=None, moe_fn=None,
+            tp=WHOLE) -> Tuple[torch.Tensor, List[Cache]]:
     """Returns (last-position logits [B, vocab] f32, caches sized S).
-    ``act_shard`` and ``moe_fn`` are ``forward``'s hooks."""
+    ``act_shard``, ``moe_fn`` and ``tp`` are ``forward``'s hooks; under
+    ``tp`` the caches come out for the batch given, laid out as
+    ``decode_step`` takes them (whole S)."""
     constrain = act_shard if act_shard is not None else (lambda t: t)
-    x = embed_inputs(params, cfg, batch)
-    B, S, _ = x.shape
+    x = embed_inputs(params, cfg, batch, tp)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     caches = []
     for li, p in enumerate(params.layers):
         x, c = prefill_block(p, cfg, cfg.block_kind(li), x, positions,
-                             layer_is_moe(cfg, li), q_chunk=q_chunk, moe_fn=moe_fn)
+                             layer_is_moe(cfg, li), q_chunk=q_chunk, moe_fn=moe_fn, tp=tp)
         x = constrain(x)
         caches.append(c)
-    return unembed(params, cfg, x[:, -1:])[:, 0], caches
+    return unembed(params, cfg, x[:, -1:], tp)[:, 0], caches

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, its
 sessions, language models and training against the CPU, MapReduceMP on
 multi-shard part meshes against one shard, and the LM mesh (the FSDP
-step and the expert-parallel MoE) against one card, on a card (the
-two-card cases skip with fewer cards).
+step, tensor parallelism and the expert-parallel MoE) against one card,
+on a card (the two-card cases skip with fewer cards).
 
 Imports no JAX, so it runs on a machine with only PyTorch:
 
@@ -450,7 +450,7 @@ def test_cuda_one_rank_sharded_step_equals_unsharded():
         batches = chip_smoke.mesh_batches(qwen, 2, 64, 2, 0, dev)
         plain, want = chip_smoke.mesh_train(qwen, batches, 0, dev)
         sharded, got = chip_smoke.mesh_train(qwen, batches, 0, dev, mesh)
-        chip_smoke.mesh_same_train(sharded, plain, got, want)
+        assert chip_smoke.mesh_same_train(sharded, plain, got, want)["ok"]
         moe = chip_smoke.mesh_moe(reduced(ARCHS["deepseek_moe_16b"]), mesh, 0, dev, dense=True)
         assert moe["experts_per_card"] == 4
     finally:
@@ -460,9 +460,10 @@ def test_cuda_one_rank_sharded_step_equals_unsharded():
 @pytest.mark.cuda
 def test_cuda_two_card_mesh_equals_one_card(tmp_path):
     """Two NCCL processes, one a card: Qwen2-1.5B (2 layers, published
-    width) on (2, 1) against its one-card step, and deepseek-moe-16b's
-    moe_fn on (1, 2), 32 experts a card, against the dense forward
-    (chip_smoke.mesh_rank checks both, within MESH_TOL)."""
+    width) on (2, 1) against its one-card step, deepseek-moe-16b's moe_fn
+    on (1, 2), 32 experts a card, against the dense forward, and Qwen2-1.5B
+    and recurrentgemma-9b (3 layers) tensor parallel on (1, 2): every
+    comparison of chip_smoke.mesh_rank within MESH_TOL."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     import json
@@ -471,8 +472,31 @@ def test_cuda_two_card_mesh_equals_one_card(tmp_path):
     ranks = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2)]
     assert {r["device"] for r in ranks} == {"cuda:0", "cuda:1"}
     assert all(r["moe"]["experts_per_card"] == 32 for r in ranks)
-    assert "m_rel" in ranks[0]["train_vs_one_card"] and "logit_rel" in ranks[0]["moe"]
-    assert "step0_grad_norm_rel" in ranks[0]["raw_init_vs_one_card"]
+    r0 = ranks[0]
+    assert "logit_rel" in r0["moe"]
+    assert r0["train_vs_one_card"]["ok"] and r0["raw_init_vs_one_card"]["ok"]
+    for key in ("tp_qwen2", "tp_recurrentgemma"):
+        assert r0[key]["train_vs_one_card"]["ok"], r0[key]["train_vs_one_card"]
+        assert r0[key]["serve_vs_one_card"]["ok"], r0[key]["serve_vs_one_card"]
+
+
+@pytest.mark.cuda
+def test_cuda_two_card_tensor_parallel_reduced(tmp_path):
+    """Reduced Qwen2 (float32) tensor parallel on (1, 2) NCCL ranks, one a
+    card: two train steps and a prefill with three greedy decode steps
+    against one card, within torch_mesh_ranks.TP_CARDS_TOL (float32
+    bounds; greedy tokens equal)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import json
+    import torch.multiprocessing as mp
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_mesh_ranks
+    mp.spawn(torch_mesh_ranks.tp_cards, args=(2, str(tmp_path)), nprocs=2)
+    rec = json.loads((tmp_path / "tp_cards.json").read_text())
+    assert rec["train_vs_one_card"]["ok"], rec["train_vs_one_card"]
+    assert rec["serve_vs_one_card"]["ok"], rec["serve_vs_one_card"]
+    assert rec["train"]["mesh"] == [1, 2] and rec["train"]["sharded_leaves"] > 0
 
 
 def test_lm_entry_points_need_a_card(monkeypatch):

@@ -246,17 +246,30 @@ def test_test_mesh_needs_a_group_of_its_size():
 
 
 def test_constraints_check_the_batch_shard():
-    """On a model axis of 1 the closures hand back this rank's rows (the
-    whole batch where it is replicated) and refuse other shapes; dense
-    tensor parallelism (a wider model axis, ``tp_act``) raises."""
+    """The closures hand back this rank's block and refuse other shapes:
+    its rows (the whole batch where it is replicated); the logits' vocab
+    over ``model`` where M divides it ([B_local, S, V/M] on (2, 2), whole V
+    where M does not divide it); the activations' d over ``model`` under
+    ``tp_act`` ([B_local, S, d/M]), whole without it."""
     act = sh.act_constraint(FakeMesh((2, 1)), 4)
     x = torch.zeros(2, 8, 16)
     assert act(x) is x
     with pytest.raises(ValueError, match="2 of 4 rows"):
         act(torch.zeros(4, 8, 16))
     assert sh.logit_constraint(FakeMesh((2, 1)), 3, 128)(torch.zeros(3, 8, 128)).shape[0] == 3
-    for call in (lambda: sh.act_constraint(FakeMesh((1, 4)), 4),
-                 lambda: sh.logit_constraint(FakeMesh((2, 2)), 4, 128),
-                 lambda: sh.act_constraint(FakeMesh((2, 1)), 4, tp_act=True)):
-        with pytest.raises(NotImplementedError, match="dense tensor parallelism"):
-            call()
+    logits = sh.logit_constraint(FakeMesh((2, 2)), 4, 128)
+    x = torch.zeros(2, 8, 64)
+    assert logits(x) is x
+    for bad in ((2, 8, 128), (4, 8, 64)):
+        with pytest.raises(ValueError, match="not this rank's block"):
+            logits(torch.zeros(bad))
+    assert sh.logit_constraint(FakeMesh((2, 2)), 4, 127)(torch.zeros(2, 8, 127)).shape[-1] == 127
+    tp_act = sh.act_constraint(FakeMesh((2, 2)), 4, tp_act=True, d_model=64)
+    x = torch.zeros(2, 8, 32)
+    assert tp_act(x) is x
+    with pytest.raises(ValueError, match=r"\[2 of 4 rows, S, 32\]"):
+        tp_act(torch.zeros(2, 8, 64))
+    whole = sh.act_constraint(FakeMesh((1, 4)), 4, d_model=64)
+    assert whole(torch.zeros(4, 8, 64)).shape[-1] == 64
+    with pytest.raises(ValueError, match="not this rank's block"):
+        whole(torch.zeros(4, 8, 16))

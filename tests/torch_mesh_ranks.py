@@ -26,7 +26,9 @@ def join(rank: int, world: int, workdir: str, device: str = "cpu") -> torch.devi
 
 
 def t2np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    """A float32 copy (a CPU float32 tensor's ``numpy()`` shares its
+    memory, which a later in-place step would change)."""
+    return t.detach().float().cpu().numpy().copy()
 
 
 def gather_rows(t: torch.Tensor, mesh, batch: int) -> torch.Tensor:
@@ -238,4 +240,182 @@ def train_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None
     if rank == 0:
         np.savez(work / f"train_port_{world}.npz", **arrays)
         (work / f"train_port_{world}.json").write_text(json.dumps(meta["metrics"]))
+    close_world()
+
+
+# ---------------------------------------------------------------------------
+# dense tensor parallelism over the model axis (test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+def whole_blocks(t: torch.Tensor, spec, mesh, batch: int) -> torch.Tensor:
+    """The whole tensor from this rank's block under ``spec`` (its model dim
+    gathered, then its batch rows)."""
+    from repro_torch.distributed import tp
+    t = tp.whole_of(t, spec, mesh)
+    return gather_rows(t, mesh, batch) if spec and spec[0] is not None else t
+
+
+def tp_inputs(work: Path, arch: str, dev) -> tuple:
+    """(train batches, prefill batch, decode inputs per step) of one arch."""
+    z = np.load(work / f"tp_inputs_{arch}.npz")
+    steps = len({k.split("/")[1] for k in z.files if k.startswith("train/")})
+    train = [{k.split("/")[2]: torch.from_numpy(z[k]).to(dev) for k in z.files
+              if k.startswith(f"train/{i}/")} for i in range(steps)]
+    pre = {k.split("/")[1]: torch.from_numpy(z[k]).to(dev) for k in z.files
+           if k.startswith("prefill/")}
+    n = len({k.split("/")[1] for k in z.files if k.startswith("decode/")})
+    dec = [{k.split("/")[2]: torch.from_numpy(z[k]).to(dev) for k in z.files
+            if k.startswith(f"decode/{i}/")} for i in range(n)]
+    return train, pre, dec
+
+
+def tp_case(cfg, case: dict, spec: dict, model, mesh, work: Path, dev) -> tuple:
+    """One case on ``mesh``: forward, value_and_grad, prefill and decode on
+    the initial weights, then the train steps (``case["steps"]``; a
+    checkpoint after ``save_after``).  (whole arrays, this rank's shapes,
+    this rank's blocks where ``case["blocks"]``)."""
+    from repro_torch.distributed import fsdp, save_checkpoint
+    from repro_torch.distributed import tp
+    from repro_torch.launch.sharding import _batch_dim_spec, cache_shardings
+    from repro_torch.models.layers import make_tp_moe_fn
+    from repro_torch.models.transformer import forward
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import TrainConfig
+    name = case["name"]
+    train, pre, dec = tp_inputs(work, case["arch"], dev)
+    B, S = pre[next(iter(pre))].shape[:2]
+    s_max = spec["s_max"]
+    tcfg = TrainConfig(tp_act=case.get("tp_act", False))
+    ax = tp.model_axis(mesh, cfg, tp_act=tcfg.tp_act)
+    moe_fn = None
+    if case.get("moe_fn"):
+        moe_fn = make_tp_moe_fn(mesh, _batch_dim_spec(mesh, B), cfg)
+    out, shapes, blocks = {}, {}, {}
+    bspec = _batch_dim_spec(mesh, B)
+    logit3 = lambda t: (bspec, None, "model" if t.shape[-1] != cfg.vocab else None)
+    if not case.get("moe_fn"):
+        view = fsdp._Gathered(model, fsdp.plan_of(model), "", False)
+        with torch.no_grad():
+            logits, _ = forward(view, cfg, fsdp.local_batch(train[0], mesh), remat=False,
+                                moe_fn=tp.whole_batch_moe(cfg, mesh, B), tp=ax)
+        shapes["logits"] = list(logits.shape)
+        out[f"{name}/forward"] = t2np(whole_blocks(logits, logit3(logits), mesh, B))
+        total, parts, grads = fsdp.make_value_and_grad(cfg, tcfg, mesh, B)(
+            model, fsdp.local_batch(train[0], mesh))
+        out.update({f"{name}/loss/{k}": t2np(v) for k, v in {"total": total, **parts}.items()})
+        out.update({f"{name}/grad/{n}": t2np(g) for n, g in fsdp.full_leaves(model, grads).items()})
+        last, caches = tp.make_prefill(cfg, mesh, B, s_max, tp_act=tcfg.tp_act)(
+            model, fsdp.local_batch(pre, mesh))
+        lspec = tp.logits_spec(mesh, B, cfg.vocab)
+        out[f"{name}/prefill/logits"] = t2np(whole_blocks(last, lspec, mesh, B))
+        cspecs = cache_shardings(cfg, mesh, B, s_max)
+        shapes["prefill_logits"] = list(last.shape)
+        shapes["caches"] = [{k: list(t.shape) for k, t in c.items()} for c in caches]
+        if case.get("blocks"):
+            blocks["prefill_logits"] = t2np(last)
+            blocks.update({f"cache/{i}/{k}": t2np(t) for i, c in enumerate(caches)
+                           for k, t in c.items()})
+        out.update({f"{name}/prefill/cache/{i}/{k}": t2np(whole_blocks(t, cspecs[i][k], mesh, B))
+                    for i, c in enumerate(caches) for k, t in c.items()})
+        step = tp.make_decode_step(cfg, mesh, B, s_max)
+        for i, inp in enumerate(dec):
+            lg, caches = step(model, caches, fsdp.local_batch(inp, mesh), S + i)
+            out[f"{name}/decode/{i}"] = t2np(whole_blocks(lg, lspec, mesh, B))
+        out.update({f"{name}/decode/cache/{i}/{k}": t2np(whole_blocks(t, cspecs[i][k], mesh, B))
+                    for i, c in enumerate(caches) for k, t in c.items()})
+    opt = init_opt_state(model, device=dev)
+    step_fn = fsdp.make_train_step(cfg, tcfg, mesh, B, moe_fn=moe_fn)
+    metrics = []
+    for i in range(case["steps"]):
+        m = step_fn(model, opt, fsdp.local_batch(train[i], mesh))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i + 1 in (1, case["steps"]):
+            at = f"{name}/step{i + 1}"
+            out.update({f"{at}/params/{n}": t2np(t) for n, t in fsdp.full_leaves(model).items()})
+            out.update({f"{at}/m/{n}": t2np(t)
+                        for n, t in fsdp.full_leaves(model, opt["m"]).items()})
+        if case.get("save_after") == i + 1:
+            save_checkpoint(str(work / f"ckpt_{name}"), i + 1,
+                            fsdp.checkpoint_state(cfg, model, opt))
+    shapes["params"] = {n: list(p.shape) for n, p in model.named_parameters()}
+    shapes["m"] = {n: list(t.shape) for n, t in opt["m"].items()}
+    shapes["v"] = {n: list(t.shape) for n, t in opt["v"].items()}
+    out[f"{name}/metrics"] = np.array(json.dumps(metrics))
+    return out, shapes, blocks
+
+
+def tp_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None:
+    """Every case of ``tp_spec.json`` on its (D, M) mesh (``tp_case``), then
+    the checkpoints named in ``restore`` resumed on (world, 1): the next
+    step's metrics.  Rank 0 writes the whole arrays; each rank its shapes
+    and blocks."""
+    from repro_torch.distributed import fsdp, load_checkpoint
+    from repro_torch.launch.mesh import close_world, make_test_mesh
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import TrainConfig
+    dev = join(rank, world, workdir, device)
+    work = Path(workdir)
+    spec = json.loads((work / "tp_spec.json").read_text())
+    meshes = {}
+    out, shapes, blocks = {}, {}, {}
+    for case in spec["cases"]:
+        shape = tuple(case["mesh"])
+        mesh = meshes.setdefault(shape, make_test_mesh(shape, device=dev))
+        cfg = train_cfg(spec, case["arch"])
+        model = fsdp.shard_model(load_params(cfg, str(work / f"init_{case['arch']}"), str(dev)),
+                                 mesh)
+        o, s, b = tp_case(cfg, case, spec, model, mesh, work, dev)
+        out.update(o)
+        shapes[case["name"]] = s
+        blocks.update({f"{case['name']}/{k}": v for k, v in b.items()})
+    for r in spec.get("restore", []):
+        shape = tuple(r["mesh"])
+        mesh = meshes.setdefault(shape, make_test_mesh(shape, device=dev))
+        cfg = train_cfg(spec, r["arch"])
+        model = fsdp.shard_model(load_params(cfg, str(work / f"init_{r['arch']}"), str(dev)),
+                                 mesh)
+        opt = init_opt_state(model, device=dev)
+        step, state, _ = load_checkpoint(str(work / r["ckpt"]),
+                                         fsdp.checkpoint_state(cfg, model, opt), device=dev,
+                                         shardings=fsdp.state_shardings(cfg, model))
+        fsdp.load_state(cfg, model, opt, state)
+        train, _, _ = tp_inputs(work, r["arch"], dev)
+        B = train[0]["labels"].shape[0]
+        m = fsdp.make_train_step(cfg, TrainConfig(), mesh, B)(
+            model, opt, fsdp.local_batch(train[step], mesh))
+        out[f"restore/{r['name']}"] = np.array(json.dumps(
+            {"step": step, **{k: float(v) for k, v in m.items()}}))
+    (work / f"tp_shapes_{rank}.json").write_text(json.dumps(shapes))
+    np.savez(work / f"tp_blocks_{rank}.npz", **blocks)
+    if rank == 0:
+        np.savez(work / "tp_port.npz", **out)
+    close_world()
+
+
+# Float32 (TF32 off) bounds for ``tp_cards``, test_torch_train_mesh.py's:
+# loss terms to 1e-5 (LOSS_RTOL), the grad norm to 2e-4 (GRAD_RTOL), m
+# to 4e-4 of a leaf's largest (2 x GRAD_RTOL), parameters within Adam's
+# sign step plus three float32 ulps; logits to test_torch_tp.py's
+# LOGIT_RTOL, 5e-5.
+TP_CARDS_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 2e-4, "m_rel": 4e-4, "param_ulps": 3,
+                "raw_step0_rtol": 1e-5, "logit_rel": 5e-5, "aux_rtol": 1e-5,
+                "tp_grad_norm_rtol": 2e-4, "tp_m_rel": 4e-4}
+
+
+def tp_cards(rank: int, world: int, workdir: str) -> None:
+    """Reduced Qwen2 (float32, TF32 off) tensor parallel on (1, world) NCCL
+    ranks, one a card: ``chip_smoke.mesh_on_cards``' train steps and
+    prefill + greedy decode against one card within TP_CARDS_TOL; rank 0
+    writes the record (test_torch_cuda.py)."""
+    import chip_smoke
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch.mesh import close_world, make_test_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = join(rank, world, workdir, "cuda")
+    mesh = make_test_mesh((1, world), device=dev)
+    rec = chip_smoke.mesh_on_cards(reduced(ARCHS["qwen2_1_5b"]), 0, dev, mesh, rank,
+                                   train=(4, 64, 2), serve=(4, 64, 3, 68), one={},
+                                   tol=TP_CARDS_TOL)
+    if rank == 0:
+        Path(workdir, "tp_cards.json").write_text(json.dumps(rec))
     close_world()
