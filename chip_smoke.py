@@ -150,7 +150,14 @@ Phases, each printing one JSON line:
                ratio and argument + temp bytes (the temp peak extrapolated
                over the layer stack, a lower bound, where
                ``temp_peak_exact`` is false), and the seconds the phase
-               added
+               added; after them, one at a time in one spawned
+               process, the mesh records of Qwen2-1.5B's
+               train_4k at full width and depth (rank 0 of (16, 16) and
+               of (2, 16, 16), 256 and 512 H100s, counted in a counting
+               world on torch's fake backend): their dominant term, collective term (> 0;
+               over ``pod`` all-reduces only) and argument + temp bytes a
+               card, the argument bytes equal to rank 0's blocks under
+               the resolver's specs; within 60 s more
   lm           the language-model serving stack (no hand-written kernel
                on its path; the reference computes it outside Pallas), TF32
                off: all ten reduced configs in float32 on the card against
@@ -209,7 +216,13 @@ Phases, each printing one JSON line:
                steps), each against one card within MESH_TOL, greedy
                tokens equal, every cut leaf, cache and logit
                block 1/D of one card's bytes; with four cards Qwen2 on
-               (2, 2) too
+               (2, 2) too; and rank 0's warm (1, D) Qwen2 step counted
+               under OpCostMode over NCCL, its collective bytes per kind
+               and per axis equal to the dry run's count of the same call
+               (a counting world of D ranks in a spawned process, run
+               before the ranks start), both
+               ATen op counts, the record's argument + temp bytes beside
+               the card's resident and peak bytes
 
 Each serving phase sets the launch counts to 0 just before it and reads
 them just after; it fails if a kernel of its path never launched.  The
@@ -3196,6 +3209,7 @@ MESH_TOL = {"loss_rtol": 5e-5, "grad_norm_rtol": 3e-4, "m_rel": 2e-2, "param_ulp
             "raw_step0_rtol": 1e-5, "logit_rel": 2e-2, "aux_rtol": 1e-3,
             "tp_grad_norm_rtol": 1e-3, "tp_m_rel": 8e-2}
 MESH_BUDGET_S = 60.0
+MESH_TCFG = {"remat": True, "flash_cv": True}     # the mesh steps' TrainConfig
 
 
 def mesh_cfgs() -> tuple:
@@ -3266,7 +3280,7 @@ def mesh_train(cfg, batches: list, seed: int, dev, mesh=None, *,
     whole leaves)."""
     from repro_torch.distributed import fsdp
     from repro_torch.train import TrainConfig, init_opt_state, make_train_step
-    tcfg = TrainConfig(remat=True, flash_cv=True)
+    tcfg = TrainConfig(**MESH_TCFG)
     model = mesh_model(cfg, seed, dev, fan_in_d)
     B = batches[0]["tokens"].shape[0]
     if mesh is None:
@@ -3487,6 +3501,55 @@ def mesh_on_cards(cfg, seed: int, dev, mesh, rank: int, *, train: tuple, serve: 
     return rec
 
 
+def mesh_count_step(cfg, seed: int, dev, mesh) -> dict:
+    """Rank 0's warm tensor-parallel train step of ``cfg`` (MESH_TRAIN's
+    shape) on ``mesh`` counted under ``OpCostMode`` on the card (every rank
+    calls): a sharded model, one step, then one step under the mode.  Its
+    counts, and the bytes its arguments hold on the card before the steps
+    and at their peak over the first (both above what the card held
+    before: rank 0 also keeps one card's run)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.op_cost import OpCostMode
+    from repro_torch.train import TrainConfig, init_opt_state
+    B, S, _ = MESH_TRAIN
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = fsdp.shard_model(mesh_model(cfg, seed, dev), mesh)
+    opt = init_opt_state(model, device=dev)
+    step_fn = fsdp.make_train_step(cfg, TrainConfig(**MESH_TCFG), mesh, B)
+    feed = [fsdp.local_batch(b, mesh) for b in mesh_batches(cfg, B, S, 2, seed, dev)]
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_fn(model, opt, feed[0])
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    mode = OpCostMode((model, opt, feed[1]), mesh.axis_labels())
+    with mode:
+        out = step_fn(model, opt, feed[1])
+    torch.cuda.synchronize(dev)
+    return {"counts": mode.finish(out).as_dict(), "resident_bytes": resident,
+            "peak_bytes": peak}
+
+
+def dry_mesh_step(n: int) -> dict:
+    """The dry run's record of ``mesh_count_step``'s call on (1, n): rank 0
+    of a counting world of n on ``meta`` (run in a process of its own)."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import cost_analysis, dryrun
+    from repro_torch.launch.mesh import counting_world, make_test_mesh
+    from repro_torch.train import TrainConfig
+    B, S, _ = MESH_TRAIN
+    t0 = time.perf_counter()
+    with counting_world(n):
+        mesh = make_test_mesh((1, n), device="cpu")
+        counts, _, links = dryrun.count_mesh(mesh_cfgs()[0], ShapeSpec("lm_mesh", "train", S, B),
+                                             TrainConfig(**MESH_TCFG), mesh)
+    info = cost_analysis.info_from_counts(counts, links)
+    return {"info": info, "roofline": cost_analysis.roofline_from_info(info).as_dict(),
+            "count_s": time.perf_counter() - t0}
+
+
 def mesh_rank(rank: int, world: int, workdir: str, seed: int) -> None:
     """One card of the multi-card ``lm_mesh`` run (a spawned process):
     Qwen2-1.5B's step on (world, 1), deepseek's moe_fn on (1, world), then
@@ -3524,6 +3587,9 @@ def mesh_rank(rank: int, world: int, workdir: str, seed: int) -> None:
     one_qwen, one_rg = {}, {}
     rec["tp_qwen2"] = mesh_on_cards(qwen, seed, dev, tp_mesh, rank, train=MESH_TRAIN,
                                     serve=MESH_SERVE, one=one_qwen)
+    free_cuda()
+    rec["count_qwen2"] = mesh_count_step(qwen, seed, dev, tp_mesh)
+    free_cuda()
     rg_serve = (MESH_RG[1], MESH_RG[2], MESH_SERVE[2], MESH_SERVE[3])
     rec["tp_recurrentgemma"] = mesh_on_cards(rg, seed, dev, tp_mesh, rank, train=MESH_RG[1:],
                                              serve=rg_serve, one=one_rg)
@@ -3595,16 +3661,38 @@ def phase_lm_mesh(seed: int) -> None:
     n = min(torch.cuda.device_count(), 4)
     multi = {"cards": n, "ran": n >= 2}
     if n >= 2:
+        import concurrent.futures as cf
         import torch.multiprocessing as mp
         (ROOT / "build").mkdir(exist_ok=True)
         work = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-", dir=ROOT / "build"))
         try:
+            # the dry-run count first, alone: the ranks' times are not read
+            # beside a busy host process
+            t1 = time.perf_counter()
+            with cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+                multi["dry_run"] = pool.submit(dry_mesh_step, n).result()
+            multi["dry_run_s"] = time.perf_counter() - t1
             t1 = time.perf_counter()
             mp.spawn(mesh_rank, args=(n, str(work), seed), nprocs=n)
             multi["seconds"] = time.perf_counter() - t1
-            multi["ranks"] = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
+            multi["ranks"] = [json.loads((work / f"rank{r}.json").read_text())
+                              for r in range(n)]
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        got, want = multi["ranks"][0]["count_qwen2"], multi["dry_run"]
+        c, i = got["counts"], want["info"]
+        multi["count_vs_dry_run"] = {
+            "collective_bytes": [c["collective_bytes"], {k: v for k, v in
+                                                         i["collective_bytes"].items()
+                                                         if k != "total"}],
+            "collective_bytes_by_axis": [c["collective_bytes_by_axis"],
+                                         i["collective_bytes_by_axis"]],
+            "collective_op_executions": [c["collective_op_executions"],
+                                         i["collective_op_executions"]],
+            "aten_ops": [c["aten_ops"], i["aten_ops"]],
+            "argument_plus_temp_bytes": i["argument_size_in_bytes"] + i["temp_size_in_bytes"],
+            "resident_bytes": got["resident_bytes"], "peak_bytes": got["peak_bytes"],
+            "t_collective_s": want["roofline"]["t_collective_s"]}
     launched = {k: build.LAUNCHES[k] - launches0.get(k, 0) for k in build.LAUNCHES}
     emit("lm_mesh", layers=MESH_LAYERS, train_shape=MESH_TRAIN, moe_shape=MESH_MOE,
          serve_shape=MESH_SERVE, recurrentgemma_shape=MESH_RG,
@@ -3622,6 +3710,10 @@ def phase_lm_mesh(seed: int) -> None:
                 (f"{k}.{c}", r0[k][c]) for k in ("tp_qwen2", "tp_recurrentgemma", "tp_qwen2_2x2")
                 if k in r0 for c in ("train_vs_one_card", "serve_vs_one_card")]:
             check(cmp["ok"], f"lm_mesh: {key} differs from one card {cmp}")
+        cmp = multi["count_vs_dry_run"]
+        for key in ("collective_bytes", "collective_bytes_by_axis", "collective_op_executions"):
+            check(cmp[key][0] == cmp[key][1],
+                  f"lm_mesh: rank 0's counted {key} differs from the dry run's {cmp[key]}")
         for r in multi["ranks"]:
             check(r["moe"]["experts_per_card"] == deepseek.n_experts // n,
                   f"lm_mesh: rank {r['rank']} computed {r['moe']['experts_per_card']} experts")
@@ -3661,15 +3753,56 @@ def cost_args(name: str) -> tuple:
     return arch, ShapeSpec(name, *shape), TrainConfig(**kw)
 
 
+# name -> (arch, shape, --mesh): the production meshes' records of
+# Qwen2-1.5B's train_4k, each counted in a spawned process
+COST_MESH_CELLS = {"qwen2_train_4k_single": ("qwen2_1_5b", "train_4k", "single"),
+                   "qwen2_train_4k_multi": ("qwen2_1_5b", "train_4k", "multi")}
+COST_MESH_BUDGET_S = 60.0
+
+
+def mesh_arg_bytes(arch: str, shape: str, mesh: str) -> int:
+    """Rank 0's argument bytes of a train cell from the resolver's specs
+    alone: its blocks of the parameters (``param_shardings``), of m and v
+    (``opt_shardings``, float32) and the step, and its rows of the batch
+    (``batch_shardings``)."""
+    from repro_torch.configs import SHAPES, get_config, input_specs
+    from repro_torch.launch.sharding import batch_shardings, opt_shardings, param_shardings
+    from repro_torch.models.transformer import abstract_params
+    cfg = get_config(arch)
+    sizes = {"single": {"data": 16, "model": 16},
+             "multi": {"pod": 2, "data": 16, "model": 16}}[mesh]
+    m = types.SimpleNamespace(axis_names=tuple(sizes), shape=sizes)
+    full = dict(abstract_params(cfg).named_parameters())
+    p, o = param_shardings(cfg, m), opt_shardings(cfg, m)
+    total = sum(t.numel() // spec_parts(p[n], m) * t.element_size() for n, t in full.items())
+    total += sum(t.numel() // spec_parts(o[k][n], m) * 4 for k in ("m", "v")
+                 for n, t in full.items()) + 4
+    batch = input_specs(cfg, SHAPES[shape])
+    specs = batch_shardings(m, {k: v.shape for k, v in batch.items()})
+    return total + sum(int(np.prod(v.shape)) // spec_parts(specs[k], m)
+                       * torch.empty((), dtype=v.dtype).element_size()
+                       for k, v in batch.items())
+
+
 def phase_cost() -> dict:
     """The dry-run record of every COST_CELLS cell, counted here on the
     host (no card): each cell's bound, ATen ops, useful-FLOP ratio and
-    argument + temp bytes.  ``added_s`` is the time this phase added to the
-    script."""
+    argument + temp bytes; then the COST_MESH_CELLS records, checked, one
+    after another in one spawned process (so no count_s is read beside
+    another count, and the process's imports are paid once).  ``added_s``
+    is the time this phase added to the script, ``mesh_added_s`` the part
+    of it the mesh records took."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
     from repro_torch.launch.dryrun import run_cell
     t0 = time.perf_counter()
     cells = {n: run_cell(*cost_args(n)) for n in COST_CELLS}
+    t1 = time.perf_counter()
+    with cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        mesh_cells = {n: pool.submit(run_cell, a, s, mesh=m).result()
+                      for n, (a, s, m) in COST_MESH_CELLS.items()}
     added = time.perf_counter() - t0
+    mesh_added = time.perf_counter() - t1
     out = {}
     for n, c in cells.items():
         check(c["status"] == "ok" and c["roofline"]["t_bound_s"] > 0, f"cost {n}: {c}")
@@ -3683,7 +3816,35 @@ def phase_cost() -> dict:
                                                + i["temp_size_in_bytes"]),
                   "temp_peak_exact": c["depth"]["temp_peak_exact"],
                   "fits": c["fits"], "count_s": c["count_s"]}
-    emit("cost", cells=out, added_s=added)
+    mesh_out = {}
+    for n, c in mesh_cells.items():
+        arch, shape, mesh = COST_MESH_CELLS[n]
+        check(c["status"] == "ok", f"cost {n}: {c}")
+        i, r = c["info"], c["roofline"]
+        mesh_out[n] = {"mesh": c["mesh"], "n_chips": c["n_chips"], "rank": c["rank"],
+                       **{k: r[k] for k in ("dominant", "t_bound_s", "t_compute_s",
+                                            "t_memory_s", "t_collective_s")},
+                       "collective_bytes_by_axis": i["collective_bytes_by_axis"],
+                       "links": {a: l["link"] for a, l in i["interconnect"]["axes"].items()},
+                       "argument_bytes": i["argument_size_in_bytes"],
+                       "argument_bytes_from_specs": mesh_arg_bytes(arch, shape, mesh),
+                       "argument_plus_temp_bytes": (i["argument_size_in_bytes"]
+                                                    + i["temp_size_in_bytes"]),
+                       "useful_flops_ratio": c["useful_flops_ratio"], "fits": c["fits"],
+                       "count_s": c["count_s"]}
+    emit("cost", cells=out, mesh_cells=mesh_out, added_s=added, mesh_added_s=mesh_added)
+    for n, c in mesh_out.items():   # checked after the line is printed
+        check(c["n_chips"] == {"16x16": 256, "2x16x16": 512}[c["mesh"]]
+              and c["t_collective_s"] > 0, f"cost {n}: {c}")
+        check(c["argument_bytes"] == c["argument_bytes_from_specs"],
+              f"cost {n}: argument bytes {c['argument_bytes']} against the specs' "
+              f"{c['argument_bytes_from_specs']}")
+        pod = c["collective_bytes_by_axis"].get("pod", {})
+        check({k for k, v in pod.items() if v} <= {"all-reduce"},
+              f"cost {n}: the pod axis carries {pod}")
+    check("pod" in mesh_out["qwen2_train_4k_multi"]["collective_bytes_by_axis"],
+          "cost: the multi record has no pod collective")
+    check(mesh_added <= COST_MESH_BUDGET_S, f"cost: the mesh records added {mesh_added:.1f} s")
     return cells
 
 

@@ -114,7 +114,10 @@ class _CopyTo(Function):
     def backward(ctx, g):
         g = g.clone()
         dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
-        return g, None
+        # a view: a backend may still hold the buffer, and whether a leaf's
+        # gradient accumulation then takes it or copies it would depend on
+        # when the backend lets it go
+        return g.view_as(g), None
 
 
 class _Mean(Function):

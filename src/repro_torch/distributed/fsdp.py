@@ -1,7 +1,8 @@
 """FSDP over ``data`` with dense tensor parallelism over ``model`` on a
-(D, M) mesh: the JAX package's ``param_shardings`` / ``opt_shardings``
-layout (its train CLI's ``make_test_mesh((jax.device_count(), 1))``, its
-``build_cell`` train program) over ``torch.distributed``.
+(D, M) mesh, or a (P, D, M) mesh with ``pod``: the JAX package's
+``param_shardings`` / ``opt_shardings`` layout (its train CLI's
+``make_test_mesh((jax.device_count(), 1))``, its ``build_cell`` train
+program) over ``torch.distributed``.
 
 Placement.  ``shard_model`` keeps, of every parameter, the block its
 resolved spec gives this rank (the reference's ``addressable_shards``): a
@@ -40,6 +41,14 @@ operation that mixes the batch is combined across ``data``:
   * a batch that ``data`` does not divide is replicated
     (``_batch_dim_spec`` is None): every rank runs the whole batch, and no
     gradient is summed.
+``pod`` is pure data parallelism: every leaf is replicated over it (the
+resolver puts no parameter there), the batch is cut over pod x data
+(``_batch_dim_spec``), and the mask count, the loss terms and every
+gradient are summed over ``pod`` as well (the leaves ``data`` does not cut
+over one "pod+data" group, the others, reduce-scattered over ``data``,
+then all-reduced over ``pod``): besides the loss scalars the gradient
+all-reduce is the only collective that crosses pods, as in the
+reference.
 Over ``model`` every operation is combined inside the forward and its
 backward (``distributed.tp``), so the losses and the gradients of the
 blocks are the same on every model rank.  A one-rank mesh replicates
@@ -49,6 +58,7 @@ step is the one-process step's, bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -58,8 +68,8 @@ from torch.distributed.tensor import DTensor
 
 from ..convert import lm_named_from_tree, lm_tree_from_named
 from ..launch.sharding import (NamedSharding, ShardingRules, Spec, _batch_dim_spec,
-                               act_constraint, logit_constraint, named_specs, spec_axes,
-                               spec_dim)
+                               act_constraint, batch_axes, embed_overrides,
+                               logit_constraint, named_specs, spec_axes, spec_dim)
 from ..models.config import ModelConfig
 from ..models.transformer import Model
 from ..train.optimizer import OptState, adamw_update
@@ -84,10 +94,6 @@ class MeshPlan:
     def group(self):
         return self.mesh.group("data")
 
-    @property
-    def size(self) -> int:
-        return self.mesh.shape["data"]
-
     def sharding(self, name: str) -> NamedSharding:
         return NamedSharding(self.mesh, self.specs[name])
 
@@ -95,10 +101,11 @@ class MeshPlan:
 def _check_mesh(mesh) -> None:
     if "data" not in mesh.axis_names or "model" not in mesh.axis_names:
         raise ValueError(f"the mesh needs 'data' and 'model' axes: {mesh.axis_names}")
-    wide = {a: n for a, n in mesh.shape.items() if a not in ("data", "model") and n > 1}
+    wide = {a: n for a, n in mesh.shape.items()
+            if a not in ("pod", "data", "model") and n > 1}
     if wide:
         raise NotImplementedError(f"mesh axes {wide}: the trainer runs on "
-                                  "('data', 'model') meshes")
+                                  "('pod', 'data', 'model') meshes")
 
 
 def _cut(plan: MeshPlan, name: str) -> bool:
@@ -112,13 +119,15 @@ def plan_of(model: nn.Module) -> MeshPlan:
     return plan
 
 
-def shard_model(model: Model, mesh) -> Model:
+def shard_model(model: Model, mesh, *, embed_vocab_shard: bool = True) -> Model:
     """Cut every parameter of ``model`` (whole leaves, the same on every
     rank) to this rank's block, in place; the model keeps its
-    ``MeshPlan`` as ``model.mesh_plan``."""
+    ``MeshPlan`` as ``model.mesh_plan``.  ``embed_vocab_shard=False``
+    keeps the embedding table's vocab whole (``sharding.embed_overrides``;
+    its d is still cut over ``data``)."""
     _check_mesh(mesh)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    specs = named_specs(shapes, ShardingRules(mesh))
+    specs = named_specs(shapes, ShardingRules(mesh), embed_overrides(embed_vocab_shard))
     plan = MeshPlan(mesh, specs, {n: spec_dim(s, "data") for n, s in specs.items()},
                     {n: spec_dim(s, "model") for n, s in specs.items()})
     with torch.no_grad():
@@ -130,7 +139,8 @@ def shard_model(model: Model, mesh) -> Model:
 
 
 def shard_opt_state(opt: OptState, model: Model, mesh) -> OptState:
-    """Whole ``m`` and ``v`` cut like their (sharded) parameters."""
+    """Whole ``m`` and ``v`` cut like their (sharded) parameters (so with
+    ``shard_model``'s ``embed_vocab_shard``)."""
     plan = plan_of(model)
     if plan.mesh is not mesh:
         raise ValueError("the model was sharded over another mesh")
@@ -216,11 +226,8 @@ def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
             out[k] = v
             continue
         axes = spec_axes(_batch_dim_spec(mesh, v.shape[0]))
-        n, idx = 1, 0
-        for a in axes:
-            n *= mesh.shape[a]
-            idx = idx * mesh.shape[a] + mesh.index(a)
-        rows = v.shape[0] // n
+        rows = v.shape[0] // math.prod(mesh.shape[a] for a in axes)
+        idx = mesh.index(axes)
         out[k] = v[idx * rows:(idx + 1) * rows]
     return out
 
@@ -276,40 +283,42 @@ def make_value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int,
     logit = logit_constraint(mesh, batch, cfg.vocab)
     tp = model_axis(mesh, cfg, tp_act=tcfg.tp_act)
     routed = moe_fn if moe_fn is not None else whole_batch_moe(cfg, mesh, batch)
-    sharded = _batch_dim_spec(mesh, batch) is not None
+    rows, group, n_rows = batch_axes(mesh, batch)
+    pod = mesh.group("pod") if "pod" in rows else None
 
     def value_and_grad(model: Model, local: Dict[str, torch.Tensor]):
         plan = plan_of(model)
         if plan.mesh is not mesh:
             raise ValueError("the model was sharded over another mesh")
-        group = plan.group
         mask = local.get("loss_mask")
         count = (mask.float().sum() if mask is not None else
                  torch.tensor(float(local["labels"].numel()), device=local["labels"].device))
-        if sharded:
+        if rows:
             dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
-        view = _Gathered(model, plan, "", sharded)
+        view = _Gathered(model, plan, "", "data" in rows)
         total, parts, grads = grads_of(
             dict(model.named_parameters()),
             lambda: loss_fn(view, cfg, local, tcfg, act, logit, routed, count=count, tp=tp))
-        if sharded:
+        if rows:
             for n, g in grads.items():
                 if plan.dims[n] is None:
                     dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+                elif pod is not None:       # reduce-scattered over data already
+                    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=pod)
             # the ranks' shares sum to the batch's loss; the replicated aux
             # term is in each share once
             ln = torch.stack([total, parts["nll"]])
             dist.all_reduce(ln, op=dist.ReduceOp.SUM, group=group)
             aux_term = tcfg.aux_loss_weight * parts["aux"]
-            total, parts["nll"] = ln[0] - (plan.size - 1) * aux_term, ln[1]
+            total, parts["nll"] = ln[0] - (n_rows - 1) * aux_term, ln[1]
         return total, parts, grads
     return value_and_grad
 
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh, batch: int,
                     moe_fn=None) -> Callable:
-    """``train_step(model, opt_state, local) -> metrics`` on a (D, M) mesh
-    for global batches of ``batch`` rows: ``model`` went through
+    """``train_step(model, opt_state, local) -> metrics`` on a (D, M) or
+    (P, D, M) mesh for global batches of ``batch`` rows: ``model`` went through
     ``shard_model``, ``opt_state`` is its blocks' state, and ``local`` is
     this rank's rows (``local_batch``).  The metrics are the whole batch's,
     the same on every rank.  ``moe_fn`` (``layers.make_tp_moe_fn``)

@@ -57,6 +57,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from . import comm
+from ..launch.sharding import batch_axes
 from ..models.config import BLOCK_LOCAL_ATTN, BLOCK_MLSTM, BLOCK_RECURRENT, BLOCK_SLSTM
 from ..models.layers import WHOLE, Whole
 
@@ -144,26 +145,27 @@ def whole_batch_moe(cfg, mesh, batch: int) -> Optional[Callable]:
     """``forward``'s ``moe_fn`` keeping the dense ``moe_ffn``'s semantics
     on a mesh: route, sort, drop by capacity and take the aux loss over the
     WHOLE batch, as the one-process call does.  Each MoE layer gathers its
-    tokens over ``data`` (where the batch is cut), runs ``moe_ffn_tp`` over
-    ``model`` where the experts are cut (``moe_ffn`` where they are not)
-    and keeps its own rows; the aux loss, the same on every data rank,
-    sends 1/D of its cotangent from each.  None where neither axis cuts
-    anything (the dense call as it is)."""
-    from ..launch.sharding import _batch_dim_spec
+    tokens over the dp axes that cut the batch (``data``, or ``pod`` and
+    ``data``: the one gather that crosses pods besides the gradient sums),
+    runs ``moe_ffn_tp`` over ``model`` where the experts are cut
+    (``moe_ffn`` where they are not) and keeps its own rows; the aux loss,
+    the same on every dp rank, sends 1/n of its cotangent from each of the
+    n.  None where no axis cuts anything (the dense call as it is)."""
     from ..models.layers import moe_ffn, moe_ffn_tp
     if not cfg.is_moe:
         return None
-    rows = _batch_dim_spec(mesh, batch) is not None
+    axes, group, n = batch_axes(mesh, batch)
+    rows = bool(axes)
     M = mesh.shape.get("model", 1)
     experts = M > 1 and cfg.n_experts % M == 0
     if not (rows or experts):
         return None
-    data, model = mesh.group("data"), mesh.group("model") if M > 1 else None
-    n, r = mesh.shape["data"], mesh.index("data")
+    model = mesh.group("model") if M > 1 else None
+    r = mesh.index(axes)
 
     def moe_fn(p, x):
         b, S, d = x.shape
-        xs = comm.all_gather(x, 0, data) if rows else x
+        xs = comm.all_gather(x, 0, group) if rows else x
         N = xs.shape[0]
         kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
         if p.e_gate.shape[0] != cfg.n_experts:
@@ -252,7 +254,8 @@ def _to_block(t: torch.Tensor, dim: Optional[int], spec, mesh) -> torch.Tensor:
     return t.narrow(dim, mesh.index("model") * n, n)
 
 
-def make_prefill(cfg, mesh, batch: int, s_max: int, *, tp_act: bool = False) -> Callable:
+def make_prefill(cfg, mesh, batch: int, s_max: int, *, tp_act: bool = False,
+                 moe_fn=None, q_chunk: int = 512) -> Callable:
     """``prefill(model, local) -> (logits, caches)`` on ``mesh`` for global
     batches of ``batch`` rows: ``model`` went through
     ``fsdp.shard_model``, ``local`` is this rank's rows
@@ -261,19 +264,21 @@ def make_prefill(cfg, mesh, batch: int, s_max: int, *, tp_act: bool = False) -> 
     ``cache_shardings(cfg, mesh, batch, s_max)``'s blocks: the full
     attention's k/v padded to ``s_max`` positions (``grow_caches``), the
     local ring at min(window, s_max) slots (a prompt shorter than that
-    fills slots 0..S-1)."""
+    fills slots 0..S-1).  ``moe_fn`` (``layers.make_tp_moe_fn``) replaces
+    the whole-batch MoE, as in the reference's prefill cell."""
     from ..launch.sharding import act_constraint, cache_shardings
     from ..serving.decode import prefill
     tp = model_axis(mesh, cfg, tp_act=tp_act)
     act = act_constraint(mesh, batch, tp_act=tp_act, d_model=cfg.d_model)
-    moe_fn = whole_batch_moe(cfg, mesh, batch)
+    if moe_fn is None:
+        moe_fn = whole_batch_moe(cfg, mesh, batch)
     specs = cache_shardings(cfg, mesh, batch, s_max)
     W = min(cfg.local_window, s_max)
 
     def run(model, local: Dict[str, torch.Tensor]):
         with torch.no_grad():
-            logits, caches = prefill(_view(model), cfg, local, act_shard=act, moe_fn=moe_fn,
-                                     tp=tp)
+            logits, caches = prefill(_view(model), cfg, local, q_chunk=q_chunk, act_shard=act,
+                                     moe_fn=moe_fn, tp=tp)
             out = []
             for li, (c, sp) in enumerate(zip(caches, specs)):
                 if "k" in c:

@@ -8,6 +8,16 @@ One rank is one process on one device.  ``init_world`` joins the group
 that ``torch.distributed.run`` launched (NCCL on ``cuda``, gloo on
 ``cpu``), or makes a one-rank group in this process when nothing launched
 it; ``make_test_mesh`` lays the group's ranks out as a ``DeviceMesh``.
+``counting_world`` makes this process rank 0 of a group of any size on
+torch's ``fake`` backend, whose collectives return at once and move
+nothing: the dry run counts one rank's share of a 256- or 512-rank
+program on ``meta`` tensors in it.
+
+Ranks lie row-major over the mesh shape (the last axis fastest), as
+``init_device_mesh`` lays them out.  Besides one group per axis, a mesh
+with both ``pod`` and ``data`` has one group over the two
+(``group(("pod", "data"))``, labelled ``"pod+data"``): the batch's rows
+and the gradient sums of the leaves ``data`` does not cut span it.
 
 Mesh-axis roles, as in the reference:
   pod   — pure data parallelism; params replicated per pod
@@ -19,10 +29,11 @@ Not to be confused with ``core/mesh.py``, the graph engines' part mesh
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -63,13 +74,41 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def counting_world(n: int) -> Iterator[None]:
+    """Within the block this process is rank 0 of an ``n``-rank
+    default process group on torch's ``fake`` backend (an in-memory store,
+    no peer): a collective returns at once and touches nothing, so a
+    program run on ``meta`` tensors issues every collective of that rank
+    without a card or a network.  The group is destroyed on exit.  Raises
+    where this process already has a group (it belongs to the whole
+    process), and ImportError where this torch lacks the backend."""
+    if dist.is_initialized():
+        raise RuntimeError("this process already has a process group: count a mesh "
+                           "in a process of its own")
+    # a private module of torch: importing it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        close_world()
+
+
+Axes = Union[str, Tuple[str, ...]]
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``DeviceMesh`` with the attributes the sharding resolver reads:
-    ``axis_names`` and ``shape`` as a dict from axis name to size."""
+    ``axis_names`` and ``shape`` as a dict from axis name to size, and
+    the groups of this rank's lines (``groups`` holds those over several
+    axes)."""
 
     device_mesh: DeviceMesh
     device: torch.device
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -79,13 +118,30 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.device_mesh.shape))
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
-        return self.device_mesh.get_group(axis)
+    def group(self, axes: Axes):
+        """The process group of this rank's line along ``axes`` (one axis
+        name, or a tuple of them in mesh order)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self.groups[axes]
 
-    def index(self, axis: str) -> int:
-        """This rank's coordinate along ``axis``."""
-        return self.device_mesh.get_local_rank(axis)
+    def index(self, axes: Axes) -> int:
+        """This rank's coordinate along ``axes``: for several axes its
+        row-major index over them (its rank in ``group(axes)``)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = 0
+        for a in axes:
+            idx = idx * self.shape[a] + self.device_mesh.get_local_rank(a)
+        return idx
+
+    def axis_labels(self) -> Dict[str, str]:
+        """{process group name: the axes it spans, joined by "+"}: how a
+        collective's group is named in a cost record."""
+        out = {}
+        for axes in [(a,) for a in self.axis_names] + list(self.groups):
+            out.setdefault(self.group(axes).group_name, "+".join(axes))
+        return out
 
 
 def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device) -> Mesh:
@@ -99,7 +155,11 @@ def _mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device) -> Mesh:
         raise ValueError(f"mesh {shape} needs {n} ranks, the group has {have}")
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes)), dev)
+    mesh = Mesh(init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes)), dev)
+    dp = dp_axes(mesh)
+    if len(dp) > 1:     # made here, by every rank at once, not inside a program
+        mesh.groups[dp] = mesh.device_mesh[dp]._flatten().get_group()
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -111,7 +171,8 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     if have < n:
         raise RuntimeError(
             f"need {n} devices for mesh {shape}, have {have} — launch one rank "
-            f"per device with torch.distributed.run")
+            f"per device with torch.distributed.run (or count one rank's share "
+            f"in counting_world)")
     return _mesh(shape, axes, device)
 
 

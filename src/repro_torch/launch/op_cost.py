@@ -34,7 +34,17 @@ bytes      the perfect-fusion floor.  Storages that reach the call as
 bytes_xla_convention  operands plus results of every op that is not a
            view: a pessimistic upper band, as in the reference.
 
-collectives  one card: the reference's five keys, all 0.
+collectives  the ``c10d`` ops of ``torch.distributed`` (``distributed.comm``'s
+           all-gathers, reduce-scatters and all-reduces), per kind with the
+           reference's ring accounting: an all-gather is charged its
+           result, an all-reduce twice its operand, a reduce-scatter or an
+           all-to-all its operand.  Each is also charged operand plus result
+           in the byte floor (the reference's ``hlo_cost``), counted in
+           ``collective_op_executions``, and keyed by the mesh axes its group
+           spans in ``collective_bytes_by_axis`` (``groups``: the mesh's
+           ``axis_labels``).  A collective is never memoised, and one of
+           another kind raises.  On one card there are none: the five keys
+           are 0.
 
 Memory: ``argument_bytes`` (the argument storages), ``output_bytes`` (the
 returned storages and the arguments changed in place) and
@@ -53,7 +63,7 @@ issues hundreds of thousands of ops.  ``analyze_stack`` counts the call at
 the head + one body period + tail and again with two periods, and
 extrapolates every stream linearly in the number of periods.  The periods
 are identical, so this is exact for the op-by-op sums (flops, bytes, op
-counts, argument and output sizes).  ``temp_peak_bytes`` is a maximum over
+counts, collectives, argument and output sizes).  ``temp_peak_bytes`` is a maximum over
 the call, not a sum: the live bytes at each point are affine in the number
 of periods, so the peak is their maximum, convex in it, and the line through
 one and two periods is a lower bound at more, exact where the same point
@@ -65,9 +75,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import weakref
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 aten = torch.ops.aten
@@ -76,6 +87,15 @@ COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 FLOP_CLASSES = ("dot_bf16", "dot_f32", "other")
 
+# collectives: c10d op -> (kind, the index of its operand argument, of its
+# result argument); an all-reduce works in place, its operand is its result
+_C10D = {"allreduce_": ("all-reduce", 0, 0),
+         "allreduce_coalesced_": ("all-reduce", 0, 0),
+         "_allgather_base_": ("all-gather", 1, 0),
+         "allgather_into_tensor_coalesced_": ("all-gather", 1, 0),
+         "_reduce_scatter_base_": ("reduce-scatter", 1, 0),
+         "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1, 0),
+         "alltoall_base_": ("all-to-all", 1, 0)}
 # products: the index of the lhs operand (K is its last dim)
 _DOTS = {aten.mm.default: 0, aten.bmm.default: 0, aten.mv.default: 0,
          aten.dot.default: 0, aten.addmm.default: 1, aten.baddbmm.default: 1}
@@ -182,6 +202,10 @@ def _nbytes(t: torch.Tensor) -> int:
     return min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
 
 
+def _numel_bytes(x) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors((x,)))
+
+
 def _class(dtype: torch.dtype) -> str:
     if dtype in (torch.bfloat16, torch.float16):
         return "dot_bf16"
@@ -201,6 +225,13 @@ class Counts:
     argument_bytes: int = 0
     output_bytes: int = 0
     temp_peak_bytes: int = 0
+    collective_bytes: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
+    # the axes a group spans ("data", "pod+data") -> kind -> bytes
+    collective_bytes_by_axis: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+    collective_ops: Dict[str, int] = dataclasses.field(      # executions per kind
+        default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
     # (op, operand shapes) -> off-chip bytes charged
     contributors: Dict[Tuple[str, str], int] = dataclasses.field(
         default_factory=lambda: collections.defaultdict(int))
@@ -209,15 +240,22 @@ class Counts:
     def flops(self) -> int:
         return sum(self.flops_by_class.values())
 
+    @property
+    def collective_op_executions(self) -> int:
+        return sum(self.collective_ops.values())
+
     def as_dict(self) -> Dict[str, object]:
         return {
             "flops": self.flops,
             "flops_by_class": dict(self.flops_by_class),
             "bytes": self.bytes,
             "bytes_xla_convention": self.bytes_xla_convention,
-            "collective_bytes": dict.fromkeys(COLLECTIVES, 0.0),
-            "collective_bytes_total": 0.0,
-            "collective_op_executions": 0,
+            "collective_bytes": {k: float(v) for k, v in self.collective_bytes.items()},
+            "collective_bytes_total": float(sum(self.collective_bytes.values())),
+            "collective_op_executions": self.collective_op_executions,
+            "collective_ops": dict(self.collective_ops),
+            "collective_bytes_by_axis": {a: {k: float(v) for k, v in kinds.items()}
+                                         for a, kinds in self.collective_bytes_by_axis.items()},
             "aten_ops": self.aten_ops,
             "argument_bytes": self.argument_bytes,
             "output_bytes": self.output_bytes,
@@ -232,13 +270,17 @@ class Counts:
 
 
 class OpCostMode(TorchDispatchMode):
-    """Counts every ATen op run under it into ``self.counts``.  ``args``
-    are the call's arguments (their storages are off-chip); call
-    ``finish(result)`` after the call to charge its outputs."""
+    """Counts every ATen op and collective run under it into
+    ``self.counts``.  ``args`` are the call's arguments (their storages are
+    off-chip); ``groups`` names the process groups' axes ({group name:
+    label}, ``launch.mesh.Mesh.axis_labels``; a group not in it is keyed
+    by its name).  Call ``finish(result)`` after the call to charge its
+    outputs."""
 
-    def __init__(self, args=()):
+    def __init__(self, args=(), groups: Optional[Dict[str, str]] = None):
         super().__init__()
         self.counts = Counts()
+        self._groups = dict(groups or {})
         # held for the whole call: a call may drop an argument from its
         # container (decode replaces the recurrent states), and a freed
         # storage's id can be reused by a temporary
@@ -301,9 +343,34 @@ class OpCostMode(TorchDispatchMode):
                 self._memo[key] = None
         return out
 
+    def _collective(self, func, args, kwargs):
+        """A c10d collective: run (never memoised: it writes its result
+        buffer), charged by its kind's ring rule and keyed by its group."""
+        name = func.overloadpacket.__name__
+        if name not in _C10D:
+            raise NotImplementedError(f"OpCostMode counts no collective {func}")
+        out = func(*args, **kwargs)
+        kind, i_op, i_res = _C10D[name]
+        opn, res = _numel_bytes(args[i_op]), _numel_bytes(args[i_res])
+        wire = res if kind == "all-gather" else 2 * opn if kind == "all-reduce" else opn
+        pg = next(dist.ProcessGroup.unbox(v) for a, v in zip(func._schema.arguments, args)
+                  if "ProcessGroup" in str(a.type))
+        label = self._groups.get(pg.group_name, pg.group_name)
+        c = self.counts
+        c.collective_bytes[kind] += wire
+        c.collective_bytes_by_axis.setdefault(label, dict.fromkeys(COLLECTIVES, 0))[kind] += wire
+        c.collective_ops[kind] += 1
+        c.bytes += opn + res
+        c.bytes_xla_convention += opn + res
+        key = (name, " ".join(str(list(t.shape)) for t in _tensors(args)))
+        c.contributors[key] += opn + res
+        return out
+
     # -- per op ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "c10d":
+            return self._collective(func, args, kwargs)
         spec = self._kinds.get(func)
         if spec is None:
             spec = self._kinds[func] = (_classify(func), func._schema.is_mutable)
@@ -387,9 +454,11 @@ class OpCostMode(TorchDispatchMode):
         return c
 
 
-def count_call(fn: Callable, *args, **kwargs) -> Counts:
-    """Run ``fn(*args, **kwargs)`` under ``OpCostMode``; its counts."""
-    mode = OpCostMode((args, kwargs))
+def count_call(fn: Callable, *args, groups: Optional[Dict[str, str]] = None,
+               **kwargs) -> Counts:
+    """Run ``fn(*args, **kwargs)`` under ``OpCostMode`` (``groups`` as
+    there); its counts."""
+    mode = OpCostMode((args, kwargs), groups)
     with mode:
         out = fn(*args, **kwargs)
     return mode.finish(out)
@@ -410,7 +479,8 @@ def _extrapolate(a: int, b: int, n: int) -> int:
     return a + (n - 1) * (b - a)
 
 
-def analyze_stack(cfg, make_call: Callable) -> Tuple[Counts, Dict[str, int]]:
+def analyze_stack(cfg, make_call: Callable, groups: Optional[Dict[str, str]] = None
+                  ) -> Tuple[Counts, Dict[str, int]]:
     """Count a call of the model ``cfg`` at full depth from two shallow
     counts.  ``make_call(cfg)`` returns ``(fn, args, kwargs)`` for a config
     of that depth.  With ``stack_segments`` = (head, body periods, tail)
@@ -419,18 +489,18 @@ def analyze_stack(cfg, make_call: Callable) -> Tuple[Counts, Dict[str, int]]:
     so is a lower bound (module docstring).  Returns (the counts,
     {"periods": n, "layers_counted": layers of c1 + c2, "temp_peak_exact":
     False}).  At most three periods are counted whole ("temp_peak_exact":
-    True)."""
+    True).  ``groups`` as in ``OpCostMode``."""
     from ..models.transformer import stack_segments
     head, body, tail = stack_segments(cfg)
     n = len(body)
     if n <= 3:
         fn, args, kwargs = make_call(cfg)
-        return count_call(fn, *args, **kwargs), {
+        return count_call(fn, *args, groups=groups, **kwargs), {
             "periods": n, "layers_counted": cfg.n_layers, "temp_peak_exact": True}
     period = len(body[0])
     cuts = [dataclasses.replace(cfg, n_layers=len(head) + k * period + len(tail))
             for k in (1, 2)]
-    c1, c2 = [count_call(fn, *args, **kwargs)
+    c1, c2 = [count_call(fn, *args, groups=groups, **kwargs)
               for fn, args, kwargs in map(make_call, cuts)]
     out = Counts()
     for f in ("bytes", "bytes_xla_convention", "aten_ops", "argument_bytes",
@@ -439,6 +509,15 @@ def analyze_stack(cfg, make_call: Callable) -> Tuple[Counts, Dict[str, int]]:
     for k in FLOP_CLASSES:
         out.flops_by_class[k] = _extrapolate(c1.flops_by_class[k],
                                              c2.flops_by_class[k], n)
+    for k in COLLECTIVES:
+        out.collective_bytes[k] = _extrapolate(c1.collective_bytes[k],
+                                               c2.collective_bytes[k], n)
+        out.collective_ops[k] = _extrapolate(c1.collective_ops[k], c2.collective_ops[k], n)
+    zero = dict.fromkeys(COLLECTIVES, 0)
+    for a in set(c1.collective_bytes_by_axis) | set(c2.collective_bytes_by_axis):
+        k1, k2 = (c.collective_bytes_by_axis.get(a, zero) for c in (c1, c2))
+        out.collective_bytes_by_axis[a] = {k: _extrapolate(k1[k], k2[k], n)
+                                           for k in COLLECTIVES}
     for key in set(c1.contributors) | set(c2.contributors):
         v = _extrapolate(c1.contributors.get(key, 0), c2.contributors.get(key, 0), n)
         if v:

@@ -30,6 +30,7 @@ layout, so the closure checks it.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -182,12 +183,14 @@ class NamedSharding:
     spec: Spec
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full``, in a storage of its own (a view
+        of a dim-0 block would keep the whole leaf's storage alive)."""
         t = full
         for d, entry in enumerate(self.spec):
             for ax in spec_axes(entry):
                 n = self.mesh.shape[ax]
                 t = t.chunk(n, dim=d)[self.mesh.index(ax)]
-        return t.contiguous()
+        return t.contiguous() if t is full else t.clone(memory_format=torch.contiguous_format)
 
 
 def named_specs(shapes: Dict[str, Sequence[int]], rules: ShardingRules,
@@ -287,6 +290,14 @@ def cache_shardings(cfg: ModelConfig, mesh, batch: int, s_max: int,
             specs[name] = _strip(spec)
         out.append(specs)
     return out
+
+
+def batch_axes(mesh, batch: int) -> tuple:
+    """The dp axes a global batch of ``batch`` rows is cut over (none
+    where it is replicated), their group (None where none) and the number
+    of ranks they span."""
+    axes = spec_axes(_batch_dim_spec(mesh, batch))
+    return axes, (mesh.group(axes) if axes else None), math.prod(mesh.shape[a] for a in axes)
 
 
 def local_batch_size(mesh, batch: int) -> int:

@@ -544,6 +544,8 @@ def make_tp_moe_fn(mesh, dp_spec, cfg):
     from ..distributed import comm
     group = mesh.group("model")
     n, r = mesh.shape["model"], mesh.index("model")
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not divide a model axis of {n}")
     e_loc = cfg.n_experts // n
     dp_groups = [mesh.group(a) for a in ("pod", "data") if a in mesh.axis_names]
 

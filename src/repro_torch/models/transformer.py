@@ -401,10 +401,17 @@ def embed_inputs(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def unembed(params: Model, cfg: ModelConfig, x, tp=WHOLE) -> torch.Tensor:
     """Final norm and the (tied or untied) output head; logits in float32,
-    this rank's vocab block where the vocab is cut."""
+    this rank's vocab block where the vocab is cut.  A head whose vocab is
+    whole (a vocab-replicated tied table) over a model axis that divides
+    it gives the logits' block too, from this rank's columns of it, as
+    the reference's logit constraint reshards them."""
     x = rms_norm(tp.enter(x), params.final_norm, cfg.norm_eps)
     w_out = params.embed.T if cfg.tie_embeddings else params.lm_head
-    if tp.cut(w_out.shape[1], cfg.vocab):
+    V = w_out.shape[1]
+    if tp.cut(V, cfg.vocab):
+        x = tp.cols(x)
+    elif tp.size > 1 and V % tp.size == 0:
+        w_out = tp.split(w_out, 1)      # its backward gathers the columns' gradients
         x = tp.cols(x)
     return torch.einsum("bsd,dv->bsv", x, w_out.to(x.dtype)).float()
 

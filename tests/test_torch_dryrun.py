@@ -294,9 +294,21 @@ def test_roofline_terms_split_by_class():
 # (e) records through benchmarks/roofline.py
 # ---------------------------------------------------------------------------
 
+CARD_KEYS = {"arch", "shape", "mesh", "kind", "batch", "seq", "status", "n_chips", "count_s",
+             "depth", "info", "roofline", "model_flops_total", "hlo_flops_total",
+             "useful_flops_ratio", "n_params", "n_active_params", "fits", "top_contributors"}
+CARD_INFO = {"flops", "flops_by_class", "bytes_accessed", "bytes_xla_convention",
+             "collective_bytes", "collective_op_executions", "collective_ops", "aten_ops",
+             "argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes"}
+
+
 def test_run_cell_record_goes_through_rows_for():
+    """The one-card record: its keys (no mesh keys), no collective."""
     rec = dryrun.run_cell("qwen2_1_5b", ShapeSpec("t", "train", S, B), smoke=True)
     assert rec["status"] == "ok" and rec["mesh"] == "1xH100" and rec["n_chips"] == 1
+    assert set(rec) == CARD_KEYS and set(rec["info"]) == CARD_INFO
+    assert rec["roofline"]["t_collective_s"] == 0.0
+    assert rec["info"]["collective_bytes"]["total"] == 0.0
     assert rec["hlo_flops_total"] == rec["info"]["flops"] == rec["roofline"]["device_flops"]
     assert rec["useful_flops_ratio"] == rec["model_flops_total"] / rec["hlo_flops_total"]
     assert rec["fits"] is True and rec["count_s"] >= 0
@@ -306,12 +318,43 @@ def test_run_cell_record_goes_through_rows_for():
     assert row[:4] == ["qwen2_1_5b", "t", "1xH100", rec["roofline"]["dominant"]]
 
 
+@pytest.mark.parametrize("mesh,n", [("single", 256), ("multi", 512)])
+def test_mesh_record_goes_through_rows_for(mesh, n):
+    """Rank 0's share of the reduced qwen2 train step on the production
+    mesh (16, 16) or (2, 16, 16), counted in a counting world made in this
+    process: the mesh keys, the collective term over the network (every
+    axis spans nodes), all-reduces only over ``pod``, and the totals as
+    the reference's (rank 0's FLOPs times the ranks)."""
+    rec = dryrun.run_cell("qwen2_1_5b", "train_4k", smoke=True, mesh=mesh)
+    name = {"single": "16x16", "multi": "2x16x16"}[mesh]
+    assert rec["status"] == "ok" and rec["mesh"] == name and rec["n_chips"] == n
+    assert set(rec) == CARD_KEYS | {"rank"} and rec["rank"] == 0
+    info, r = rec["info"], rec["roofline"]
+    assert set(info) == CARD_INFO | {"collective_bytes_by_axis", "interconnect"}
+    axes = info["interconnect"]["axes"]
+    assert {l["link"] for l in axes.values()} == {"network"}
+    assert r["t_collective_s"] == pytest.approx(sum(
+        sum(kinds.values()) / axes[a]["bytes_per_s"]
+        for a, kinds in info["collective_bytes_by_axis"].items()), rel=1e-12)
+    assert r["t_collective_s"] > 0
+    assert info["collective_bytes"]["total"] == sum(
+        v for kinds in info["collective_bytes_by_axis"].values() for v in kinds.values())
+    if mesh == "multi":
+        pod = info["collective_bytes_by_axis"]["pod"]
+        assert {k for k, v in pod.items() if v} == {"all-reduce"}
+    assert rec["hlo_flops_total"] == info["flops"] * n
+    assert rec["useful_flops_ratio"] == rec["model_flops_total"] / rec["hlo_flops_total"]
+    json.dumps(rec)
+    (row,) = rows_for([rec])
+    assert row[:4] == ["qwen2_1_5b", "train_4k", name, r["dominant"]]
+
+
 def test_cli_writes_resumable_records(tmp_path, capsys):
     argv = ["--smoke", "--arch", "qwen2-1.5b,xlstm-125m",
             "--shape", "decode_32k,long_500k", "--out", str(tmp_path)]
     assert dryrun.main(argv) == 0
     names = sorted(os.listdir(tmp_path))
-    assert names == [f"{a}__{s}__single__baseline.json"
+    assert names == [f"{a}__{s}__card__baseline.json"
                      for a in ("qwen2_1_5b", "xlstm_125m") for s in ("decode_32k", "long_500k")]
     cells = load_cells(str(tmp_path))
     status = {(c["arch"], c["shape"]): c["status"] for c in cells}
@@ -336,16 +379,50 @@ def test_cli_jobs_write_the_same_records(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# (f) the reference's mesh flags
+# (f) the meshes and the reference's mesh flags
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [["--moe-tp"], ["--tp-act"], ["--embed-replicated"],
-                                   ["--mesh", "multi"]])
+                                   ["--mesh", "card", "--tp-act"]])
 def test_cli_rejects_mesh_flags(flags, tmp_path):
+    """The variants shard the program: one card (the default) rejects them."""
     with pytest.raises(SystemExit) as e:
         dryrun.main(flags + ["--out", str(tmp_path)])
     assert e.value.code == 2
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "single", "--tp-act"],
+                                   ["--mesh", "multi", "--embed-replicated"],
+                                   ["--mesh", "single", "--moe-tp"]])
+def test_cli_accepts_mesh_flags(flags, tmp_path):
+    """On a mesh each variant counts (in a spawned worker; ``--moe-tp``
+    leaves a config without routed experts as it is: the reduced MoE
+    configs' four experts do not divide a model axis of 16)."""
+    argv = ["--smoke", "--arch", "qwen2-1.5b", "--shape", "decode_32k", "--out", str(tmp_path)]
+    assert dryrun.main(argv + flags) == 0
+    (cell,) = load_cells(str(tmp_path))
+    assert cell["status"] == "ok" and cell["n_chips"] == (512 if "multi" in flags else 256)
+
+
+def test_cli_mesh_both_writes_resumable_records(tmp_path, capsys):
+    """``--mesh both`` writes the single and the multi record of each cell
+    (a skipped cell's too), and a rerun skips them.  A one-card record
+    under a mesh's file name is counted again, not kept."""
+    argv = ["--smoke", "--arch", "qwen2-1.5b", "--shape", "decode_32k,long_500k",
+            "--mesh", "both", "--out", str(tmp_path)]
+    card = dryrun.run_cell("qwen2_1_5b", "decode_32k", smoke=True)
+    (tmp_path / "qwen2_1_5b__decode_32k__single__baseline.json").write_text(json.dumps(card))
+    assert dryrun.main(argv) == 0
+    assert sorted(os.listdir(tmp_path)) == [f"qwen2_1_5b__{s}__{m}__baseline.json"
+                                            for s in ("decode_32k", "long_500k")
+                                            for m in ("multi", "single")]
+    status = {(c["shape"], c["mesh"]): c["status"] for c in load_cells(str(tmp_path))}
+    assert status == {("decode_32k", "16x16"): "ok", ("decode_32k", "2x16x16"): "ok",
+                      ("long_500k", "16x16"): "skipped", ("long_500k", "2x16x16"): "skipped"}
+    capsys.readouterr()
+    assert dryrun.main(argv) == 0
+    assert capsys.readouterr().out.count("[skip existing]") == 4
 
 
 def test_memo_keys_scalars_by_type():

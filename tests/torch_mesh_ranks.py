@@ -1,5 +1,6 @@
 """Rank bodies for the port's mesh tests (``tests/test_torch_moe_tp.py``,
-``tests/test_torch_train_mesh.py``, ``tests/test_torch_cuda.py``).
+``tests/test_torch_train_mesh.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_dryrun_mesh.py``, ``tests/test_torch_cuda.py``).
 
 ``torch.multiprocessing.spawn`` starts each rank in a fresh interpreter
 that imports the function's module, so the bodies live here rather than
@@ -32,13 +33,14 @@ def t2np(t: torch.Tensor) -> np.ndarray:
 
 
 def gather_rows(t: torch.Tensor, mesh, batch: int) -> torch.Tensor:
-    """The whole [batch, ...] tensor from each data rank's rows."""
+    """The whole [batch, ...] tensor from each dp rank's rows."""
     from repro_torch.distributed import comm
-    from repro_torch.launch.sharding import _batch_dim_spec
-    if _batch_dim_spec(mesh, batch) is None:
+    from repro_torch.launch.sharding import batch_axes
+    axes, group, _ = batch_axes(mesh, batch)
+    if not axes:
         return t
     with torch.no_grad():
-        return comm.all_gather(t, 0, mesh.group("data"))
+        return comm.all_gather(t, 0, group)
 
 
 def _template(cfg):
@@ -360,7 +362,9 @@ def tp_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None:
     out, shapes, blocks = {}, {}, {}
     for case in spec["cases"]:
         shape = tuple(case["mesh"])
-        mesh = meshes.setdefault(shape, make_test_mesh(shape, device=dev))
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(shape, device=dev)
+        mesh = meshes[shape]
         cfg = train_cfg(spec, case["arch"])
         model = fsdp.shard_model(load_params(cfg, str(work / f"init_{case['arch']}"), str(dev)),
                                  mesh)
@@ -370,7 +374,9 @@ def tp_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None:
         blocks.update({f"{case['name']}/{k}": v for k, v in b.items()})
     for r in spec.get("restore", []):
         shape = tuple(r["mesh"])
-        mesh = meshes.setdefault(shape, make_test_mesh(shape, device=dev))
+        if shape not in meshes:
+            meshes[shape] = make_test_mesh(shape, device=dev)
+        mesh = meshes[shape]
         cfg = train_cfg(spec, r["arch"])
         model = fsdp.shard_model(load_params(cfg, str(work / f"init_{r['arch']}"), str(dev)),
                                  mesh)
@@ -418,4 +424,130 @@ def tp_cards(rank: int, world: int, workdir: str) -> None:
                                    tol=TP_CARDS_TOL)
     if rank == 0:
         Path(workdir, "tp_cards.json").write_text(json.dumps(rec))
+    close_world()
+
+
+# ---------------------------------------------------------------------------
+# the dry run on a mesh (test_torch_dryrun_mesh.py)
+# ---------------------------------------------------------------------------
+
+def count_cfg(arch: str):
+    from repro_torch import configs
+    return configs.reduced(configs.ARCHS[arch])
+
+
+def count_args(case: dict, mesh):
+    """``dryrun.build_call``'s (fn, args, kwargs) of one count case on
+    ``mesh``: this rank's blocks on ``meta``."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.train.step import TrainConfig
+    spec = ShapeSpec("t", case["kind"], case["seq"], case["batch"])
+    return dryrun.build_call(count_cfg(case["arch"]), spec,
+                             TrainConfig(tp_act=case.get("tp_act", False)), mesh,
+                             embed_vocab_shard=case.get("embed_vocab_shard", True),
+                             moe_tp=case.get("moe_tp", False))
+
+
+def materialize(obj, vocab: int, gen: torch.Generator):
+    """``build_call``'s meta arguments as CPU tensors of the same layouts
+    (a module's parameters and buffers in place): floating leaves uniform
+    in [0, 0.02), integer leaves (tokens, labels, the step) in [0, vocab)."""
+    def real(t):
+        if t.is_floating_point():
+            return (torch.rand(t.shape, generator=gen) * 0.02).to(t.dtype)
+        return torch.randint(0, vocab, t.shape, generator=gen, dtype=t.dtype)
+    if isinstance(obj, torch.Tensor):
+        return real(obj)
+    if isinstance(obj, torch.nn.Module):
+        obj.to_empty(device="cpu")
+        with torch.no_grad():
+            for t in [*obj.parameters(), *obj.buffers()]:
+                t.copy_(real(t))
+        return obj
+    if isinstance(obj, dict):
+        return {k: materialize(v, vocab, gen) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(materialize(v, vocab, gen) for v in obj)
+    return obj
+
+
+def pod_serve(cfg, model, mesh, pre: dict, s_max: int, steps: int) -> list:
+    """Prefill and ``steps`` greedy decode steps on ``mesh``: the tokens
+    (the argmax of the whole last-position logits), the same on every
+    rank."""
+    from repro_torch.distributed import fsdp, tp
+    B = next(iter(pre.values())).shape[0]
+    S = next(iter(pre.values())).shape[1]
+    lspec = tp.logits_spec(mesh, B, cfg.vocab)
+
+    def token(logits):
+        return whole_blocks(logits, lspec, mesh, B).argmax(-1).to(torch.int32)
+
+    last, caches = tp.make_prefill(cfg, mesh, B, s_max)(model, fsdp.local_batch(pre, mesh))
+    toks = [token(last)]
+    step = tp.make_decode_step(cfg, mesh, B, s_max)
+    for i in range(steps):
+        last, caches = step(model, caches, fsdp.local_batch({"token": toks[-1]}, mesh), S + i)
+        toks.append(token(last))
+    return [t.tolist() for t in toks]
+
+
+def dryrun_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None:
+    """``dryrun_spec.json``'s count cases: each ``build_call`` run on CPU
+    tensors (``materialize``) under ``OpCostMode`` over this gloo group,
+    rank 0 writing its counts; then the pod cases: the train
+    steps on a (P, D, M) mesh, or with a vocab-replicated embedding
+    (metrics, and the whole parameters and m after the first and the last
+    step) and prefill + greedy decode tokens."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch.mesh import close_world, make_test_mesh
+    from repro_torch.launch.op_cost import count_call
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.step import TrainConfig
+    dev = join(rank, world, workdir, device)
+    work = Path(workdir)
+    spec = json.loads((work / "dryrun_spec.json").read_text())
+    meshes = {}
+
+    def mesh_of(shape, axes):
+        key = (tuple(shape), tuple(axes))
+        if key not in meshes:
+            meshes[key] = make_test_mesh(*key, device=dev)
+        return meshes[key]
+    counts = {}
+    for i, case in enumerate(spec["counts"]):
+        mesh = mesh_of(case["mesh"], case["axes"])
+        fn, args, kwargs = count_args(case, mesh)
+        args = materialize(args, count_cfg(case["arch"]).vocab,
+                           torch.Generator().manual_seed(i))
+        counts[case["name"]] = count_call(fn, *args, groups=mesh.axis_labels(),
+                                          **kwargs).as_dict()
+    out, metrics = {}, {}
+    for case in spec["pod"]:
+        name, arch = case["name"], case["arch"]
+        mesh = mesh_of(case["mesh"], case["axes"])
+        cfg = train_cfg(spec, arch)
+        train, pre, _ = tp_inputs(work, arch, dev)
+        B = train[0]["labels"].shape[0]
+        model = fsdp.shard_model(load_params(cfg, str(work / f"init_{arch}"), str(dev)), mesh,
+                                 embed_vocab_shard=case.get("embed_vocab_shard", True))
+        out[f"{name}/tokens"] = np.array(pod_serve(cfg, model, mesh, pre, spec["s_max"],
+                                                   spec["decode"]))
+        opt = init_opt_state(model, device=dev)
+        step_fn = fsdp.make_train_step(cfg, TrainConfig(), mesh, B)
+        metrics[name] = []
+        for i in range(case["steps"]):
+            m = step_fn(model, opt, fsdp.local_batch(train[i], mesh))
+            metrics[name].append({k: float(v) for k, v in m.items()})
+            if i + 1 in (1, case["steps"]):
+                at = f"{name}/step{i + 1}"
+                out.update({f"{at}/params/{n}": t2np(t)
+                            for n, t in fsdp.full_leaves(model).items()})
+                out.update({f"{at}/m/{n}": t2np(t)
+                            for n, t in fsdp.full_leaves(model, opt["m"]).items()})
+    if rank == 0:
+        (work / "dryrun_real.json").write_text(json.dumps({"counts": counts,
+                                                           "metrics": metrics}))
+        np.savez(work / "dryrun_pod.npz", **out)
     close_world()
