@@ -138,6 +138,14 @@ Phases, each printing one JSON line:
                and MapReduceMP on the final generation; host seconds per
                update, overlay rebuild and compaction seconds, peak device
                memory
+  examples     the four ``examples/torch_*.py`` run in this process on the
+               card through their ``main`` (quickstart, the serving demo
+               with its demo flags, the MapReduceMP demo over every card
+               up to four, and the training demo at ``--steps 20`` with
+               its checkpoints under build/): each returns 0, the three
+               graph examples' oracle checks all MATCH and the step kernel
+               launches under each of them; each example's seconds, the
+               phase within 30 s
 
   cost         the dry run (``repro_torch.launch.dryrun.run_cell``: the
                ATen ops on the meta device, no card) of the calls the lm
@@ -3784,6 +3792,70 @@ def mesh_arg_bytes(arch: str, shape: str, mesh: str) -> int:
                        for k, v in batch.items())
 
 
+EXAMPLES = ("torch_quickstart", "torch_serve_queries", "torch_mapreduce_demo",
+            "torch_train_lm")
+EXAMPLES_BUDGET_S = 30.0
+
+
+def example_matches(name: str, lines: list) -> int:
+    """The oracle checks an example printed, all MATCH (raises on any
+    other verdict): their number."""
+    if name == "torch_quickstart":
+        verdicts = [l.split()[-1] for l in lines if l.startswith("oracle check:")]
+    elif name == "torch_serve_queries":
+        verdicts = [l.split()[-1] for l in lines if l.strip().startswith("oracle:")]
+    else:
+        verdicts = [l.split()[-3] for l in lines if l.endswith(" vs oracle")]
+    check(verdicts and set(verdicts) == {"MATCH"}, f"examples: {name} printed {verdicts}")
+    return len(verdicts)
+
+
+def phase_examples(workdir: Path) -> int:
+    """The four examples in process on the card: each ``main`` loaded from
+    its file and called with the card as its device (``torch_train_lm`` at
+    20 steps, its checkpoints under ``workdir``), its output captured.
+    Each returns 0; the graph examples' oracle checks all MATCH and the
+    step kernel launches under each (counted from 0 just before it, read
+    just after); the training demo prints its done line and launches no
+    graph kernel.  Returns the step launches of the three."""
+    import contextlib
+    import importlib.util
+    import io
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_frontier import NAME
+
+    rec, total = {}, 0
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = ([] if name != "torch_train_lm" else
+                ["--steps", "20", "--ckpt-dir", str(workdir / "train_lm")])
+        out = io.StringIO()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        seconds = time.perf_counter() - t0
+        n = build.LAUNCHES[NAME]
+        lines = out.getvalue().splitlines()
+        check(rc == 0, f"examples: {name} returned {rc}")
+        if name == "torch_train_lm":
+            check(n == 0 and lines[-1].startswith("[train] done. final loss"),
+                  f"examples: {name} ended {lines[-1:]} with {n} step launches")
+            rec[name] = {"seconds": seconds, "last_line": lines[-1]}
+        else:
+            check(n > 0, f"examples: {name} launched no {NAME}")
+            rec[name] = {"seconds": seconds, "matches": example_matches(name, lines),
+                         "fused_frontier_launches": n, "first_line": lines[0]}
+            total += n
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= EXAMPLES_BUDGET_S, f"examples: {phase_s:.1f} s")
+    emit("examples", seconds=phase_s, examples=rec, fused_frontier_launches=total)
+    return total
+
+
 def phase_cost() -> dict:
     """The dry-run record of every COST_CELLS cell, counted here on the
     host (no card): each cell's bound, ATen ops, useful-FLOP ratio and
@@ -3909,6 +3981,7 @@ def main() -> int:
         olaunches = phase_ooc(pg, sess, oracle, workdir)
         rlaunches = phase_repartition(pg, sess, oracle)
         ulaunches = phase_mutation(pg, workdir)
+        elaunches = phase_examples(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     del pg, sess, tsess, msess, sessions, oracle, served, tserved, mserved, mgated
@@ -3920,10 +3993,10 @@ def main() -> int:
     # the step's launches on each engine's serving path (path, traditional,
     # mapreduce, its meshes, the profiled sessions, the front end, the three
     # engines out of core, the repartitioned OPAT session, the mutable
-    # sessions), each counted from 0 in its own phase
+    # sessions, the graph examples), each counted from 0 in its own phase
     step_launches = (launches + RECORD["traditional"]["fused_frontier_launches"]
                      + mlaunches + xlaunches + plaunches + flaunches + olaunches
-                     + rlaunches + ulaunches)
+                     + rlaunches + ulaunches + elaunches)
     sources = {
         "fused_frontier": ("src/repro/kernels/fused_frontier.py:61", step_launches),
         "frontier_expand": ("src/repro/kernels/frontier_expand.py:47",

@@ -262,9 +262,10 @@ def make_prefill(cfg, mesh, batch: int, s_max: int, *, tp_act: bool = False,
     (``fsdp.local_batch``).  The logits are this rank's block of the last
     position's [B, V] (``logits_spec``); the caches are
     ``cache_shardings(cfg, mesh, batch, s_max)``'s blocks: the full
-    attention's k/v padded to ``s_max`` positions (``grow_caches``), the
-    local ring at min(window, s_max) slots (a prompt shorter than that
-    fills slots 0..S-1).  ``moe_fn`` (``layers.make_tp_moe_fn``) replaces
+    attention's k/v padded to ``s_max`` positions, the local ring at
+    min(window, s_max) slots (a prompt shorter than that fills slots
+    0..S-1): the layout ``grow_caches`` gives the one-process caches
+    grown to ``s_max``.  ``moe_fn`` (``layers.make_tp_moe_fn``) replaces
     the whole-batch MoE, as in the reference's prefill cell."""
     from ..launch.sharding import act_constraint, cache_shardings
     from ..serving.decode import prefill

@@ -78,6 +78,7 @@ import numpy as np
 from ..core import (EngineConfig, GraphSession, MAX_SN, MAX_YIELD,
                     MAX_YIELD_SHARED, MIN_SN, RANDOM_SN, SHARED_HEURISTICS,
                     partition_quality)
+from ..core.engine import resolve_device
 from ..core.metrics import total_connected_components
 from ..core.oracle import match_disjunctive
 from ..core.query import DisjunctiveQuery
@@ -350,6 +351,8 @@ def _verified(answers: np.ndarray, ref: np.ndarray, budget) -> bool:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
+    # no card and no --device cpu: raise before the graph is built
+    resolve_device(args.device)
 
     tracer = Tracer() if args.trace_out else NULL_TRACER
     t0 = time.time()

@@ -16,9 +16,13 @@ with the same data order, on any N), the straggler watchdog, and loss
 logging.  ``--device cuda`` (the default; one card per rank, raises with
 no card) or ``--device cpu`` (gloo); ``--smoke`` runs the reduced config.
 Checkpoints have the JAX package's layout, so either package can resume
-the other's.  ``--production`` asks for the (16, 16) mesh, which needs 256
-ranks; its model axis is dense tensor parallelism, which the trainer does
-not run yet.
+the other's.  ``--production`` trains on the (16, 16) mesh, which needs 256
+ranks: FSDP over its data axis and dense tensor parallelism over its model
+axis (heads, mlp, vocab, lru; ``distributed.tp``).  Inside
+``launch.mesh.counting_world(256)`` this process runs rank 0's share of
+that step on torch's ``fake`` backend (the collectives move nothing, so
+the printed values are meaningless); ``main`` keeps a group it finds and
+closes only one it opened.
 """
 from __future__ import annotations
 

@@ -2,7 +2,8 @@
 
 The JAX package's ``serving/decode.py`` in PyTorch.  Cache kinds per block:
   attn   : full KV cache [B, Smax, Hkv, hd] (RoPE applied at write time)
-  local  : ring KV cache [B, W, Hkv, hd], W = local_window (RoPE at write)
+  local  : ring KV cache [B, W, Hkv, hd], W = min(local_window, Smax)
+           (RoPE at write)
   rglru  : {h [B,w] f32, conv [B,cw-1,w]}
   mlstm  : {C [B,H,hk,hv] f32, n, m, conv}
   slstm  : {c, n, m, h [B,H,hd] f32}
@@ -12,8 +13,12 @@ across periods for ``lax.scan``); each layer's cache is a dict with the
 reference's leaf names and dtypes.  ``decode_step`` writes the new token's
 keys and values into the KV caches in place, replaces the recurrent
 states, and returns the same list.  A write at ``pos >= Smax`` raises (the
-reference's ``dynamic_update_slice`` clamps it to ``Smax - 1``): grow the
-caches first (``grow_caches``).
+reference's ``dynamic_update_slice`` clamps it to ``Smax - 1``), and so
+does a write at ``pos >= W`` into a ring shorter than the window (the
+reference wraps it onto a position still inside the window): grow the
+caches first (``grow_caches``, which also widens a ring shorter than the
+window, so that decoding past the prompt evicts no position still inside
+it).
 
 Over a mesh's ``model`` axis (``tp``, a ``distributed.tp.ModelAxis``) the
 blocks hold this rank's heads, widths and vocab rows, and the caches go in
@@ -95,13 +100,25 @@ def abstract_caches(cfg: ModelConfig, batch: int, s_max: int) -> List[Cache]:
 
 
 def grow_caches(cfg: ModelConfig, caches: List[Cache], extra: int) -> List[Cache]:
-    """Full-attention KV caches padded by ``extra`` zero positions (new
-    tensors; the local ring and the recurrent states are kept), so that
-    decoding can go on past the prefill's length."""
+    """The caches made ready for ``extra`` more positions, so that decoding
+    can go on past the prefill's length: each full-attention KV cache
+    padded by ``extra`` zero positions (new tensors), each local ring of n
+    slots padded with zero slots to min(local_window, n + extra).  A ring
+    shorter than the window holds position p at slot p, so the padding
+    keeps slot = pos mod W; a ring of window slots is kept, and so are the
+    recurrent states.  This is ``distributed.tp.make_prefill``'s layout at
+    ``s_max`` = S + ``extra``."""
     out = []
     for i, c in enumerate(caches):
-        if cfg.block_kind(i) == BLOCK_ATTN:
-            c = {name: torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])],
+        kind = cfg.block_kind(i)
+        pad = 0
+        if kind == BLOCK_ATTN:
+            pad = extra
+        elif kind == BLOCK_LOCAL_ATTN:
+            n = c["k"].shape[1]
+            pad = min(cfg.local_window, n + extra) - n
+        if kind == BLOCK_ATTN or pad:
+            c = {name: torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])],
                                  dim=1) for name, t in c.items()}
         out.append(c)
     return out
@@ -189,7 +206,7 @@ def _decode_full_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe, tp=
     cut, lo = _seq_block(tp, n, S)
     q, k, v = _rope_qkv(p, cfg, x, pos, tp)
     _write(cache, pos, lo, *_whole_heads(cfg, tp, k, v))
-    valid = lo + torch.arange(n, device=x.device) <= pos
+    valid = torch.arange(lo, lo + n, device=x.device) <= pos
     return _attend(p, cfg, x, q, cache["k"], cache["v"], valid, layer_is_moe, tp, moe_fn,
                    cut), cache
 
@@ -199,12 +216,17 @@ def _decode_local_attn(p, cfg: ModelConfig, x, cache, pos: int, layer_is_moe, tp
     """Ring-cache sliding-window attention (slot = pos mod W)."""
     n = cache["k"].shape[1]
     W = min(cfg.local_window, tp.seq_len) if tp.seq_len else n
+    if W < cfg.local_window and pos >= W:
+        # a ring shorter than the window would wrap onto positions that
+        # are still inside it
+        raise IndexError(f"decode at position {pos} past the ring cache's "
+                         f"{W} slots (window {cfg.local_window}); grow the caches first")
     cut, lo = _seq_block(tp, n, W)
     q, k, v = _rope_qkv(p, cfg, x, pos, tp)
     slot = pos % W
     _write(cache, slot, lo, *_whole_heads(cfg, tp, k, v))
     # absolute position stored in ring slot j
-    j = lo + torch.arange(n, device=x.device)
+    j = torch.arange(lo, lo + n, device=x.device)
     base = pos - slot
     abs_pos = torch.where(j <= slot, base + j, base - W + j)
     valid = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - cfg.local_window)

@@ -283,3 +283,22 @@ def test_cli_rejects_production(capsys):
     with pytest.raises(RuntimeError, match=r"need 256 devices for mesh \(16, 16\), have 1"):
         cli.main(FLAGS + ["--production"])
     assert "[train]" not in capsys.readouterr().out
+
+
+def test_cli_production_step_as_rank_0_of_256(capsys):
+    """``--production`` inside ``counting_world(256)``: the CLI joins the
+    group there, builds the (16, 16) mesh and runs one FSDP + tensor
+    parallel step of reduced qwen2 as rank 0, and leaves the group it did
+    not open.  The ``fake`` backend's collectives move nothing, so only
+    the printed lines are checked."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import counting_world
+    with counting_world(256):
+        assert cli.main(["--arch", "qwen2-1.5b", "--smoke", "--production", "--steps", "1",
+                         "--batch", "16", "--seq", "32", "--device", "cpu"]) == 0
+        assert dist.is_initialized() and dist.get_world_size() == 256
+    assert not dist.is_initialized()
+    lines = capsys.readouterr().out.splitlines()
+    assert [l.split()[:3] for l in lines if l.startswith("[train] step")] == \
+        [["[train]", "step", "0"]], lines
+    assert any(l.startswith("[train] done.") for l in lines), lines

@@ -442,6 +442,44 @@ def test_memo_keys_scalars_by_type():
         assert getattr(got, f) == getattr(real, f), f
 
 
+def test_one_card_decode_step_op_count():
+    """On one card the decode step's positions come from ``arange`` with no
+    offset added: no ``aten.add`` takes an ``arange``'s output, and each
+    full-attention layer of reduced qwen2 adds 11 ``aten.add.Tensor``
+    (the difference between two and three layers, which holds across
+    torch versions where the totals need not)."""
+    import dataclasses
+    from repro_torch.models.transformer import abstract_params
+    from repro_torch.serving.decode import abstract_caches, decode_step
+
+    class PerOp(op_cost.OpCostMode):
+        def __init__(self, args):
+            super().__init__(args)
+            self.adds, self.ranges, self.offset = 0, [], 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if func.overloadpacket is torch.ops.aten.add:
+                self.adds += func is torch.ops.aten.add.Tensor
+                self.offset += any(a is r for a in args for r in self.ranges)
+            elif func.overloadpacket is torch.ops.aten.arange:
+                self.ranges.append(out)
+            return out
+
+    def count(n_layers):
+        cfg = dataclasses.replace(configs.reduced(configs.ARCHS["qwen2_1_5b"]),
+                                  n_layers=n_layers)
+        params, caches = abstract_params(cfg), abstract_caches(cfg, B, S)
+        inputs = {"token": meta(B, dtype=torch.int32)}
+        mode = PerOp((params, caches, inputs))
+        with mode:
+            decode_step(params, cfg, caches, inputs, S - 1)
+        assert mode.ranges and mode.offset == 0
+        return mode.adds
+
+    assert count(3) - count(2) == 11
+
+
 @pytest.mark.parametrize("aid,kind", [("xlstm_125m", "prefill"), ("qwen2_1_5b", "train"),
                                       ("deepseek_moe_16b", "decode")])
 def test_meta_count_equals_a_count_on_real_tensors(aid, kind):

@@ -648,6 +648,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 20
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"src/repro_torch/core/mapreduce_mp.py",
@@ -684,7 +685,11 @@ def test_port_imports_neither_jax_nor_reference():
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/launch/sharding.py",
             "src/repro_torch/distributed/comm.py",
-            "src/repro_torch/distributed/fsdp.py"} <= names
+            "src/repro_torch/distributed/fsdp.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_serve_queries.py",
+            "examples/torch_mapreduce_demo.py",
+            "examples/torch_train_lm.py"} <= names
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -250,6 +250,22 @@ def test_decode_past_the_cache_end_raises(pairs):
     np.testing.assert_allclose(t2np(logits), pair.ref["dlogits"], rtol=RTOL, atol=ATOL)
 
 
+def test_decode_past_a_short_ring_raises(pairs):
+    """Hazard: a prompt of 16 under the window of 32 leaves a ring of 16
+    slots; the reference's decode at 16 wraps onto slot 0, whose position
+    is still inside the window.  The port raises until the caches grow."""
+    pair = pairs("recurrentgemma_9b")
+    cfg, model = pair.cfg, pair.model()
+    S0 = 16
+    batch = {k: v[:, :S0] for k, v in pair.tensors(pair.batch).items()}
+    _, caches = serving.prefill(model, cfg, batch)
+    tok = {"token": batch["tokens"][:, -1]}
+    with pytest.raises(IndexError, match="grow the caches"):
+        serving.decode_step(model, cfg, caches, tok, S0)
+    logits, _ = serving.decode_step(model, cfg, grow_caches(cfg, caches, 1), tok, S0)
+    assert torch.isfinite(logits).all()
+
+
 def test_ring_cache_after_a_wrap(pairs):
     """Hazard: the local ring cache.  A prompt of 48 > window 32 makes the
     prefill roll its last 32 positions by 16; decode then writes slot
@@ -272,6 +288,54 @@ def test_ring_cache_after_a_wrap(pairs):
     tdl, tcaches = serving.decode_step(model, cfg, tcaches, {"token": torch.from_numpy(tok)}, 48)
     np.testing.assert_allclose(t2np(tdl), np32(dl), rtol=RTOL, atol=ATOL)
     assert_caches_match(pair, jax.tree.map(np.asarray, dcaches), tcaches, RTOL, CACHE_ATOL, CONV_RTOL)
+
+
+def test_ring_shorter_than_the_window_grows_to_the_window(pairs):
+    """Hazard: a prompt of 16 under the window of 32 leaves the prefill a
+    ring of 16 slots (position p at slot p).  ``grow_caches`` by 24 pads it
+    to min(32, 40) slots, as the test pads the reference's ring here, so
+    that decoding past 16 evicts nothing still inside the window (the
+    reference's decode reads W from the cache).  The grown caches equal
+    the padded reference tree bit for bit; 8 greedy steps (the
+    reference's tokens fed to both) match its logits."""
+    pair = pairs("recurrentgemma_9b")
+    rcfg, cfg = pair.rcfg, pair.cfg
+    S0, extra, steps = 16, 24, 8
+    W = min(cfg.local_window, S0 + extra)
+    params = jax.tree.map(jnp.asarray, pair.tree)
+    spec = ref_registry.ShapeSpec("short", "prefill", S0, B)
+    batch = {k: np.asarray(v) for k, v in ref_registry.concrete_batch(rcfg, spec, seed=7).items()}
+    _, caches = jax.jit(functools.partial(ref_serving.prefill, cfg=rcfg))(params, batch=batch)
+    top, layers_ = cv.split_layers(rcfg, jax.tree.map(np.asarray, caches))
+    ring = [i for i in range(cfg.n_layers) if rcfg.block_kind(i) == "local"]
+    assert ring and all(layers_[i]["k"].shape[1] == S0 for i in ring)
+    for i in ring:
+        for k, v in layers_[i].items():
+            layers_[i][k] = np.concatenate(
+                [v, np.zeros(v.shape[:1] + (W - S0,) + v.shape[2:], v.dtype)], axis=1)
+    padded = cv.join_layers(rcfg, top, layers_, stack=np.stack)
+    model = pair.model()
+    _, tcaches = serving.prefill(model, cfg, pair.tensors(batch))
+    tcaches = grow_caches(cfg, tcaches, extra)
+    carried = grow_caches(cfg, cv.lm_caches_from_tree(cfg, jax.tree.map(np.asarray, caches),
+                                                      device="cpu"), extra)
+    _, want = cv.split_layers(rcfg, padded)
+    for w, g in zip(want, carried):
+        assert sorted(w) == sorted(g)
+        for k in w:
+            np.testing.assert_array_equal(t2np(g[k]), np32(w[k]))
+    assert all(tcaches[i]["k"].shape[1] == W for i in ring)
+    dec = jax.jit(functools.partial(ref_serving.decode_step, cfg=rcfg))
+    rcaches = jax.tree.map(jnp.asarray, padded)
+    tok = batch["tokens"][:, -1].copy()
+    for t in range(steps):
+        dl, rcaches = dec(params, caches=rcaches, inputs={"token": tok}, pos=jnp.int32(S0 + t))
+        tdl, tcaches = serving.decode_step(model, cfg, tcaches,
+                                           {"token": torch.from_numpy(tok)}, S0 + t)
+        np.testing.assert_allclose(t2np(tdl), np32(dl), rtol=RTOL, atol=ATOL, err_msg=f"step {t}")
+        tok = np.asarray(dl).argmax(-1).astype(np.int32)
+    assert_caches_match(pair, jax.tree.map(np.asarray, rcaches), tcaches, RTOL, CACHE_ATOL,
+                        CONV_RTOL)
 
 
 # ---------------------------------------------------------------------------

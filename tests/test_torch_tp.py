@@ -14,7 +14,9 @@ against the JAX package's programs jitted with ``build_cell``'s
 parameters, m, v, caches and logits are its spec's blocks; a checkpoint
 written on (2, 2) resumes on (4, 1) and (1, 1); ``make_tp_moe_fn`` through
 ``fsdp.make_train_step`` on (2, 2) against the reference's step with its
-``moe_fn``.  The weights are the port's ``init_params`` with wq and wk
+``moe_fn``; a prompt shorter than recurrentgemma's ring window served on
+(1, 1) and (1, 4) against the one-process prefill, ``grow_caches`` and
+decode.  The weights are the port's ``init_params`` with wq and wk
 rescaled to fan-in d (the raw init's near one-hot attention turns a
 rounding-level change of the weights into gradient changes of 4.3e-4 of a
 leaf in reduced recurrentgemma, 3.5e-6 at fan-in d), carried to the
@@ -59,6 +61,9 @@ TP_ACT = ["qwen2_1_5b", "recurrentgemma_9b"]
 MESHES = [(1, 4), (2, 2)]
 B, S, S_MAX, DECODE = 4, 32, 36, 3
 REF_STEPS = 3
+# the short prompt: 16 positions under recurrentgemma's window of 32, the
+# caches grown by 24 (the ring to min(32, 40) slots), 8 decode steps
+SHORT_S, SHORT_GROW, SHORT_STEPS = 16, 24, 8
 # float32.  The sharded programs sum in other orders than the one-process
 # ones (partial products over a cut dim, the log-sum-exp over vocab
 # blocks, flash-decode's combine): logits, caches and the loss terms are
@@ -82,6 +87,7 @@ SPEC = {
     "cases": [],
     "restore": [{"name": "qwen2_2x2_to_4x1", "arch": "qwen2_1_5b", "mesh": [4, 1],
                  "ckpt": "ckpt_qwen2_1_5b_2x2"}],
+    "short": {"arch": "recurrentgemma_9b", "grow": SHORT_GROW, "meshes": [[1, 4]]},
 }
 for _a in ARCHS:
     for _m in MESHES:
@@ -272,14 +278,37 @@ def one_process(arch, work):
     return out
 
 
-def restore_one_rank(work):
-    """The (2, 2) checkpoint resumed on a one-rank mesh in this process: the
-    next step's metrics."""
+def short_one_process(work):
+    """The short prompt (``ranks.tp_short``'s case) through the one-process
+    ``prefill``, ``grow_caches`` and ``decode_step``."""
+    arch = SPEC["short"]["arch"]
+    cfg = cfg_of(arch)
+    model = ranks.load_params(cfg, str(work / f"init_{arch}"))
+    z = np.load(work / "tp_short.npz")
+    with torch.no_grad():
+        last, caches = prefill(model, cfg, {"tokens": torch.from_numpy(z["tokens"])})
+        caches = grow_caches(cfg, caches, SHORT_GROW)
+        out = {"prefill": last.numpy()}
+        for i, tok in enumerate(z["decode"]):
+            lg, caches = decode_step(model, cfg, caches, {"token": torch.from_numpy(tok)},
+                                     SHORT_S + i)
+            out[f"decode/{i}"] = lg.numpy()
+    out.update({f"cache/{i}/{k}": t.float().numpy() for i, c in enumerate(caches)
+                for k, t in c.items()})
+    return out
+
+
+def one_rank(work):
+    """On a one-rank mesh in this process: the (2, 2) checkpoint resumed
+    (the next step's metrics), and the short prompt served on (1, 1) and
+    in one process, at the same thread count."""
     from repro_torch.distributed import fsdp, load_checkpoint
     cfg = cfg_of("qwen2_1_5b")
     init_world("cpu")
     try:
         mesh = make_test_mesh((1, 1), device="cpu")
+        short = {"1x1": ranks.tp_short(SPEC, mesh, work, "cpu"),
+                 "one": short_one_process(work)}
         model = fsdp.shard_model(ranks.load_params(cfg, str(work / "init_qwen2_1_5b")), mesh)
         opt = init_opt_state(model, device="cpu")
         step, state, _ = load_checkpoint(str(work / "ckpt_qwen2_1_5b_2x2"),
@@ -288,7 +317,7 @@ def restore_one_rank(work):
         fsdp.load_state(cfg, model, opt, state)
         train, _, _ = ranks.tp_inputs(work, "qwen2_1_5b", "cpu")
         m = fsdp.make_train_step(cfg, TrainConfig(), mesh, B)(model, opt, train[step])
-        return {"step": step, **{k: float(v) for k, v in m.items()}}
+        return {"step": step, **{k: float(v) for k, v in m.items()}}, short
     finally:
         close_world()
 
@@ -306,6 +335,11 @@ def runs(tmp_path_factory):
         save_checkpoint(str(work / f"init_{arch}"), 0,
                         {"params": cv.lm_tree_from_params(cfg_of(arch), model)})
         np.savez(work / f"tp_inputs_{arch}.npz", **make_inputs(arch, seed))
+    rng = np.random.default_rng(len(ARCHS))
+    vocab = cfg_of(SPEC["short"]["arch"]).vocab
+    np.savez(work / "tp_short.npz",
+             tokens=rng.integers(0, vocab, (B, SHORT_S)).astype(np.int32),
+             decode=rng.integers(0, vocab, (SHORT_STEPS, B)).astype(np.int32))
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                          "--xla_cpu_multi_thread_eigen=false")
@@ -323,7 +357,7 @@ def runs(tmp_path_factory):
             torch.set_num_threads(threads)
             while not spawned.join():
                 pass
-        restored = restore_one_rank(work)
+        restored, short = one_rank(work)
     finally:
         errs = [r.communicate(timeout=900)[1] for r in refs]
     for r, err in zip(refs, errs):
@@ -333,7 +367,8 @@ def runs(tmp_path_factory):
         ref_metrics.update(json.loads((work / f"tp_ref_{p}.json").read_text()))
         ref_arrays.update(np.load(work / f"tp_ref_{p}.npz"))
     port = dict(np.load(work / "tp_port.npz"))
-    return {"work": work, "port": port, "one": one, "restored": restored,
+    short["1x4"] = of(port, "short/1x4/")
+    return {"work": work, "port": port, "one": one, "restored": restored, "short": short,
             "ref": (ref_metrics, ref_arrays),
             "shapes": [json.loads((work / f"tp_shapes_{r}.json").read_text()) for r in range(4)],
             "blocks": [dict(np.load(work / f"tp_blocks_{r}.npz")) for r in range(4)]}
@@ -425,6 +460,32 @@ def test_prefill_and_decode_match_one_process(runs, name):
         assert rel(port[f"{name}/decode/{i}"], w) <= LOGIT_RTOL, i
     assert_caches(of(port, f"{name}/decode/cache/"), want["decode/cache"], LOGIT_RTOL,
                   want["bf16_decode"])
+
+
+@pytest.mark.parametrize("mesh", ["1x1", "1x4"])
+def test_short_prompt_ring_matches_one_process(runs, mesh):
+    """A prompt shorter than the ring's window: ``tp.make_prefill`` lays the
+    ring at min(window, s_max) slots, and so does ``grow_caches`` for the
+    one-process decode, so decoding past the prompt evicts nothing still
+    in the window on either path.  Prefill's and 8 decode steps' logits
+    and the caches after: bit-equal on (1, 1), within LOGIT_RTOL on
+    (1, 4) (the recurrent states to one bfloat16 ulp)."""
+    cfg = cfg_of(SPEC["short"]["arch"])
+    got, want = runs["short"][mesh], runs["short"]["one"]
+    ring = [i for i in range(cfg.n_layers) if cfg.block_kind(i) == "local"]
+    assert ring and all(want[f"cache/{i}/k"].shape[1] == cfg.local_window for i in ring)
+    assert sorted(got) == sorted(want)
+    if mesh == "1x1":
+        for k, w in want.items():
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+        return
+    for k in ["prefill"] + [f"decode/{i}" for i in range(SHORT_STEPS)]:
+        assert rel(got[k], want[k]) <= LOGIT_RTOL, k
+    n = cfg.n_layers
+    caches = [{k.split("/")[2]: v for k, v in want.items() if k.startswith(f"cache/{i}/")}
+              for i in range(n)]
+    bf16 = {f"{i}/{k}" for i in range(n) if cfg.block_kind(i) == "rglru" for k in caches[i]}
+    assert_caches(of(got, "cache/"), caches, LOGIT_RTOL, bf16)
 
 
 def ref_caches(cfg, flat, prefix):

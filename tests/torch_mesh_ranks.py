@@ -346,9 +346,39 @@ def tp_case(cfg, case: dict, spec: dict, model, mesh, work: Path, dev) -> tuple:
     return out, shapes, blocks
 
 
+def tp_short(spec: dict, mesh, work: Path, dev) -> dict:
+    """``spec["short"]``'s prompt, shorter than the ring's window, served
+    on ``mesh``: ``tp.make_prefill`` at s_max = S + ``grow``, then a
+    decode step per row of ``tp_short.npz``'s ``decode``.  {"prefill",
+    "decode/i", "cache/i/name": whole arrays}."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import tp
+    from repro_torch.launch.sharding import cache_shardings
+    arch = spec["short"]["arch"]
+    cfg = train_cfg(spec, arch)
+    model = fsdp.shard_model(load_params(cfg, str(work / f"init_{arch}"), str(dev)), mesh)
+    z = np.load(work / "tp_short.npz")
+    B, S = z["tokens"].shape
+    s_max = S + spec["short"]["grow"]
+    lspec = tp.logits_spec(mesh, B, cfg.vocab)
+    cspecs = cache_shardings(cfg, mesh, B, s_max)
+    local = lambda d: fsdp.local_batch({k: torch.from_numpy(v).to(dev) for k, v in d.items()},
+                                       mesh)
+    last, caches = tp.make_prefill(cfg, mesh, B, s_max)(model, local({"tokens": z["tokens"]}))
+    out = {"prefill": t2np(whole_blocks(last, lspec, mesh, B))}
+    step = tp.make_decode_step(cfg, mesh, B, s_max)
+    for i, tok in enumerate(z["decode"]):
+        lg, caches = step(model, caches, local({"token": tok}), S + i)
+        out[f"decode/{i}"] = t2np(whole_blocks(lg, lspec, mesh, B))
+    out.update({f"cache/{i}/{k}": t2np(whole_blocks(t, cspecs[i][k], mesh, B))
+                for i, c in enumerate(caches) for k, t in c.items()})
+    return out
+
+
 def tp_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None:
-    """Every case of ``tp_spec.json`` on its (D, M) mesh (``tp_case``), then
-    the checkpoints named in ``restore`` resumed on (world, 1): the next
+    """Every case of ``tp_spec.json`` on its (D, M) mesh (``tp_case``), the
+    short prompt on each mesh of ``short`` (``tp_short``), then the
+    checkpoints named in ``restore`` resumed on (world, 1): the next
     step's metrics.  Rank 0 writes the whole arrays; each rank its shapes
     and blocks."""
     from repro_torch.distributed import fsdp, load_checkpoint
@@ -372,6 +402,10 @@ def tp_mesh(rank: int, world: int, workdir: str, device: str = "cpu") -> None:
         out.update(o)
         shapes[case["name"]] = s
         blocks.update({f"{case['name']}/{k}": v for k, v in b.items()})
+    for shape in map(tuple, spec["short"]["meshes"]):
+        tag = "x".join(map(str, shape))
+        out.update({f"short/{tag}/{k}": v
+                    for k, v in tp_short(spec, meshes[shape], work, dev).items()})
     for r in spec.get("restore", []):
         shape = tuple(r["mesh"])
         if shape not in meshes:
