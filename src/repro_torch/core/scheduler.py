@@ -65,6 +65,14 @@ RAM, where there is no view).
 
 Profiling: each ``kernel.eval`` span is costed by the session's profiler
 (obs/profile.py) under the JAX package's kernel keys.
+
+Tracing (obs/trace.py): ``scheduler.admit`` per admission,
+``scheduler.run`` per call of ``run()`` with ``scheduler.retire``,
+``scheduler.rank``, ``scheduler.round`` and ``scheduler.collect`` inside
+it; in a round, ``kernel.eval`` per evaluator call, stamped with its
+``lanes`` and its step launches (``loops``), then ``scheduler.absorb``
+over the call's lane outputs.  Attributes are built only when the
+tracer is enabled.
 """
 from __future__ import annotations
 
@@ -227,18 +235,21 @@ class QueryScheduler:
         disjuncts = (query.disjuncts if isinstance(query, DisjunctiveQuery)
                      else [query])
         jobs: List[_Job] = []
-        for q in disjuncts:
-            plan = generate_plan(q, self._graph, self._catalog)
-            assert plan.n_slots <= cfg.q_pad and plan.n_steps <= cfg.s_pad
-            counts = self.pg.start_label_counts(plan.start_label,
-                                                plan.start_value_op,
-                                                plan.start_value)
-            st = QueryState.initial(self.pg.k, cfg.q_pad, counts,
-                                    track_answer_keys=max_answers is not None)
-            jobs.append(_Job(
-                qid=qid, plan=plan,
-                plan_arrays=PlanArrays.from_plan(plan, pad_steps=cfg.s_pad),
-                state=st, max_answers=max_answers, urgency=float(urgency)))
+        with self.tracer.span("scheduler.admit") as sp:
+            for q in disjuncts:
+                plan = generate_plan(q, self._graph, self._catalog)
+                assert plan.n_slots <= cfg.q_pad and plan.n_steps <= cfg.s_pad
+                counts = self.pg.start_label_counts(plan.start_label,
+                                                    plan.start_value_op,
+                                                    plan.start_value)
+                st = QueryState.initial(self.pg.k, cfg.q_pad, counts,
+                                        track_answer_keys=max_answers is not None)
+                jobs.append(_Job(
+                    qid=qid, plan=plan,
+                    plan_arrays=PlanArrays.from_plan(plan, pad_steps=cfg.s_pad),
+                    state=st, max_answers=max_answers, urgency=float(urgency)))
+            if self.tracer.enabled:
+                sp.set(qid=qid, disjuncts=len(disjuncts))
         self._admitted[qid] = _Admitted(qid=qid, name=query.name, jobs=jobs,
                                         max_answers=max_answers,
                                         admitted_perf=time.perf_counter())
@@ -296,49 +307,60 @@ class QueryScheduler:
         to that many load rounds (whole queries on the sequential drain),
         leaving the rest pending; None drains everything."""
         self._check_binding()
-        t0 = time.time()
-        stats0 = self.store.stats.copy()
-        loads0, batches0 = len(self.loads), len(self.batch_sizes)
-        engine = self.session.engine
-        shared = isinstance(engine, (OPATEngine, TraditionalMPEngine))
-        # every load of this call resolves against the pinned generation
-        ctx = (self.store.viewing(self.view) if self.view is not None
-               else contextlib.nullcontext())
-        with ctx:
-            if isinstance(engine, OPATEngine):
-                self._run_shared(max_rounds)
-            elif isinstance(engine, TraditionalMPEngine):
-                self._run_shared_tmp(max_rounds)
-            else:
-                self._run_sequential(max_rounds)
-        return ScheduleReport(
-            results=self._collect_results(t0),
-            loads=self.loads[loads0:],
-            batch_sizes=self.batch_sizes[batches0:],
-            load_stats=self.store.stats - stats0,
-            wall_s=time.time() - t0,
-            shared=shared)
+        with self.tracer.span("scheduler.run") as sp:
+            t0 = time.time()
+            stats0 = self.store.stats.copy()
+            loads0, batches0 = len(self.loads), len(self.batch_sizes)
+            engine = self.session.engine
+            shared = isinstance(engine, (OPATEngine, TraditionalMPEngine))
+            # every load of this call resolves against the pinned generation
+            ctx = (self.store.viewing(self.view) if self.view is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                if isinstance(engine, OPATEngine):
+                    self._run_shared(max_rounds)
+                elif isinstance(engine, TraditionalMPEngine):
+                    self._run_shared_tmp(max_rounds)
+                else:
+                    self._run_sequential(max_rounds)
+            with self.tracer.span("scheduler.collect") as csp:
+                results = self._collect_results(t0)
+                if self.tracer.enabled:
+                    csp.set(results=len(results))
+            report = ScheduleReport(
+                results=results,
+                loads=self.loads[loads0:],
+                batch_sizes=self.batch_sizes[batches0:],
+                load_stats=self.store.stats - stats0,
+                wall_s=time.time() - t0,
+                shared=shared)
+            if self.tracer.enabled:
+                sp.set(max_rounds=max_rounds, results=len(results))
+        return report
 
     def _ranked(self, waiters: Dict[int, List[_Job]],
                 rng: np.random.Generator) -> List[int]:
         """Rank the candidate partitions by every waiter's (SNI,
         completion rate, rounds waiting); a job's rates are computed once
         per round and only when the ranking reads them."""
-        rates = {}
-        if self.heuristic == MAX_YIELD_SHARED:
-            for js in waiters.values():
-                for j in js:
-                    if id(j) not in rates:
-                        rates[id(j)] = j.state.completion_rates()
-        scored = {p: [(j.state.sni_count(p),
-                       rates[id(j)][p] if rates else 0.0,
-                       j.rounds_waiting,
-                       j.urgency)
-                      for j in js]
-                  for p, js in waiters.items()}
-        return rank_partitions_shared(self.heuristic, scored, rng,
-                                      fairness_gamma=self.fairness_gamma,
-                                      tracer=self.tracer)
+        with self.tracer.span("scheduler.rank") as sp:
+            if self.tracer.enabled:
+                sp.set(candidates=len(waiters))
+            rates = {}
+            if self.heuristic == MAX_YIELD_SHARED:
+                for js in waiters.values():
+                    for j in js:
+                        if id(j) not in rates:
+                            rates[id(j)] = j.state.completion_rates()
+            scored = {p: [(j.state.sni_count(p),
+                           rates[id(j)][p] if rates else 0.0,
+                           j.rounds_waiting,
+                           j.urgency)
+                          for j in js]
+                      for p, js in waiters.items()}
+            return rank_partitions_shared(self.heuristic, scored, rng,
+                                          fairness_gamma=self.fairness_gamma,
+                                          tracer=self.tracer)
 
     def _stacked_plans(self, batch: List[_Job]):
         """The batch's plans stacked on the device, and their n_steps."""
@@ -382,9 +404,10 @@ class QueryScheduler:
             ranked = self._ranked(waiters, rng)
             pid = int(ranked[0])
             batch = waiters[pid]
-            with self.tracer.span("scheduler.round", pid=pid, round=rounds,
-                                  batch=len(batch),
-                                  qids=sorted({j.qid for j in batch})):
+            attrs = (dict(pid=pid, round=rounds, batch=len(batch),
+                          qids=sorted({j.qid for j in batch}))
+                     if self.tracer.enabled else {})
+            with self.tracer.span("scheduler.round", **attrs):
                 ev0 = self.store.stats.copy()
                 entry = self.store.get(pid)
                 # the attributable event is the load itself, snapshot
@@ -460,14 +483,17 @@ class QueryScheduler:
                     seeds.append(bool(j.state.fresh_pending[pid]))
                     j.state.fresh_pending[pid] = False
             ev0 = self.store.stats.copy()
-            with self.tracer.span("scheduler.round", pids=chosen, round=rounds,
-                                  batch=len(batch),
-                                  qids=sorted({j.qid for j in batch})):
+            tr = self.tracer
+            attrs = (dict(pids=chosen, round=rounds, batch=len(batch),
+                          qids=sorted({j.qid for j in batch}))
+                     if tr.enabled else {})
+            with tr.span("scheduler.round", **attrs):
                 entry = self.store.get_stacked(tuple(exec_set))
                 event = self.store.stats - ev0
                 key = ("scheduler.tmp", batch_bucket(len(batch)))
-                with self.tracer.span("kernel.eval", pids=chosen,
-                                      batch=len(batch), lanes=len(inputs)) as ksp:
+                kattrs = (dict(pids=chosen, batch=len(batch), lanes=len(inputs))
+                          if tr.enabled else {})
+                with tr.span("kernel.eval", **kattrs) as ksp:
                     # costed at the bucket's most lanes: p for each job
                     self._first_call(ksp, key, entry, key[1] * p)
                     loops0 = engine.batched_iters
@@ -476,17 +502,23 @@ class QueryScheduler:
                                 *lane_inputs(inputs, cfg.cap, cfg.q_pad,
                                              self.device), seeds)
                     outs = lane_outputs(res)
-                    self.profiler.stamp_kernel(ksp, key, engine.batched_iters - loops0)
+                    loops = engine.batched_iters - loops0
+                    if tr.enabled:
+                        ksp.set(loops=loops)
+                    self.profiler.stamp_kernel(ksp, key, loops)
                     self.profiler.sample_device(ksp, self.store)
-            for i, b, (overflow, *rest) in zip(lane_part, lane_job, outs):
-                j = batch[b]
-                if overflow:
-                    raise RuntimeError(
-                        f"evaluator buffer overflow on partition "
-                        f"{exec_set[i]} (query {j.plan.query.name!r} in a "
-                        f"batch of {len(batch)}); raise EngineConfig.cap "
-                        f"(currently {cfg.cap})")
-                absorb_eval_outputs(j.state, exec_set[i], self.pg.k, *rest)
+            with tr.span("scheduler.absorb") as asp:
+                if tr.enabled:
+                    asp.set(lanes=len(outs))
+                for i, b, (overflow, *rest) in zip(lane_part, lane_job, outs):
+                    j = batch[b]
+                    if overflow:
+                        raise RuntimeError(
+                            f"evaluator buffer overflow on partition "
+                            f"{exec_set[i]} (query {j.plan.query.name!r} in a "
+                            f"batch of {len(batch)}); raise EngineConfig.cap "
+                            f"(currently {cfg.cap})")
+                    absorb_eval_outputs(j.state, exec_set[i], self.pg.k, *rest)
             # the stacked bundle is ONE store event; each chosen pid counts
             # one workload load, its batch size the jobs its lane advanced
             self.loads.extend(chosen)
@@ -515,6 +547,7 @@ class QueryScheduler:
         chunks are inert for jobs already drained)."""
         cfg = self.session.config
         engine = self.session.engine
+        tr = self.tracer
         B = len(batch)
         key = ("scheduler.opat", batch_bucket(B))
         plans, n_steps = self._stacked_plans(batch)
@@ -531,7 +564,8 @@ class QueryScheduler:
             chunks = [BindingBatch(rows=bb.rows[lo:lo + cfg.cap],
                                    step=bb.step[lo:lo + cfg.cap]) for bb in imas]
             sf = [s and ci == 0 for s in seed_flags]
-            with self.tracer.span("kernel.eval", pid=pid, batch=B) as ksp:
+            attrs = dict(pid=pid, batch=B, lanes=B) if tr.enabled else {}
+            with tr.span("kernel.eval", **attrs) as ksp:
                 # costed at the bucket's most lanes: one for each job
                 self._first_call(ksp, key, entry, key[1])
                 loops0 = engine.batched_iters
@@ -539,15 +573,21 @@ class QueryScheduler:
                             n_steps, *lane_inputs(chunks, cfg.cap, cfg.q_pad,
                                                   self.device), sf)
                 outs = lane_outputs(res)
-                self.profiler.stamp_kernel(ksp, key, engine.batched_iters - loops0)
+                loops = engine.batched_iters - loops0
+                if tr.enabled:
+                    ksp.set(loops=loops)
+                self.profiler.stamp_kernel(ksp, key, loops)
                 self.profiler.sample_device(ksp, self.store)
-            for j, (overflow, *rest) in zip(batch, outs):
-                if overflow:
-                    raise RuntimeError(
-                        f"evaluator buffer overflow on partition {pid} "
-                        f"(query {j.plan.query.name!r} in a batch of {B}); "
-                        f"raise EngineConfig.cap (currently {cfg.cap})")
-                absorb_eval_outputs(j.state, pid, self.pg.k, *rest)
+            with tr.span("scheduler.absorb") as asp:
+                if tr.enabled:
+                    asp.set(lanes=B)
+                for j, (overflow, *rest) in zip(batch, outs):
+                    if overflow:
+                        raise RuntimeError(
+                            f"evaluator buffer overflow on partition {pid} "
+                            f"(query {j.plan.query.name!r} in a batch of {B}); "
+                            f"raise EngineConfig.cap (currently {cfg.cap})")
+                    absorb_eval_outputs(j.state, pid, self.pg.k, *rest)
 
     def _run_sequential(self, max_rounds: Optional[int] = None) -> None:
         """Engines with no host partition loop to share (MapReduceMP) run a
@@ -600,29 +640,32 @@ class QueryScheduler:
         """Retire jobs whose budget is met or whose SNI/IMA are exhausted,
         stamp queries whose last job retired, and (optionally) release
         store entries no pending job can currently use."""
-        now = time.time()
-        newly: List[_Job] = []
-        for j in self._jobs:
-            if j.retired:
-                continue
-            if j.state.budget_met(j.max_answers) or not j.state.eligible():
-                j.retired = True
-                newly.append(j)
-        for rec in self._admitted.values():
-            if rec.finished_at is None and all(j.retired for j in rec.jobs):
-                rec.finished_at = now
-                rec.finished_perf = time.perf_counter()
-        if newly and self.release_retired:
-            # any partition the workload loaded that no pending job can use
-            # now is releasable (prefetched-but-never-loaded entries are
-            # left to the LRU)
-            needed: Set[int] = set()
+        with self.tracer.span("scheduler.retire") as sp:
+            now = time.time()
+            newly: List[_Job] = []
             for j in self._jobs:
-                if not j.retired:
-                    needed.update(int(p) for p in j.state.eligible())
-            for pid in sorted(self._touched - needed):
-                if self.store.contains(pid):
-                    self.store.release(pid)
+                if j.retired:
+                    continue
+                if j.state.budget_met(j.max_answers) or not j.state.eligible():
+                    j.retired = True
+                    newly.append(j)
+            for rec in self._admitted.values():
+                if rec.finished_at is None and all(j.retired for j in rec.jobs):
+                    rec.finished_at = now
+                    rec.finished_perf = time.perf_counter()
+            if newly and self.release_retired:
+                # any partition the workload loaded that no pending job can use
+                # now is releasable (prefetched-but-never-loaded entries are
+                # left to the LRU)
+                needed: Set[int] = set()
+                for j in self._jobs:
+                    if not j.retired:
+                        needed.update(int(p) for p in j.state.eligible())
+                for pid in sorted(self._touched - needed):
+                    if self.store.contains(pid):
+                        self.store.release(pid)
+            if self.tracer.enabled:
+                sp.set(retired=len(newly))
 
     # -- results -----------------------------------------------------------
 

@@ -390,27 +390,33 @@ class GraphSession:
         return report
 
     def _absorb(self, reports: List[RunReport], answers: np.ndarray) -> None:
-        for rep in reports:
-            for pid in rep.stats.loads:
-                self._loads[pid] += 1
-            st = rep.extra.get("state")
-            if st is not None:
-                self._completed += st.completed_from
-                self._spawned += st.spawned_from
-            elif rep.extra.get("completed_from") is not None:
-                # MapReduceMP: the lanes' yield counters as [k] arrays
-                self._completed += rep.extra["completed_from"]
-                self._spawned += rep.extra["spawned_from"]
-        pairs, span = answer_span_matrix(self.pg.owner, answers, self.k)
-        self._cospan += pairs
-        spanning = answers[span >= 2]
-        if spanning.size:
-            ids = spanning[spanning >= 0]
-            np.add.at(self._vertex_span, ids, 1)
-        self._span_sum += int(span.sum())
-        self._span_rows += int(span.shape[0])
-        self._queries_served += 1
-        self._answers_served += int(answers.shape[0])
+        """Fold one served query into the session's counters (loads per
+        partition, the yield counters, the answers' co-span); traced as
+        ``session.absorb``."""
+        with self.tracer.span("session.absorb") as sp:
+            if self.tracer.enabled:
+                sp.set(answers=int(answers.shape[0]))
+            for rep in reports:
+                for pid in rep.stats.loads:
+                    self._loads[pid] += 1
+                st = rep.extra.get("state")
+                if st is not None:
+                    self._completed += st.completed_from
+                    self._spawned += st.spawned_from
+                elif rep.extra.get("completed_from") is not None:
+                    # MapReduceMP: the lanes' yield counters as [k] arrays
+                    self._completed += rep.extra["completed_from"]
+                    self._spawned += rep.extra["spawned_from"]
+            pairs, span = answer_span_matrix(self.pg.owner, answers, self.k)
+            self._cospan += pairs
+            spanning = answers[span >= 2]
+            if spanning.size:
+                ids = spanning[spanning >= 0]
+                np.add.at(self._vertex_span, ids, 1)
+            self._span_sum += int(span.sum())
+            self._span_rows += int(span.shape[0])
+            self._queries_served += 1
+            self._answers_served += int(answers.shape[0])
 
     # -- observability -----------------------------------------------------
 

@@ -24,6 +24,14 @@ The ON state (``Tracer``) records:
               end its predicted-vs-deadline admission inputs.  These are
               what ``tools/trace_report.py`` replays to answer "why was
               P3 loaded before P1?".
+  anchors   — ``clock.anchor`` events pairing the wall clock
+              (``time.time_ns``) with the spans' ``perf_counter``, taken
+              when a tracer is built and at the start of every front-end
+              ``serve``.  A device profiler stamps its events on the wall
+              clock; a span's place there is the linear interpolation
+              between the two nearest anchors, so a slew between the two
+              clocks over a long trace does not shift spans against the
+              device's events.
 
 Appends take a lock (read-ahead threads trace too); span-stack state is
 thread-local.  All timestamps share one ``perf_counter`` timebase, so
@@ -98,7 +106,7 @@ class NullTracer:
     def decision(self, kind: str, **payload: Any) -> None:
         return None
 
-    def event(self, name: str, **attrs: Any) -> None:
+    def anchor(self) -> None:
         return None
 
 
@@ -147,6 +155,7 @@ class Tracer:
         self._local = threading.local()
         # the trace's epoch: exporters emit timestamps relative to this
         self.t_epoch = time.perf_counter()
+        self.anchor()
 
     # -- recording ----------------------------------------------------------
 
@@ -187,6 +196,19 @@ class Tracer:
         t = time.perf_counter()
         self.add_span(name, t, t, parent_id=self.current_span_id, **attrs)
 
+    def anchor(self) -> None:
+        """Record one ``clock.anchor`` event: ``wall_ns`` from
+        ``time.time_ns()`` and ``perf_ns``, the ``perf_counter_ns()``
+        midpoint of the read that bracketed it most tightly of three."""
+        best = None
+        for _ in range(3):
+            p0 = time.perf_counter_ns()
+            wall = time.time_ns()
+            p1 = time.perf_counter_ns()
+            if best is None or p1 - p0 < best[0]:
+                best = (p1 - p0, wall, (p0 + p1) // 2)
+        self.event("clock.anchor", wall_ns=best[1], perf_ns=best[2])
+
     # -- introspection ------------------------------------------------------
 
     @property
@@ -214,11 +236,6 @@ class Tracer:
             agg["count"] += 1
             agg["total_s"] += sp.duration_s
         return totals
-
-    def clear(self) -> None:
-        with self._lock:
-            self._spans.clear()
-            self._decisions.clear()
 
     # -- internals (called by _SpanCtx) -------------------------------------
 

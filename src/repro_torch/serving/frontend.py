@@ -54,6 +54,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Union
 from ..core.plan import generate_plan
 from ..core.query import DisjunctiveQuery, Query
 from ..obs.profile import SloBurnMonitor
+from ..obs.trace import NULL_TRACER
 from .cost import CostEstimate, CostModel
 
 # shed_reason vocabulary (explicit, closed — the CI gate greps for these)
@@ -278,16 +279,25 @@ class ServingFrontend:
 
     def serve(self, requests: Sequence[Request]) -> FrontendReport:
         """Run one workload of requests to completion (admit → pump →
-        retire), returning every request's outcome in input order."""
-        if not self.classes or all(r.slo_class is None for r in requests):
-            return self._serve_plain(requests)
-        for r in requests:
-            if r.slo_class is not None and r.slo_class not in self.classes:
-                raise ValueError(
-                    f"unknown slo_class {r.slo_class!r} for query "
-                    f"{r.query.name!r} (configured: "
-                    f"{sorted(self.classes)})")
-        return self._serve_slo(requests)
+        retire), returning every request's outcome in input order.  Traced
+        as one ``frontend.serve`` span, which starts with a clock anchor
+        (obs/trace.py)."""
+        tracer = getattr(self.session, "tracer", NULL_TRACER)
+        with tracer.span("frontend.serve") as sp:
+            tracer.anchor()
+            if not self.classes or all(r.slo_class is None for r in requests):
+                report = self._serve_plain(requests)
+            else:
+                for r in requests:
+                    if r.slo_class is not None and r.slo_class not in self.classes:
+                        raise ValueError(
+                            f"unknown slo_class {r.slo_class!r} for query "
+                            f"{r.query.name!r} (configured: "
+                            f"{sorted(self.classes)})")
+                report = self._serve_slo(requests)
+            if tracer.enabled:
+                sp.set(requests=len(requests), rounds=report.rounds)
+        return report
 
     def _serve_plain(self, requests: Sequence[Request]) -> FrontendReport:
         """No SLO anywhere: delegate to ``submit_many`` — answers AND the
@@ -354,8 +364,8 @@ class ServingFrontend:
                     total += p.estimate.latency_s
             return total
 
-        tracer = getattr(session, "tracer", None)
-        trace_on = tracer is not None and tracer.enabled
+        tracer = getattr(session, "tracer", NULL_TRACER)
+        trace_on = tracer.enabled
 
         def record_decision(outcome: str, r: Request,
                             slo: Optional[SLOClass],
@@ -518,7 +528,8 @@ class ServingFrontend:
                     idx = order[next_arrival]
                     if requests[idx].arrival_s <= vnow():
                         next_arrival += 1
-                        consider(idx)
+                        with tracer.span("frontend.admit"):
+                            consider(idx)
                     elif not in_flight and not deferred:
                         # idle: sleep the replay clock forward to the arrival
                         time.sleep(min(0.05, max(
@@ -540,7 +551,10 @@ class ServingFrontend:
                 refresh_urgency()
                 report = sched.run(max_rounds=1)
                 rounds += 1
-                drain_completions(report)
+                with tracer.span("frontend.drain") as sp:
+                    if trace_on:
+                        sp.set(results=len(report.results))
+                    drain_completions(report)
         finally:
             # the whole serve run was pinned to one generation view; let
             # a later compaction's GC reclaim it once superseded
