@@ -24,7 +24,11 @@ Phases, each printing one JSON line:
                each timed three ways (CUDA-graph replay, per call through
                the wrapper, the plain version) beside its byte bound and the
                card's launch floor, the step's device time over 256
-               selections of distinct table rows
+               selections of distinct table rows; then the evaluator's
+               append kernel bit-equal to its plain version and timed the
+               same three ways beside its bytes, at the shared scheduler's
+               32 lanes of 512 x 20 and of 512 x 5,140 (IMDB's width), with
+               mixed and with sparse flags
   small        a small graph served on the card and on the CPU (plain
                versions): identical answers, loads and iterations for OPAT
                and TraditionalMP submits and for submit_many on both; for
@@ -34,7 +38,9 @@ Phases, each printing one JSON line:
   path         the main path: one in-RAM GraphSession with the OPAT engine,
                the three subgen queries and Q4 again under an answer budget,
                each checked against the whole-graph oracle; fused_frontier
-               launches must equal the evaluator's summed iterations
+               launches must equal the evaluator's summed iterations, and
+               frontier_append launches those plus the evaluator calls
+               (a pre-classify a call)
   sni          the SNI seed and the match on the path's own data:
                label_histogram on every partition for every query's start
                predicate equals PartitionedGraph.start_label_counts, and
@@ -42,16 +48,19 @@ Phases, each printing one JSON line:
                batch equals the fused kernel's ok/dg
   traditional  GraphSession(engine="traditional", processors=2) on the same
                queries, checked against the oracle answers of the path
-               phase; launches equal the lane evaluator's loop count
+               phase; launches equal the lane evaluator's loop count, and
+               frontier_append launches the loops plus the calls
   shared       submit_many of the same queries on the OPAT and the
                TraditionalMP session: answers equal the per-query results;
                loads per query against the isolated total; launches equal
-               the batched loop count
+               the batched loop count, frontier_append launches the loops
+               plus the calls
   mapreduce    GraphSession(engine="mapreduce") on the path's graph (one
                lane per partition): the same queries and Q4 again warm,
                checked against the oracle answers of the path phase;
                fused_frontier launches equal the summed iterations (one
-               launch a iteration for all four lanes); each lane's FAA
+               launch a iteration for all four lanes) and no
+               frontier_append runs (its appends are its own); each lane's FAA
                fill against cap; Q5 gated to m_limit=2 under MAX-YIELD;
                submit_many of the four queries (the sequential drain)
                equal to the per-query results
@@ -752,12 +761,168 @@ def kernel_label_histogram(rng, pg) -> tuple:
     return results, timing, whole_timing
 
 
+def append_case(seed: int, L: int, EB: int, W: int, Q: int, *, cap: int = 4096,
+                WT: int = None, density: float = 0.05, keep: bool = True,
+                mixed: bool = True, dev="cuda") -> tuple:
+    """Random inputs for one frontier_append over L lanes of N = EB * W
+    candidates, drawn on ``dev`` from ``seed``.  With ``mixed``, lane l's
+    flags depend on l % 4: drawn at ``density``, none (a frozen lane), all
+    (every mask true: past cap and past the free slots), half; without,
+    every lane's are drawn at ``density``.  Odd lanes start with
+    comp_n and out_n 3 under cap; lanes 3 mod 4 have a nearly full work
+    buffer of WT slots (default cap + 13).  The buffers start filled with
+    random rows, so a stray write shows.  ``keep=False`` is the
+    pre-classify's form: no keep, and rows and steps read through a
+    strided view of a longer buffer.  Returns (state, the op's arguments
+    after the state)."""
+    from repro_torch.kernels import frontier_append as fa
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    N = EB * W
+    WT = WT or cap + 13
+    i32 = torch.int32
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=i32)
+
+    def rb(p, *shape):
+        return torch.rand(shape, generator=g, device=dev) < p
+
+    lane = torch.arange(L, device=dev)
+    dens = (torch.tensor([density, 0.0, 1.0, 0.5], device=dev)[lane % 4] if mixed
+            else torch.full((L,), density, device=dev))[:, None]
+    done, outm, kp = (torch.rand((L, N), generator=g, device=dev) < dens
+                      for _ in range(3))
+    if keep:
+        rows, step = ri(-1, 1000, L, N, Q), ri(0, 12, L, N)
+    else:
+        rows, step = ri(-1, 1000, L, N + 5, Q)[:, :N], ri(0, 12, L, N + 5)[:, :N]
+    dest = ri(-1, 4, L, N)
+    st = fa.append_state(L, cap, Q, max(N, WT), dev)
+    for buf, hi in ((st.comp_rows, 1000), (st.out_rows, 1000), (st.out_step, 12),
+                    (st.out_dest, 4)):
+        buf.copy_(ri(-1, hi, *buf.shape))
+    odd = (lane % 2 == 1)
+    for n in (st.comp_n, st.out_n):
+        n.copy_(torch.where(odd, cap - 3, ri(0, cap // 2 + 1, L).long()))
+    if not keep:
+        return st, (rows, step, dest, done, outm, None, None, None)
+    full = torch.where(lane % 4 == 3, 0.999, 0.5)[:, None]
+    wv = torch.rand((L, WT + 1), generator=g, device=dev) < full
+    wv[:, WT] = False
+    work = (ri(-1, 1000, L, WT + 1, Q), ri(0, 12, L, WT + 1), wv)
+    free = torch.sort((~wv[:, :WT]).to(torch.uint8), dim=1, descending=True,
+                      stable=True)[1][:, :min(N, WT)]
+    return st, (rows, step, dest, done, outm, kp, work, free)
+
+
+def clone_append(st, args) -> tuple:
+    """Copies of what frontier_append writes (the state, the work buffers),
+    the read-only inputs shared."""
+    from repro_torch.kernels.frontier_append import AppendState
+    work = args[6]
+    return (AppendState(*(t.clone() for t in st)),
+            (*args[:6], None if work is None else tuple(t.clone() for t in work),
+             args[7]))
+
+
+def compare_append(a, b) -> dict:
+    """Mismatches between two appends' results, (state, args) each, on
+    every output but the trash rows and the kernel's scratch, and what
+    landed: rows, counts, overflow lanes."""
+    (sa, xa), (sb, xb) = a, b
+    cap = sa.comp_rows.shape[1] - 1
+    pairs = [(sa.comp_rows[:, :cap], sb.comp_rows[:, :cap]), (sa.comp_n, sb.comp_n),
+             (sa.out_rows[:, :cap], sb.out_rows[:, :cap]),
+             (sa.out_step[:, :cap], sb.out_step[:, :cap]),
+             (sa.out_dest[:, :cap], sb.out_dest[:, :cap]), (sa.out_n, sb.out_n),
+             (sa.overflow, sb.overflow), (sa.landed, sb.landed)]
+    if xa[6] is not None:
+        WT = xa[6][2].shape[1] - 1
+        pairs += [(u[:, :WT], v[:, :WT]) for u, v in zip(xa[6], xb[6])]
+    return {"mismatches": sum(int((u != v).sum()) for u, v in pairs),
+            "landed": int(sa.landed.sum()), "comp_n": int(sa.comp_n.sum()),
+            "out_n": int(sa.out_n.sum()), "overflow_lanes": int(sa.overflow.sum())}
+
+
+def append_bytes(L: int, N: int, Q: int, kinds: int, n_done: int, n_out: int,
+                 n_keep: int) -> int:
+    """Bytes one append must move: each candidate's flag bytes read once;
+    each landed row read and written (4 Q bytes each way), an outgoing
+    row's step and destination read and written, a kept row's step read
+    and written, its free-slot index read and its valid byte read and
+    written; each lane's two counts read and written, its overflow byte
+    and landed counter written."""
+    return (kinds * L * N + n_done * 8 * Q + n_out * (8 * Q + 16)
+            + n_keep * (8 * Q + 8 + 8 + 2) + L * (16 + 1 + 8))
+
+
+# frontier_append's timed shapes: (name, (L, EB, W, Q), case keywords): the
+# shared scheduler's 32 lanes on Subgen's W = 20 (work buffer cap + the
+# path's node_pad) and on IMDB's W = 5,140, each with the mixed lanes of
+# the card test (empty, full and half flags among them) and with every
+# lane's flags sparse, as the serving cells see them: 3 % at W = 20 over
+# 26 lanes, 2e-5 at W = 5,140
+APPEND_SHAPES = [("main", (32, 512, 20, 8), dict(cap=16384, WT=16384 + 110_080)),
+                 ("main_sparse", (26, 512, 20, 8),
+                  dict(cap=16384, WT=16384 + 110_080, density=0.03, mixed=False)),
+                 ("imdb_wide", (32, 512, 5140, 8),
+                  dict(cap=16384, WT=16384 + 18_560, density=2e-5)),
+                 ("imdb_sparse", (32, 512, 5140, 8),
+                  dict(cap=16384, WT=16384 + 18_560, density=2e-5, mixed=False))]
+
+
+def kernel_frontier_append(seed: int) -> dict:
+    """The append kernel bit-equal to its plain version at the timed
+    shapes, then its device time (CUDA-graph replay of a launch after
+    resetting the two counts, less the reset alone) beside its bytes, the
+    time per call through the wrapper and the plain version's time."""
+    from repro_torch.kernels import frontier_append as fa
+    from repro_torch.launch.cost_analysis import HBM_BW
+    out = {}
+    for name, (L, EB, W, Q), kw in APPEND_SHAPES:
+        st, args = append_case(seed, L, EB, W, Q, **kw)
+        c0 = (st.comp_n.clone(), st.out_n.clone())
+        got, want = clone_append(st, args), clone_append(st, args)
+        fa.frontier_append_cuda(got[0], *got[1])
+        fa.frontier_append_plain(want[0], *want[1])
+        torch.cuda.synchronize()
+        rec = compare_append(got, want)
+        check(rec["mismatches"] == 0,
+              f"frontier_append disagrees with its plain version at {name}: {rec}")
+        dn = int((got[0].comp_n - c0[0]).sum())
+        on = int((got[0].out_n - c0[1]).sum())
+        nbytes = append_bytes(L, EB * W, Q, 3, dn, on, rec["landed"] - dn - on)
+        del got, want
+
+        def reset():
+            st.comp_n.copy_(c0[0])
+            st.out_n.copy_(c0[1])
+
+        def launch():
+            reset()
+            fa.frontier_append_cuda(st, *args)
+
+        reset_ms = graph_time_ms(reset, reps=50)
+        ms = graph_time_ms(launch, reps=50) - reset_ms
+        call_ms = cuda_time_ms(launch, reps=50, warmup=5) - reset_ms
+        plain_ms = cuda_time_ms(lambda: fa.frontier_append_plain(st, *args),
+                                reps=5, warmup=1)
+        out[name] = {"L": L, "EB": EB, "W": W, "Q": Q, "ms": ms, "call_ms": call_ms,
+                     "reset_ms": reset_ms, "plain_ms": plain_ms, "bytes": nbytes,
+                     "bound_ms": nbytes / HBM_BW * 1e3, **rec}
+        del st, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(seed: int, pg) -> dict:
     rng = np.random.default_rng(seed)
     Np = pg.node_pad
     ff_cases, ff_t = kernel_fused_frontier(rng, Np)
     fe_cases, fe_t = kernel_frontier_expand(rng, Np)
     lh_cases, lh_t, lh_whole = kernel_label_histogram(rng, pg)
+    fa_t = kernel_frontier_append(seed)
     floor = launch_floor_ms()
     emit("kernels", node_pad=Np, launch_floor_ms=floor,
          fused_frontier_cases=ff_cases, frontier_expand_cases=fe_cases,
@@ -766,8 +931,9 @@ def phase_kernels(seed: int, pg) -> dict:
                                                  "graph_replay")],
          label_histogram_cases_checked=len(lh_cases),
          fused_frontier=ff_t, frontier_expand=fe_t, label_histogram=lh_t,
-         label_histogram_whole_graph=lh_whole)
-    return {"fused_frontier": ff_t, "frontier_expand": fe_t, "label_histogram": lh_t}
+         label_histogram_whole_graph=lh_whole, frontier_append=fa_t)
+    return {"fused_frontier": ff_t, "frontier_expand": fe_t, "label_histogram": lh_t,
+            "frontier_append": fa_t}
 
 
 # ---------------------------------------------------------------------------
@@ -916,6 +1082,38 @@ def path_runs(pg):
     return dqs, [(dq, None) for dq in dqs] + [(dqs[0], 5)]
 
 
+class EvaluatorCalls:
+    """Counts evaluator calls of either form while active: each makes its
+    append buffers once (``kernels.ops.append_state``), so an evaluator
+    that ran ``loops`` loops over ``calls`` calls launched the append
+    kernel ``loops + calls`` times (a pre-classify a call, one a loop)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls, self._real = 0, ops.append_state
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self._real(*args, **kwargs)
+        ops.append_state = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.append_state = self._real
+
+
+def check_appends(what: str, loops: int, calls: int) -> int:
+    """The append kernel's launches since the last ``LAUNCHES.clear()``,
+    checked against ``loops`` + ``calls`` (``EvaluatorCalls``)."""
+    from repro_torch.kernels import build
+    n = build.LAUNCHES["frontier_append"]
+    check(calls > 0 and n == loops + calls,
+          f"{what}: frontier_append launches {n} != loops {loops} + evaluator "
+          f"calls {calls}")
+    return n
+
+
 def phase_path(pg) -> tuple:
     from repro_torch.core import EngineConfig, GraphSession
     from repro_torch.core.oracle import match_disjunctive
@@ -932,9 +1130,11 @@ def phase_path(pg) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     build.LAUNCHES.clear()
     sess.engine.inner_iters = 0
-    served = serve(sess, runs)
+    with EvaluatorCalls() as ev:
+        served = serve(sess, runs)
     launches = build.LAUNCHES[NAME]
     inner = sess.engine.inner_iters
+    appends = check_appends("path", inner, ev.calls)
     peak = torch.cuda.max_memory_allocated()
 
     t2 = time.perf_counter()
@@ -953,6 +1153,7 @@ def phase_path(pg) -> tuple:
          oracle_s=t_oracle, max_memory_allocated=peak,
          host_peak_rss_kib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
          fused_frontier_launches=launches, eval_inner_iters=inner,
+         frontier_append_launches=appends, evaluator_calls=ev.calls,
          queries=queries)
     return launches, sess, oracle, served
 
@@ -1038,9 +1239,11 @@ def phase_traditional(pg, oracle) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     build.LAUNCHES.clear()
-    served = serve(sess, runs)
+    with EvaluatorCalls() as ev:
+        served = serve(sess, runs)
     launches = build.LAUNCHES[NAME]
     loops = sess.engine.batched_iters
+    appends = check_appends("traditional", loops, ev.calls)
     queries = []
     for dq, budget, res, lat in served:
         check(verify(res, oracle[dq.name], budget),
@@ -1050,7 +1253,8 @@ def phase_traditional(pg, oracle) -> tuple:
     check(launches == loops,
           f"traditional: fused_frontier launches {launches} != batched loops {loops}")
     emit("traditional", processors=2, fused_frontier_launches=launches,
-         batched_iters=loops, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         batched_iters=loops, frontier_append_launches=appends,
+         evaluator_calls=ev.calls, max_memory_allocated=torch.cuda.max_memory_allocated(),
          queries=queries)
     return sess, served
 
@@ -1069,11 +1273,13 @@ def phase_shared(sessions, oracle, isolated) -> None:
         torch.cuda.synchronize()
         build.LAUNCHES.clear()
         t0 = time.perf_counter()
-        report = sess.submit_many(dqs, max_answers=budgets)
+        with EvaluatorCalls() as ev:
+            report = sess.submit_many(dqs, max_answers=budgets)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = build.LAUNCHES[NAME]
         loops = sess.engine.batched_iters - loops0
+        appends = check_appends(f"shared {name}", loops, ev.calls)
         for res, (dq, budget, single, _) in zip(report.results, isolated[name]):
             check(verify(res, oracle[dq.name], budget),
                   f"shared {name} {dq.name} disagrees with the oracle")
@@ -1092,6 +1298,7 @@ def phase_shared(sessions, oracle, isolated) -> None:
                      "cold_loads": report.load_stats.cold_loads,
                      "warm_loads": report.load_stats.warm_loads,
                      "fused_frontier_launches": launches, "batched_iters": loops,
+                     "frontier_append_launches": appends, "evaluator_calls": ev.calls,
                      "queries": [{"query": r.name, "n_answers": r.n_answers,
                                   "latency_s": r.latency_s, "n_loads": r.n_loads}
                                  for r in report.results]}
@@ -1129,6 +1336,9 @@ def phase_mapreduce(pg, oracle) -> tuple:
     check(launches == iters * shards,
           f"mapreduce: fused_frontier launches {launches} != summed iterations "
           f"{iters} x {shards} shards")
+    # MapReduceMP keeps its own appends (append_faa, place)
+    check(build.LAUNCHES["frontier_append"] == 0,
+          "mapreduce launched frontier_append")
     queries = []
     for dq, budget, res, lat in served:
         check(verify(res, oracle[dq.name], budget),

@@ -22,9 +22,11 @@ The expansion loop is a Python loop with one host sync per iteration (the
 "any row still active" test).  Row selection breaks ties the way the
 JAX evaluator's ``lax.top_k`` does — lowest index first — through a
 stable sort, so iteration counts and row placement match it exactly.
-Masked appends write their dropped rows into one spare trash row at the
-end of each buffer, so no scatter index is ever out of range and no
-boolean-mask indexing forces a sync.
+The masked appends (completed, outgoing, and kept rows into the lowest
+free work slots) are one op, ``kops.frontier_append``: one CUDA launch
+after each step launch that ranks the flags in candidate order and moves
+only the rows that land, and the cumsum + scatter form on CPU tensors.
+Counts and overflow stay on the device, so no append forces a sync.
 
 Two forms share those rules:
 
@@ -92,6 +94,8 @@ class EvalResult(NamedTuple):
     overflow: torch.Tensor       # [] bool
     n_iters: torch.Tensor        # [] int32 expansion-loop iterations
     n_expanded: torch.Tensor     # [] int32 total candidate rows expanded
+    landed: torch.Tensor         # [] int64 rows the appends wrote
+                                 # (completed + outgoing + kept)
 
 
 def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
@@ -116,20 +120,6 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
         local = (lidx >= 0) & (lidx < n_core)
         act = valid & (step < n_steps) & local
         return act, lidx, fg
-
-    def _append(buf_rows, buf_aux, buf_n, rows_flat, aux_flat, mask_flat, overflow):
-        """Masked append into a fixed buffer whose last row is a trash row:
-        rows past capacity land there and are dropped."""
-        cap = buf_rows.shape[0] - 1
-        cnt = torch.cumsum(mask_flat, 0) - 1
-        tgt = buf_n + cnt
-        tgt = torch.where(mask_flat & (tgt < cap), tgt, cap)
-        buf_rows[tgt] = rows_flat
-        for b, a in zip(buf_aux, aux_flat):
-            b[tgt] = a
-        total = buf_n + mask_flat.sum()
-        overflow = overflow | (total > cap)
-        return total.clamp(max=cap), overflow
 
     def evaluate(part: Dict[str, torch.Tensor], g2l_row: torch.Tensor,
                  owner: torch.Tensor, plan: PlanArrays, n_steps: int,
@@ -162,7 +152,7 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
         col = torch.arange(Q, dtype=torch.int32, device=dev)
         fresh_rows = torch.where((col[None, :] == plan.start_slot) & start_ok[:, None],
                                  part["node_gid"][:, None], -1)
-        # one extra trash row at index WT (see _append)
+        # one extra trash row at index WT (the plain appends write there)
         wr_full = torch.cat([in_rows, fresh_rows,
                              torch.full((1, Q), -1, dtype=torch.int32, device=dev)])
         ws_full = torch.cat([in_step, torch.zeros(Np + 1, dtype=torch.int32, device=dev)])
@@ -170,23 +160,17 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
                              torch.zeros(1, dtype=torch.bool, device=dev)])
         wr, ws, wv = wr_full[:WT], ws_full[:WT], wv_full[:WT]
 
-        comp_rows = torch.full((CAP + 1, Q), -1, dtype=torch.int32, device=dev)
-        out_rows = torch.full((CAP + 1, Q), -1, dtype=torch.int32, device=dev)
-        out_step = torch.zeros(CAP + 1, dtype=torch.int32, device=dev)
-        out_dest = torch.full((CAP + 1,), -1, dtype=torch.int32, device=dev)
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        comp_n, out_n = zero, zero
-        overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        n_expanded = zero
+        # one lane: [1, ...] buffers and views
+        st = kops.append_state(1, CAP, Q, max(WT, EBW), dev)
+        n_expanded = torch.zeros((), dtype=torch.int64, device=dev)
 
         # ---- pre-classify: rows already complete, or frontier not local ----
         done0 = wv & (ws >= n_steps)
         act0, _, fg0 = _frontier_local(wr, ws, wv, plan, n_steps, g2l_row, n_core)
         outm0 = wv & ~done0 & ~act0
         dest0 = owner[fg0.clamp(0, owner.shape[0] - 1).long()]
-        comp_n, overflow = _append(comp_rows, (), comp_n, wr, (), done0, overflow)
-        out_n, overflow = _append(out_rows, (out_step, out_dest), out_n, wr,
-                                  (ws, dest0), outm0, overflow)
+        kops.frontier_append(st, wr[None], ws[None], dest0[None], done0[None],
+                             outm0[None])
         wv &= act0
 
         it = 0
@@ -200,33 +184,26 @@ def make_partition_evaluator(node_pad: int, ell_width: int, cfg: EngineConfig):
             # consume them
             wv[sel] = wv[sel] & ~m
 
-            # one lane: [1, ...] views of the buffers
-            _, _, done, keep, outm, dest, nr_f, ns_f = (
-                x[0] for x in kops.frontier_step(
-                    step_in, wr_full[None], ws_full[None], lidx[None],
-                    sel[None], m[None], step_out))
-
-            comp_n, overflow = _append(comp_rows, (), comp_n, nr_f, (), done, overflow)
-            out_n, overflow = _append(out_rows, (out_step, out_dest), out_n, nr_f,
-                                      (ns_f, dest), outm, overflow)
+            out = kops.frontier_step(step_in, wr_full[None], ws_full[None],
+                                     lidx[None], sel[None], m[None], step_out)
             # keep-rows go into the lowest free work slots
             free = torch.sort((~wv).to(torch.uint8), descending=True,
                               stable=True)[1][:kfree]
-            overflow = overflow | (keep.sum() > (~wv).sum())
-            pos = torch.cumsum(keep, 0) - 1
-            tgt = torch.where(keep & (pos < kfree), free[pos.clamp(0, kfree - 1)], WT)
-            wr_full[tgt] = nr_f
-            ws_full[tgt] = ns_f
-            wv_full[tgt] = True
+            kops.frontier_append(st, out.nr, out.ns, out.dest, out.done,
+                                 out.outm, out.keep,
+                                 (wr_full[None], ws_full[None], wv_full[None]),
+                                 free[None])
+            # the two sorts' [WT] indices are not held into the next loop
+            del sel, free
 
             it += 1
             n_expanded = n_expanded + m.sum()
 
         i32 = torch.int32
-        return EvalResult(comp_rows[:CAP], comp_n.to(i32), out_rows[:CAP],
-                          out_step[:CAP], out_dest[:CAP], out_n.to(i32),
-                          overflow, torch.tensor(it, dtype=i32, device=dev),
-                          n_expanded.to(i32))
+        return EvalResult(st.comp_rows[0, :CAP], st.comp_n[0], st.out_rows[0, :CAP],
+                          st.out_step[0, :CAP], st.out_dest[0, :CAP], st.out_n[0],
+                          st.overflow[0], torch.tensor(it, dtype=i32, device=dev),
+                          n_expanded.to(i32), st.landed[0])
 
     return evaluate
 
@@ -253,7 +230,7 @@ def make_batched_evaluator(cfg: EngineConfig):
     evaluator gives them: the loop runs while any lane has active rows; a
     lane with none, or at ``max_inner_iters``, is frozen (its rows masked
     out of the launch, its ``n_iters`` and ``n_expanded`` no longer
-    counting).  Selection, trash rows, appends and overflow are per lane.
+    counting).  Selection, appends and overflow are per lane.
     """
     Q, S, CAP = cfg.q_pad, cfg.s_pad, cfg.cap
 
@@ -278,7 +255,6 @@ def make_batched_evaluator(cfg: EngineConfig):
 
         lane_part = lane_tensor(lane_part, i64)
         lane_plan = lane_tensor(lane_plan, i64)
-        lanes = torch.arange(L, device=dev)
         n_core = lane_tensor(parts["n_core"], i32)[lane_part]          # [L]
         nst = lane_tensor(n_steps, i32)[lane_plan]                      # [L]
         plan = dataclasses.replace(plans, **{
@@ -304,20 +280,6 @@ def make_batched_evaluator(cfg: EngineConfig):
             act = valid & (step < nst[:, None]) & local
             return act, lidx, fg
 
-        def append(buf_rows, buf_aux, buf_n, rows, aux_rows, mask, overflow):
-            """Per-lane masked append into [L, cap + 1, ...] buffers whose
-            last row is each lane's trash row."""
-            cap = buf_rows.shape[1] - 1
-            cnt = torch.cumsum(mask, 1) - 1
-            tgt = buf_n[:, None] + cnt
-            tgt = torch.where(mask & (tgt < cap), tgt, cap)
-            flat = (tgt + lanes[:, None] * (cap + 1)).reshape(-1)
-            buf_rows.view(-1, Q)[flat] = rows.reshape(-1, Q)
-            for b, a in zip(buf_aux, aux_rows):
-                b.view(-1)[flat] = a.reshape(-1)
-            total = buf_n + mask.sum(1)
-            return total.clamp(max=cap), overflow | (total > cap)
-
         # ---- seed fresh start-node bindings from each lane's partition ----
         node_idx = torch.arange(Np, dtype=i32, device=dev)
         sf = lane_tensor(seed_fresh, torch.bool)
@@ -333,22 +295,16 @@ def make_batched_evaluator(cfg: EngineConfig):
         fresh_rows = torch.where(
             (col[None, None, :] == plan.start_slot[:, None, None]) & start_ok[:, :, None],
             parts["node_gid"][lane_part][:, :, None], -1)
-        # one extra trash row per lane at index WT
+        # one extra trash row per lane at index WT (the plain appends write there)
         wr_full = torch.cat([in_rows, fresh_rows,
                              torch.full((L, 1, Q), -1, dtype=i32, device=dev)], 1)
         ws_full = torch.cat([in_step, torch.zeros((L, Np + 1), dtype=i32, device=dev)], 1)
         wv_full = torch.cat([in_valid, start_ok,
                              torch.zeros((L, 1), dtype=torch.bool, device=dev)], 1)
         wr, ws, wv = wr_full[:, :WT], ws_full[:, :WT], wv_full[:, :WT]
-        work_off = (lanes * (WT + 1))[:, None]
 
-        comp_rows = torch.full((L, CAP + 1, Q), -1, dtype=i32, device=dev)
-        out_rows = torch.full((L, CAP + 1, Q), -1, dtype=i32, device=dev)
-        out_step = torch.zeros((L, CAP + 1), dtype=i32, device=dev)
-        out_dest = torch.full((L, CAP + 1), -1, dtype=i32, device=dev)
-        zero = torch.zeros(L, dtype=i64, device=dev)
-        comp_n, out_n, n_expanded = zero, zero, zero
-        overflow = torch.zeros(L, dtype=torch.bool, device=dev)
+        st = kops.append_state(L, CAP, Q, max(WT, EBW), dev)
+        n_expanded = torch.zeros(L, dtype=i64, device=dev)
         n_iters = torch.zeros(L, dtype=i32, device=dev)
 
         # ---- pre-classify: rows already complete, or frontier not local ----
@@ -356,9 +312,7 @@ def make_batched_evaluator(cfg: EngineConfig):
         act0, _, fg0 = frontier_local(wr, ws, wv)
         outm0 = wv & ~done0 & ~act0
         dest0 = owner[fg0.clamp(0, V - 1).long()]
-        comp_n, overflow = append(comp_rows, (), comp_n, wr, (), done0, overflow)
-        out_n, overflow = append(out_rows, (out_step, out_dest), out_n, wr,
-                                 (ws, dest0), outm0, overflow)
+        kops.frontier_append(st, wr, ws, dest0, done0, outm0)
         wv &= act0
 
         loops = 0
@@ -375,32 +329,24 @@ def make_batched_evaluator(cfg: EngineConfig):
             # consume them
             wv.scatter_(1, sel, wv.gather(1, sel) & ~m)
 
-            _, _, done, keep, outm, dest, nr_f, ns_f = kops.frontier_step(
-                step_in, wr_full, ws_full, lidx, sel, m, step_out)
-
-            comp_n, overflow = append(comp_rows, (), comp_n, nr_f, (), done,
-                                      overflow)
-            out_n, overflow = append(out_rows, (out_step, out_dest), out_n, nr_f,
-                                     (ns_f, dest), outm, overflow)
+            out = kops.frontier_step(step_in, wr_full, ws_full, lidx, sel, m,
+                                     step_out)
             # keep-rows go into each lane's lowest free work slots
             free = torch.sort((~wv).to(torch.uint8), dim=1, descending=True,
                               stable=True)[1][:, :kfree]
-            overflow = overflow | (keep.sum(1) > (~wv).sum(1))
-            pos = torch.cumsum(keep, 1) - 1
-            tgt = torch.where(keep & (pos < kfree),
-                              free.gather(1, pos.clamp(0, kfree - 1)), WT)
-            flat = (tgt + work_off).reshape(-1)
-            wr_full.view(-1, Q)[flat] = nr_f.reshape(-1, Q)
-            ws_full.view(-1)[flat] = ns_f.reshape(-1)
-            wv_full.view(-1)[flat] = True
+            kops.frontier_append(st, out.nr, out.ns, out.dest, out.done,
+                                 out.outm, out.keep, (wr_full, ws_full, wv_full),
+                                 free)
+            # the two sorts' [L, WT] indices are not held into the next loop
+            del sel, free
 
             n_iters += go.to(i32)
             n_expanded = n_expanded + m.sum(1)
             loops += 1
 
-        return EvalResult(comp_rows[:, :CAP], comp_n.to(i32), out_rows[:, :CAP],
-                          out_step[:, :CAP], out_dest[:, :CAP], out_n.to(i32),
-                          overflow, n_iters, n_expanded.to(i32)), loops
+        return EvalResult(st.comp_rows[:, :CAP], st.comp_n, st.out_rows[:, :CAP],
+                          st.out_step[:, :CAP], st.out_dest[:, :CAP], st.out_n,
+                          st.overflow, n_iters, n_expanded.to(i32), st.landed), loops
 
     return evaluate
 
@@ -414,6 +360,14 @@ def step_shape(cfg: EngineConfig, part: Dict[str, torch.Tensor],
     Np, W = part["ell_dst"].shape[-2:]
     return (int(lanes), min(cfg.expand_block, cfg.cap + Np), int(W), cfg.q_pad,
             cfg.s_pad, int(Np), int(owner.shape[0]))
+
+
+def ranked_slots(cfg: EngineConfig, part: Dict[str, torch.Tensor], lanes: int,
+                 loops: int) -> int:
+    """Candidate slots the appends ranked in ``loops`` loops of an
+    evaluator call of ``lanes`` lanes over ``part``: L x EB x W a loop."""
+    Np, W = part["ell_dst"].shape[-2:]
+    return int(loops) * int(lanes) * min(cfg.expand_block, cfg.cap + int(Np)) * int(W)
 
 
 def stack_entry_part(part: Dict[str, Union[int, torch.Tensor]]

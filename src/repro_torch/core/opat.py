@@ -24,7 +24,7 @@ which is one launch however many queries the call advances.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Union
+from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,8 +32,8 @@ import torch
 from ..obs.profile import NULL_PROFILER
 from ..obs.trace import NULL_TRACER
 from .engine import (EngineConfig, EvalResult, make_batched_evaluator,
-                     make_partition_evaluator, plan_to_device, stack_entry_part,
-                     step_shape)
+                     make_partition_evaluator, plan_to_device, ranked_slots,
+                     stack_entry_part, step_shape)
 from .graph import PartitionedGraph
 from .heuristics import MAX_YIELD, rank_partitions
 from .metrics import RunStats, l_ideal_for_plan
@@ -72,19 +72,22 @@ def absorb_eval_outputs(st: QueryState, pid: int, k: int,
                     BindingBatch(rows=rows[sel], step=step[sel])).dedup()
 
 
-def lane_outputs(res: EvalResult) -> List[tuple]:
+def lane_outputs(res: EvalResult) -> Tuple[List[tuple], int]:
     """A lane evaluator's outputs on the host: one sync for the per-lane
-    counts, then only the filled rows copied.  One tuple per lane:
-    (overflow, comp_rows, comp_n, out_rows, out_step, out_dest, out_n)."""
-    counts = torch.stack([res.overflow.int(), res.comp_n, res.out_n], 1).tolist()
+    counts, then only the filled rows copied.  Returns one tuple per lane,
+    (overflow, comp_rows, comp_n, out_rows, out_step, out_dest, out_n),
+    and the rows the call's appends wrote over all lanes."""
+    counts = torch.stack([res.overflow.long(), res.comp_n.long(),
+                          res.out_n.long(), res.landed], 1).tolist()
     cmax = max((c[1] for c in counts), default=0)
     omax = max((c[2] for c in counts), default=0)
     comp = res.comp_rows[:, :cmax].cpu().numpy()
     orow = res.out_rows[:, :omax].cpu().numpy()
     ostp = res.out_step[:, :omax].cpu().numpy()
     odst = res.out_dest[:, :omax].cpu().numpy()
-    return [(bool(o), comp[i, :c], c, orow[i, :n], ostp[i, :n], odst[i, :n], n)
-            for i, (o, c, n) in enumerate(counts)]
+    return ([(bool(o), comp[i, :c], c, orow[i, :n], ostp[i, :n], odst[i, :n], n)
+             for i, (o, c, n, _) in enumerate(counts)],
+            sum(c[3] for c in counts))
 
 
 class OPATEngine:
@@ -185,10 +188,13 @@ class OPATEngine:
                                  torch.from_numpy(in_valid).to(dev),
                                  seed_fresh and ci == 0)
                 # one device sync for the scalars, inside the span
-                overflow, comp_n, out_n, n_iters = (
+                overflow, comp_n, out_n, n_iters, landed = (
                     int(v) for v in torch.stack([
-                        res.overflow.int(), res.comp_n, res.out_n,
-                        res.n_iters]).tolist())
+                        res.overflow.long(), res.comp_n.long(), res.out_n.long(),
+                        res.n_iters.long(), res.landed]).tolist())
+                if self.tracer.enabled:
+                    ksp.set(landed=landed, candidates=ranked_slots(
+                        cfg, entry.part, 1, n_iters))
                 self.profiler.stamp_kernel(ksp, ("opat", "eval"), n_iters)
                 self.profiler.sample_device(ksp, self.store)
             self.inner_iters += n_iters

@@ -83,7 +83,7 @@ from typing import Dict, List, Optional, Set, Union
 
 import numpy as np
 
-from .engine import plan_to_device, step_shape
+from .engine import plan_to_device, ranked_slots, step_shape
 from .heuristics import MAX_YIELD_SHARED, SHARED_HEURISTICS, rank_partitions_shared
 from .metrics import RunStats, l_ideal_for_plan
 from .opat import OPATEngine, absorb_eval_outputs, lane_outputs
@@ -501,10 +501,11 @@ class QueryScheduler:
                     res = seval(entry, plans, n_steps, lane_part, lane_job,
                                 *lane_inputs(inputs, cfg.cap, cfg.q_pad,
                                              self.device), seeds)
-                    outs = lane_outputs(res)
+                    outs, landed = lane_outputs(res)
                     loops = engine.batched_iters - loops0
                     if tr.enabled:
-                        ksp.set(loops=loops)
+                        ksp.set(loops=loops, landed=landed, candidates=ranked_slots(
+                            cfg, entry.part, len(inputs), loops))
                     self.profiler.stamp_kernel(ksp, key, loops)
                     self.profiler.sample_device(ksp, self.store)
             with tr.span("scheduler.absorb") as asp:
@@ -572,10 +573,11 @@ class QueryScheduler:
                 res = beval(entry.part, entry.g2l, self.store.owner, plans,
                             n_steps, *lane_inputs(chunks, cfg.cap, cfg.q_pad,
                                                   self.device), sf)
-                outs = lane_outputs(res)
+                outs, landed = lane_outputs(res)
                 loops = engine.batched_iters - loops0
                 if tr.enabled:
-                    ksp.set(loops=loops)
+                    ksp.set(loops=loops, landed=landed, candidates=ranked_slots(
+                        cfg, entry.part, B, loops))
                 self.profiler.stamp_kernel(ksp, key, loops)
                 self.profiler.sample_device(ksp, self.store)
             with tr.span("scheduler.absorb") as asp:

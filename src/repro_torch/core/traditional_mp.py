@@ -29,7 +29,7 @@ import torch
 from ..obs.profile import NULL_PROFILER
 from ..obs.trace import NULL_TRACER
 from .engine import (EngineConfig, EvalResult, make_batched_evaluator, plan_to_device,
-                     step_shape)
+                     ranked_slots, step_shape)
 from .graph import PartitionedGraph
 from .heuristics import MAX_YIELD, choose_top_p
 from .metrics import RunStats, l_ideal_for_plan
@@ -190,9 +190,13 @@ class TraditionalMPEngine:
                         entry, plans, [plan.n_steps], [pos for pos, _ in real],
                         [0] * len(real), in_rows, in_step, in_valid,
                         [seeds[i] for _, i in real])
-                    outs = lane_outputs(res)
+                    outs, landed = lane_outputs(res)
+                    loops = self.batched_iters - loops0
+                    if self.tracer.enabled:
+                        ksp.set(landed=landed, candidates=ranked_slots(
+                            cfg, entry.part, len(real), loops))
                     self.profiler.stamp_kernel(ksp, ("traditional", "veval"),
-                                               self.batched_iters - loops0)
+                                               loops)
                     self.profiler.sample_device(ksp, self.store)
             if any(o[0] for o in outs):
                 raise RuntimeError("evaluator buffer overflow; raise cap")

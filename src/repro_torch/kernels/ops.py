@@ -4,7 +4,10 @@
 step reads in every loop (the ELL tables viewed as [P*Np, W], the g2l
 rows, each lane's plan as one [L, S, 8] table and its partition, n_core
 and n_steps); ``frontier_step`` is the step's device-dispatching wrapper,
-which the evaluators call once per loop.  ``fused_frontier`` and
+which the evaluators call once per loop.  ``frontier_append``
+is the appends' wrapper (``append_state`` makes its buffers once per
+evaluator call), which the evaluators call after each step launch and
+once for their pre-classify.  ``fused_frontier`` and
 ``frontier_expand`` take the JAX adapters' engine-level signatures (one
 batch of binding rows, steps and local indices); ``label_histogram``
 checks its mask.  Each reaches its kernel's wrapper: the CUDA kernel on
@@ -28,11 +31,13 @@ import torch
 
 from . import fused_frontier as ff
 from . import ref
+from .frontier_append import append_state, frontier_append
 from .frontier_expand import N_PINT, frontier_expand_kernel
 from .fused_frontier import frontier_step, step_outputs
 from .label_histogram import label_histogram_kernel
 
-__all__ = ["frontier_step", "step_invariants", "step_outputs", "fused_frontier",
+__all__ = ["frontier_step", "step_invariants", "step_outputs", "frontier_append",
+           "append_state", "fused_frontier",
            "fused_frontier_ref", "frontier_expand", "frontier_expand_ref",
            "label_histogram", "denorm_locality", "plan_at", "step_cost",
            "step_bytes_ops", "step_terms"]

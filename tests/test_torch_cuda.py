@@ -23,6 +23,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke
+from repro_torch.kernels import frontier_append as fa
 from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import fused_frontier as ff
 from repro_torch.kernels import label_histogram as lh
@@ -140,6 +141,90 @@ def test_cuda_frontier_expand_across_the_warp_width(EB, W, Q, Np):
     torch.cuda.synchronize()
     rec = chip_smoke.compare_expand(got, fe.frontier_expand_plain(*args), args)
     assert rec["mask_mismatches"] == 0 and rec["max_abs_err"] == 0, rec
+
+
+# (name, (L, EB, W, Q), chip_smoke.append_case keywords): the shared
+# scheduler's shape, an IMDB-wide row, one candidate, a lane count that is
+# no multiple of 4 with Q = 5 (scalar row copies), and the pre-classify's
+# form (no keep, rows through a strided view, N % 16 != 0: scalar mask
+# loads).  Lanes cycle through sparse, empty (frozen), all-true and half
+# flags; odd lanes start 3 under cap; lanes 3 mod 4 have a nearly full
+# work buffer, so appends and keep placement overflow.
+APPEND_CASES = [
+    ("main", (32, 512, 20, 8), {"cap": 16384, "WT": 16384 + 4096}),
+    ("imdb_row", (4, 512, 5140, 8), {"cap": 16384, "WT": 16384 + 18_560,
+                                     "density": 2e-5}),
+    ("one", (1, 1, 1, 1), {"cap": 4, "WT": 3, "density": 1.0}),
+    ("lanes_not_mod4", (7, 64, 9, 5), {"cap": 300, "WT": 257}),
+    ("preclassify", (6, 1, 16_391, 8), {"cap": 16384, "keep": False}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,kw", APPEND_CASES, ids=[c[0] for c in APPEND_CASES])
+def test_cuda_frontier_append_matches_plain(name, shape, kw):
+    """The append kernel bit-equal to its plain version on every output but
+    the trash rows: rows, steps, destinations, the work buffers, counts,
+    overflow and rows landed.  Twice with the same scratch: the second
+    launch finds the first one's tile statuses and must read them as
+    stale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    st, args = chip_smoke.append_case(7, *shape, **kw)
+    want = chip_smoke.clone_append(st, args)
+    fa.frontier_append_plain(want[0], *want[1])
+    for launch in range(2):
+        got_st, got_args = chip_smoke.clone_append(st, args)
+        got_st = got_st._replace(scratch=st.scratch)
+        fa.frontier_append_cuda(got_st, *got_args)
+        torch.cuda.synchronize()
+        rec = chip_smoke.compare_append((got_st, got_args), want)
+        assert rec["mismatches"] == 0, (launch, rec)
+        if shape[0] >= 4:
+            assert 0 < rec["overflow_lanes"] < shape[0], rec
+        assert rec["landed"] > 0, rec
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_append_evaluator_sequence():
+    """The evaluator's own order of appends on one state and one scratch:
+    a pre-classify over the work buffer (six tiles, no keep), then a loop
+    launch over 322 tiles with keep placement, twice.  In the pre-classify
+    each tile's done count, and on odd tiles its outm count, is 5 to 7 with
+    the count after it 0: packed in pairs, those counts read like the next
+    launch's tile statuses wherever that launch looked for a status among
+    them.  Bit-equal to the plain version after every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    L, EB, W, Q, cap = 8, 512, 5140, 8, 16384
+    WT = 5 * fa.TILE + 96
+    st, args = chip_smoke.append_case(11, L, EB, W, Q, cap=cap, WT=WT,
+                                      density=2e-5)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    done0, outm0 = (torch.zeros((L, WT), dtype=torch.bool, device="cuda")
+                    for _ in range(2))
+    for p in range(-(-WT // fa.TILE)):
+        lo, n = p * fa.TILE, min(fa.TILE, WT - p * fa.TILE)
+        for m, k in ((done0, 5 + p % 3), (outm0, (5 + p % 3) * (p % 2))):
+            m[:, lo + torch.randperm(n, generator=g, device="cuda")[:k]] = True
+    dest0 = torch.randint(-1, 4, (L, WT), generator=g, device="cuda",
+                          dtype=torch.int32)
+    sides = {fa.frontier_append_cuda: chip_smoke.clone_append(st, args),
+             fa.frontier_append_plain: chip_smoke.clone_append(st, args)}
+    for launch in range(4):
+        for op, (s, (rows, step, dest, done, outm, keep, work, _)) in sides.items():
+            wr, ws, wv = work
+            if launch % 2 == 0:
+                op(s, wr[:, :WT], ws[:, :WT], dest0, done0, outm0)
+            else:
+                free = torch.sort((~wv[:, :WT]).to(torch.uint8), dim=1,
+                                  descending=True, stable=True)[1][:, :WT]
+                op(s, rows, step, dest, done, outm, keep, work, free)
+        torch.cuda.synchronize()
+        rec = chip_smoke.compare_append(*sides.values())
+        assert rec["mismatches"] == 0, (launch, rec)
+        assert rec["landed"] > 0, rec
 
 
 @pytest.mark.cuda

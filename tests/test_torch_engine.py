@@ -33,7 +33,8 @@ from repro.data.generators import subgen_queries as ref_subgen_queries
 import repro_torch.core as tc
 from repro_torch.convert import (graph_from_arrays, partitioned_graph_from_arrays,
                                  plan_arrays_from_numpy)
-from repro_torch.core.engine import plan_to_device
+from repro_torch.core.engine import plan_to_device, ranked_slots
+from repro_torch.core.opat import lane_outputs
 from repro_torch.data.generators import subgen_queries
 
 REPO = Path(__file__).resolve().parents[1]
@@ -104,7 +105,8 @@ def _eval_both(ref_eval, port_eval, pg, tpg, pid, plan, in_rows, in_step,
     got = port_eval(entry.part, entry.g2l, store.owner, tplan, plan.n_steps,
                     torch.from_numpy(in_rows), torch.from_numpy(in_step),
                     torch.from_numpy(in_valid), seed_fresh)
-    for name in tc.EvalResult._fields:
+    # every field the JAX evaluator returns (``landed`` is the port's own)
+    for name in want._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)),
                                       err_msg=f"pid {pid} {name}")
@@ -335,7 +337,8 @@ def _lane_inputs(L, cap, rows=None):
 
 
 def _assert_lanes_equal(got, loops, want, what):
-    for name in tc.EvalResult._fields:
+    # every field the JAX evaluator returns (``landed`` is the port's own)
+    for name in want._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)),
                                       err_msg=f"{what} {name}")
@@ -448,6 +451,33 @@ def test_lane_evaluator_matches_vmap_over_queries(both, use_pallas):
             continuations[b] = (np.asarray(want.out_rows)[b, :n][sel],
                                 np.asarray(want.out_step)[b, :n][sel])
         seeds = np.ones(B, bool)
+
+
+def test_lane_evaluator_tallies_its_appends(both):
+    """The lane evaluator leaves each lane's landed rows on the device
+    (``EvalResult.landed``); ``lane_outputs`` sums them in the same read as
+    the counts, and ``ranked_slots`` counts the slots the loops ranked.
+    Every completed and outgoing row landed once, the rest were kept, and
+    each kept row was expanded by a later loop."""
+    g, pg, tg, tpg = both
+    lanes = tc.make_batched_evaluator(tc.EngineConfig(cap=CAP, expand_block=16))
+    entry = tc.PartitionStore(tpg, device="cpu").get_stacked((0, 1, 2, 3))
+    plan = _ref_plans(both, 1)[0]
+    tplans = plan_to_device(tc.PlanArrays.stack(
+        [plan_arrays_from_numpy(**_plan_fields(plan))]), "cpu")
+    got, loops = lanes(entry.part, entry.g2l, torch.from_numpy(tpg.owner), tplans,
+                       [plan.n_steps], range(4), [0] * 4,
+                       *(torch.from_numpy(a) for a in _lane_inputs(4, CAP)),
+                       torch.ones(4, dtype=torch.bool))
+    W = entry.part["ell_dst"].shape[2]
+    assert ranked_slots(tc.EngineConfig(cap=CAP, expand_block=16), entry.part,
+                        4, loops) == 4 * loops * 16 * W
+    outs, landed = lane_outputs(got)
+    assert len(outs) == 4 and landed == int(got.landed.sum())
+    assert not bool(got.overflow.any())
+    kept = got.landed - got.comp_n.long() - got.out_n.long()
+    assert bool((kept >= 0).all()) and int(kept.sum()) > 0
+    assert bool((kept <= got.n_expanded.long()).all())
 
 
 # ---------------------------------------------------------------------------

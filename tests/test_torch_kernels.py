@@ -1,6 +1,8 @@
 """The PyTorch port's kernels — the fused frontier step, the frontier
 expansion match and the label histogram — against the JAX package's
-oracles and its Pallas kernels (interpret mode), on the CPU.
+oracles and its Pallas kernels (interpret mode), on the CPU; the
+evaluator's append op against the inline appends' rules, applied one
+candidate at a time.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 Every output is an integer or a mask, so every comparison is exact.  The
@@ -9,7 +11,9 @@ holds them against these plain versions there.
 """
 import dataclasses
 import functools
+import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,9 +30,13 @@ from repro.kernels import ref as ref_ref
 from repro_torch.core.engine import plan_to_device
 from repro_torch.convert import plan_arrays_from_numpy
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import frontier_append as fa
 from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import fused_frontier as ff
 from repro_torch.kernels import label_histogram as lh
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (the append cases the card test shares)
 
 _V = 1000   # global-id space of the random dgid column
 SWEEP = [
@@ -594,7 +602,7 @@ def test_label_histogram_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
 
 
 def test_every_kernel_targets_hopper_with_a_c_launcher():
-    assert build.kernel_names() == sorted([ff.NAME, fe.NAME, lh.NAME])
+    assert build.kernel_names() == sorted([ff.NAME, fe.NAME, lh.NAME, fa.NAME])
     for name in build.kernel_names():
         src = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch' in src
@@ -673,3 +681,106 @@ def test_frontier_expand_across_the_warp_width(W, Q):
     got = _port_expand(c)
     _assert_expand_equal(got, _jax_expand(c), c)
     assert got[0].any()
+
+
+# ---------------------------------------------------------------------------
+# frontier_append: the evaluator's appends
+# ---------------------------------------------------------------------------
+
+def _looped_appends(st, rows, step, dest, done, outm, keep, work, free):
+    """The inline appends' rules, candidate by candidate in candidate order
+    and lane by lane, with no cumsum, scatter or trash row: a done row to
+    the completed buffer and an outm row (with its step and destination)
+    to the outgoing one while under cap, the r-th keep row to free slot
+    ``free[r]`` while r < kfree; counts clamped at cap, overflow when a
+    total passes cap or the keep rows outnumber the free work slots, and
+    each lane's written rows added to ``landed``.  In place."""
+    L, N = done.shape
+    cap = st.comp_rows.shape[1] - 1
+    for lane in range(L):
+        wrote = 0
+        ns = {"comp": int(st.comp_n[lane]), "out": int(st.out_n[lane])}
+        for t in range(N):
+            if done[lane, t]:
+                if ns["comp"] < cap:
+                    st.comp_rows[lane, ns["comp"]] = rows[lane, t]
+                    wrote += 1
+                ns["comp"] += 1
+            if outm[lane, t]:
+                if ns["out"] < cap:
+                    st.out_rows[lane, ns["out"]] = rows[lane, t]
+                    st.out_step[lane, ns["out"]] = step[lane, t]
+                    st.out_dest[lane, ns["out"]] = dest[lane, t]
+                    wrote += 1
+                ns["out"] += 1
+        over = ns["comp"] > cap or ns["out"] > cap
+        if keep is not None:
+            wr, ws, wv = work
+            n_free = int((~wv[lane, :-1]).sum())
+            r = 0
+            for t in range(N):
+                if keep[lane, t]:
+                    if r < free.shape[1]:
+                        slot = int(free[lane, r])
+                        wr[lane, slot], ws[lane, slot] = rows[lane, t], step[lane, t]
+                        wv[lane, slot] = True
+                        wrote += 1
+                    r += 1
+            over = over or r > n_free
+        st.comp_n[lane] = min(ns["comp"], cap)
+        st.out_n[lane] = min(ns["out"], cap)
+        st.overflow[lane] |= over
+        st.landed[lane] += wrote
+
+
+@pytest.mark.parametrize("keep", [True, False])
+def test_frontier_append_plain_equals_the_inline_appends(keep):
+    """The op on CPU tensors (its plain version, the cumsum + scatter form)
+    against the inline appends' rules applied one candidate at a time
+    (``_looped_appends``), over six lanes: sparse, empty, full (past cap
+    and past the free slots) and half flags, counts just under cap, a
+    nearly full work buffer; and the pre-classify's form (no keep, rows
+    through a strided view).  Every output but the trash rows is equal:
+    rows, steps, destinations, the work buffers, counts, overflow and the
+    rows landed."""
+    build.LAUNCHES.clear()
+    st, args = chip_smoke.append_case(5, 6, 16, 5, 4, cap=24, WT=37,
+                                      density=0.1, keep=keep, dev="cpu")
+    want = chip_smoke.clone_append(st, args)
+    _looped_appends(want[0], *want[1])
+    landed0 = st.landed.clone()
+    ops.frontier_append(st, *args)
+    assert build.LAUNCHES[fa.NAME] == 0
+    rec = chip_smoke.compare_append((st, args), want)
+    assert rec["mismatches"] == 0, rec
+    # every edge case occurred: overflow on some lanes only, rows landed
+    # on some lanes, none on the frozen lane 1
+    landed = st.landed - landed0
+    assert 0 < rec["overflow_lanes"] < 6, rec
+    assert int(landed.sum()) > 0 and int(landed[1]) == 0
+
+
+def test_frontier_append_wrapper_rejects_bad_inputs():
+    st, args = chip_smoke.append_case(6, 2, 4, 3, 4, cap=8, WT=9, dev="cpu")
+    rows, step, dest, done, outm, keep, work, free = args
+    with pytest.raises(ValueError):                      # neither cpu nor cuda
+        meta = [a.to("meta") for a in args[:6]]
+        fa.frontier_append(fa.AppendState(*(t.to("meta") for t in st)), *meta,
+                           tuple(t.to("meta") for t in work), free.to("meta"))
+    bad = {0: rows.long(), 1: step.to("meta"), 2: dest.long(), 3: done.int(),
+           4: outm.to("meta"), 5: keep.to(torch.uint8), 7: free.int()}
+    for i, b in bad.items():                             # dtypes, mixed devices
+        broken = list(args)
+        broken[i] = b
+        with pytest.raises(ValueError):
+            fa.frontier_append(st, *broken)
+    with pytest.raises(ValueError):                      # wv on another device
+        fa.frontier_append(st, *args[:6], (*work[:2], work[2].to("meta")), free)
+    with pytest.raises(ValueError):                      # keep without work
+        fa.frontier_append(st, *args[:6])
+    with pytest.raises(ValueError):                      # free list too short
+        fa.frontier_append(st, *args[:7], free[:, :-1])
+    with pytest.raises(ValueError):                      # not from append_state
+        fa.frontier_append(tuple(st), *args)
+    with pytest.raises(ValueError):                      # sized for fewer candidates
+        fa.frontier_append(st._replace(scratch=st.scratch[:1]), *args)

@@ -24,6 +24,9 @@ get, and adds:
   named_idle the idle time the breakdown names ``graphbench.serve``,
              ``query`` or ``frontend.serve``, as a share of the window's
              idle time
+  appends    the window's ``kernel.eval`` spans' ``landed`` rows and
+             ``candidates`` ranked, summed, and their ratio: how sparse
+             the evaluator's appends are
 
 It writes the result, with these, to ``--out`` and prints a summary.
 Needs a CUDA device; the benchmark's own command does not use it.
@@ -98,9 +101,15 @@ def extras(res: dict, ctx: dict, launched: list) -> dict:
     clock["drift_ns"] = spans.drift_ns(sp, served.t0, served.t1)
     seconds = served.t1 - served.t0
     in_window = sum(1 for s in sp if served.t0 <= s.t0 <= served.t1)
+    evals = [s.attrs for s in sp if s.name == "kernel.eval"
+             and served.t0 <= s.t0 <= served.t1 and "candidates" in s.attrs]
+    landed = sum(a["landed"] for a in evals)
+    candidates = sum(a["candidates"] for a in evals)
     out = {"clock": clock, "qps": served.completed / seconds,
            "spans_per_query": in_window / served.completed if served.completed else None,
-           "self_s": self_times(sp, served.t0, served.t1)}
+           "self_s": self_times(sp, served.t0, served.t1),
+           "appends": {"landed": landed, "candidates": candidates,
+                       "landed_share": landed / candidates if candidates else None}}
     dev, gaps = res["device"], res.get("breakdown", {}).get("idle_gaps", [])
     if "busy_s" in dev:
         idle = dev["window_s"] - dev["busy_s"]
@@ -142,7 +151,8 @@ def main(argv=None) -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print("trace " + json.dumps({k: res[k] for k in ("workload", "seed", "correct", "qps",
-                                                      "spans_per_query", "clock", "metrics")}
+                                                      "spans_per_query", "clock", "metrics",
+                                                      "appends")}
                                 | {"named_idle": res.get("named_idle")}), flush=True)
     return 0
 
