@@ -256,6 +256,9 @@ class OPATEngine:
                         self.store.prefetch(ranked[1])
                     self._run_partition(entry, plan_arrays, plan.n_steps,
                                         batch, seed_fresh, st)
+                # the unpin may have evicted it: its memory goes now, not
+                # after the next round's load
+                del entry
 
         answers = truncate_answers(st.unique_answers(), max_answers)
         delta = self.store.stats - load0

@@ -71,8 +71,17 @@ Tracing (obs/trace.py): ``scheduler.admit`` per admission,
 ``scheduler.rank``, ``scheduler.round`` and ``scheduler.collect`` inside
 it; in a round, ``kernel.eval`` per evaluator call, stamped with its
 ``lanes`` and its step launches (``loops``), then ``scheduler.absorb``
-over the call's lane outputs.  Attributes are built only when the
-tracer is enabled.
+over the call's lane outputs.  A traced ``scheduler.round`` also carries
+the ``tier`` its load resolved to (``cold``, ``warm`` or ``prefetch``)
+and its ``nbytes``.  Attributes are built only when the tracer is
+enabled.
+
+Residency: each round drops its store entry once its evaluation is
+done, so an entry the store evicts at the round's unpin is not held
+through the next round's load.  Under ``cache_parts=1`` the device then
+holds at most two partitions: the one being evaluated (pinned) and the
+runner-up staged beside it, or, during a cold load, the new partition
+and the runner-up it is about to evict.
 """
 from __future__ import annotations
 
@@ -94,6 +103,13 @@ from .session import QueryResult
 from .state import BindingBatch, QueryState
 from .store import LoadStats
 from .traditional_mp import TraditionalMPEngine, lane_inputs
+
+
+def load_tier(event: LoadStats) -> str:
+    """The tier one load resolved to, from the store's counters over it."""
+    if event.misses:
+        return "cold"
+    return "prefetch" if event.prefetch_hits else "warm"
 
 
 def batch_bucket(n: int) -> int:
@@ -407,16 +423,21 @@ class QueryScheduler:
             attrs = (dict(pid=pid, round=rounds, batch=len(batch),
                           qids=sorted({j.qid for j in batch}))
                      if self.tracer.enabled else {})
-            with self.tracer.span("scheduler.round", **attrs):
+            with self.tracer.span("scheduler.round", **attrs) as rsp:
                 ev0 = self.store.stats.copy()
                 entry = self.store.get(pid)
                 # the attributable event is the load itself, snapshot
                 # BEFORE staging the workload's runner-up
                 event = self.store.stats - ev0
+                if self.tracer.enabled:
+                    rsp.set(tier=load_tier(event), nbytes=entry.nbytes)
                 with self.store.pinned(pid):
                     if self.prefetch and len(ranked) > 1:
                         self.store.prefetch(int(ranked[1]))
                     self._eval_batch(beval, entry, pid, batch)
+                # the unpin may have evicted it: its memory goes now, not
+                # after the next round's load
+                del entry
             self.loads.append(pid)
             self.batch_sizes.append(len(batch))
             self._touched.add(pid)
@@ -487,9 +508,11 @@ class QueryScheduler:
             attrs = (dict(pids=chosen, round=rounds, batch=len(batch),
                           qids=sorted({j.qid for j in batch}))
                      if tr.enabled else {})
-            with tr.span("scheduler.round", **attrs):
+            with tr.span("scheduler.round", **attrs) as rsp:
                 entry = self.store.get_stacked(tuple(exec_set))
                 event = self.store.stats - ev0
+                if tr.enabled:
+                    rsp.set(tier=load_tier(event), nbytes=entry.nbytes)
                 key = ("scheduler.tmp", batch_bucket(len(batch)))
                 kattrs = (dict(pids=chosen, batch=len(batch), lanes=len(inputs))
                           if tr.enabled else {})
@@ -508,6 +531,7 @@ class QueryScheduler:
                             cfg, entry.part, len(inputs), loops))
                     self.profiler.stamp_kernel(ksp, key, loops)
                     self.profiler.sample_device(ksp, self.store)
+                del entry
             with tr.span("scheduler.absorb") as asp:
                 if tr.enabled:
                     asp.set(lanes=len(outs))

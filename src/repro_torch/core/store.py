@@ -15,7 +15,12 @@ object, with the same counters as the JAX package's store:
 
 Eviction is LRU with an optional capacity in partitions
 (``capacity_parts``) or bytes (``capacity_bytes``); pinned entries are
-never evicted (``pin`` / ``unpin`` / ``pinned``).
+never evicted (``pin`` / ``unpin`` / ``pinned``).  A traced store records
+each eviction as a ``store.evict`` event (``pid``, ``nbytes``, and
+``unread``: a prefetched entry no ``get`` ever read).  The store's
+budget bounds what its cache holds; a caller that keeps an evicted
+entry keeps its device memory too, so the loops drop each round's entry
+once the round is done.
 
 On CUDA the host tier's bundles sit in page-locked memory
 (storage/host_cache.py).  A cold ``get`` copies on the current
@@ -607,8 +612,12 @@ class PartitionStore:
                            if k != keep and self._cache[k].key not in self._pins), None)
             if victim is None:
                 return False
-            del self._cache[victim]
+            gone = self._cache.pop(victim)
             self.stats.evictions += 1
+            if self.tracer.enabled:
+                # unread: a prefetch no get ever used, its copy wasted
+                self.tracer.event("store.evict", pid=gone.key, nbytes=gone.nbytes,
+                                  unread=gone.prefetched)
             return True
 
         while over() and evict(list(self._cache)):

@@ -38,7 +38,7 @@ TREE = {
     "scheduler.run": ("frontend.serve", {"max_rounds", "results"}),
     "scheduler.retire": ("scheduler.run", {"retired"}),
     "scheduler.rank": ("scheduler.run", {"candidates"}),
-    "scheduler.round": ("scheduler.run", {"round", "batch", "qids"}),
+    "scheduler.round": ("scheduler.run", {"round", "batch", "qids", "tier", "nbytes"}),
     "kernel.eval": ("scheduler.round", {"batch", "lanes", "loops"}),
     "scheduler.absorb": (("scheduler.round", "scheduler.run"), {"lanes"}),
     "scheduler.collect": ("scheduler.run", {"results"}),

@@ -27,6 +27,9 @@ get, and adds:
   appends    the window's ``kernel.eval`` spans' ``landed`` rows and
              ``candidates`` ranked, summed, and their ratio: how sparse
              the evaluator's appends are
+  rounds     ``round_ms`` split by the tier of each round's load
+             (``scheduler.round``'s ``tier``: cold, prefetch or warm):
+             the mean round in ms and the number of rounds of each
 
 It writes the result, with these, to ``--out`` and prints a summary.
 Needs a CUDA device; the benchmark's own command does not use it.
@@ -65,6 +68,19 @@ def self_times(sp: list, t0: float, t1: float) -> dict:
         got[0] += spans.self_time(s, kids.get(s.span_id, []))
         got[1] += 1
     return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def rounds_by_tier(sp: list, t0: float, t1: float) -> dict:
+    """The mean ``scheduler.round`` in ms and the count, by the tier of the
+    round's load; empty for a program whose rounds carry no ``tier``."""
+    got = {}
+    for s in sp:
+        if s.name == "scheduler.round" and s.t1 is not None and t0 <= s.t0 \
+                and s.t1 <= t1 and "tier" in s.attrs:
+            g = got.setdefault(s.attrs["tier"], [0.0, 0])
+            g[0] += s.t1 - s.t0
+            g[1] += 1
+    return {k: {"round_ms": 1e3 * v[0] / v[1], "rounds": v[1]} for k, v in sorted(got.items())}
 
 
 def launch_times() -> list:
@@ -109,7 +125,8 @@ def extras(res: dict, ctx: dict, launched: list) -> dict:
            "spans_per_query": in_window / served.completed if served.completed else None,
            "self_s": self_times(sp, served.t0, served.t1),
            "appends": {"landed": landed, "candidates": candidates,
-                       "landed_share": landed / candidates if candidates else None}}
+                       "landed_share": landed / candidates if candidates else None},
+           "rounds": rounds_by_tier(sp, served.t0, served.t1)}
     dev, gaps = res["device"], res.get("breakdown", {}).get("idle_gaps", [])
     if "busy_s" in dev:
         idle = dev["window_s"] - dev["busy_s"]
@@ -152,7 +169,7 @@ def main(argv=None) -> int:
     Path(args.out).write_text(json.dumps(res, indent=1))
     print("trace " + json.dumps({k: res[k] for k in ("workload", "seed", "correct", "qps",
                                                       "spans_per_query", "clock", "metrics",
-                                                      "appends")}
+                                                      "appends", "rounds")}
                                 | {"named_idle": res.get("named_idle")}), flush=True)
     return 0
 
